@@ -1,0 +1,169 @@
+"""The port's cross+conv1 entries (plain version, CPU) vs the JAX entries.
+
+The JAX side runs its Pallas kernel in interpret mode (bt=8), as the
+JAX package's own kernel tests do. Inputs are numpy draws handed to both.
+f32 compute: rtol 2e-4, atol 2e-5 (only the sum order differs).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cffm_tpu.config import ModelConfig as JaxModelConfig
+from cffm_tpu.ops import cross as jax_cross
+from cffm_tpu.ops import interaction_conv as jax_ic
+from cffm_tpu_torch.config import ModelConfig
+from cffm_tpu_torch.ops import cross
+from cffm_tpu_torch.ops import interaction_conv as ic
+
+RTOL, ATOL = 2e-4, 2e-5
+B = 16
+
+
+def _cfgs(**kw):
+    kw.setdefault("compute_dtype", "float32")
+    return JaxModelConfig(**kw), ModelConfig(**kw)
+
+
+def _w1(cfg, c1, seed=1):
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(c1, cfg.num_pairs, cfg.conv_kernel)).astype(np.float32)
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+@pytest.fixture(autouse=True)
+def _counts_stay_zero():
+    ic.reset_launches()
+    yield
+    # CPU tensors take the plain version: the kernel is never launched
+    assert [fn.launches for fn in ic.ENTRIES] == [0, 0, 0, 0]
+
+
+@pytest.mark.parametrize("cross_kind", ["field_aware", "hadamard"])
+@pytest.mark.parametrize("k", [1, 3, 5])
+def test_sliced_entry_matches_jax(cross_kind, k):
+    jcfg, cfg = _cfgs(num_fields=5, vocab_sizes=(32,) * 5, embed_dim=8,
+                      cross=cross_kind, conv_channels=(12,), conv_kernel=k)
+    shape = ((B, 5, 5, 8) if cross_kind == "field_aware" else (B, 5, 8))
+    emb = np.random.default_rng(0).normal(size=shape).astype(np.float32)
+    w1 = _w1(cfg, 12)
+    want = jax_ic.cross_conv1_pallas(jnp.asarray(emb), jnp.asarray(w1), jcfg, 8, True)
+    got = ic.cross_conv1(torch.from_numpy(emb), torch.from_numpy(w1), cfg)
+    assert got.shape == (B, 12, 8)
+    _close(got, want)
+    _close(ic.cross_conv1_reference(torch.from_numpy(emb), torch.from_numpy(w1), cfg),
+           jax_ic.cross_conv1_reference(jnp.asarray(emb), jnp.asarray(w1), jcfg))
+
+
+def _full_rows_cfgs():
+    # F=15, d=16: row_width 240 -> table_width 256 with the fused column
+    jcfg, cfg = _cfgs(num_fields=15, vocab_sizes=(50,) * 15, embed_dim=16,
+                      conv_channels=(8,))
+    assert cfg.fused_linear and cfg.table_width == 256
+    return jcfg, cfg
+
+
+def _rows_fm(cfg, seed=0):
+    return np.random.default_rng(seed).normal(
+        size=(cfg.num_fields, B, cfg.table_width)).astype(np.float32)
+
+
+def test_flat_full_rows_entry_matches_jax():
+    jcfg, cfg = _full_rows_cfgs()
+    emb2d = np.ascontiguousarray(_rows_fm(cfg).transpose(1, 0, 2)).reshape(B, -1)
+    w1 = _w1(cfg, 8)
+    y_want, lin_want = jax_ic.cross_conv1_lin_pallas(
+        jnp.asarray(emb2d), jnp.asarray(w1), jcfg, 8, True)
+    y, lin = ic.cross_conv1_lin(torch.from_numpy(emb2d), torch.from_numpy(w1), cfg)
+    _close(y, y_want)
+    _close(lin, lin_want)
+
+
+def test_field_major_entry_matches_jax():
+    jcfg, cfg = _full_rows_cfgs()
+    emb3 = _rows_fm(cfg)
+    w1 = _w1(cfg, 8)
+    y_want, lin_want = jax_ic.cross_conv1_lin_fm_pallas(
+        jnp.asarray(emb3), jnp.asarray(w1), jcfg, 8, True)
+    y, lin = ic.cross_conv1_lin_fm(torch.from_numpy(emb3), torch.from_numpy(w1), cfg)
+    _close(y, y_want)
+    _close(lin, lin_want)
+
+
+@pytest.mark.parametrize("split", [1, 4, 14])
+def test_split_field_major_entry_matches_jax(split):
+    jcfg, cfg = _full_rows_cfgs()
+    emb3 = _rows_fm(cfg)
+    es, eb = emb3[:split], emb3[split:]
+    w1 = _w1(cfg, 8)
+    y_want, lin_want = jax_ic.cross_conv1_lin_fm2_pallas(
+        jnp.asarray(es), jnp.asarray(eb), jnp.asarray(w1), jcfg, 8, True)
+    y, lin = ic.cross_conv1_lin_fm2(torch.from_numpy(es), torch.from_numpy(eb),
+                                    torch.from_numpy(w1), cfg)
+    _close(y, y_want)
+    _close(lin, lin_want)
+
+
+@pytest.mark.parametrize("cross_kind", ["field_aware", "hadamard"])
+def test_cross_map_and_conv_core_match_jax(cross_kind):
+    jcfg, cfg = _cfgs(num_fields=6, vocab_sizes=(9,) * 6, embed_dim=7,
+                      cross=cross_kind, conv_channels=(5, 4), conv_kernel=4,
+                      conv_pool=2)
+    shape = (B, 6, 6, 7) if cross_kind == "field_aware" else (B, 6, 7)
+    rng = np.random.default_rng(3)
+    emb = rng.normal(size=shape).astype(np.float32)
+    layers = [{"w": rng.normal(size=(5, 15, 4)).astype(np.float32),
+               "b": rng.normal(size=(5,)).astype(np.float32)},
+              {"w": rng.normal(size=(4, 5, 4)).astype(np.float32),
+               "b": rng.normal(size=(4,)).astype(np.float32)}]
+    t_layers = [{k: torch.from_numpy(v) for k, v in lay.items()} for lay in layers]
+    j_layers = [{k: jnp.asarray(v) for k, v in lay.items()} for lay in layers]
+    _close(cross.build_cross_map(torch.from_numpy(emb), cfg),
+           jax_cross.build_cross_map(jnp.asarray(emb), jcfg))
+    _close(cross.interaction_conv_reference(torch.from_numpy(emb), t_layers, cfg),
+           jax_cross.interaction_conv_reference(jnp.asarray(emb), j_layers, jcfg))
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_interaction_fn_matches_jax(k):
+    """Layer 1 in the entry (odd k) or the reference (even k), then the
+    conv tail, against the JAX interaction_fn."""
+    jcfg, cfg = _cfgs(num_fields=5, vocab_sizes=(32,) * 5, embed_dim=8,
+                      conv_channels=(6, 4), conv_kernel=k, conv_pool=2)
+    rng = np.random.default_rng(4)
+    emb = rng.normal(size=(B, 5, 5, 8)).astype(np.float32)
+    layers = [{"w": rng.normal(size=(6, 10, k)).astype(np.float32),
+               "b": rng.normal(size=(6,)).astype(np.float32)},
+              {"w": rng.normal(size=(4, 6, k)).astype(np.float32),
+               "b": rng.normal(size=(4,)).astype(np.float32)}]
+    t_layers = [{n: torch.from_numpy(v) for n, v in lay.items()} for lay in layers]
+    j_layers = [{n: jnp.asarray(v) for n, v in lay.items()} for lay in layers]
+    want = jax_ic.make_interaction_fn(use_pallas=True, bt=8, interpret=True)(
+        jnp.asarray(emb), j_layers, jcfg)
+    got = ic.make_interaction_fn()(torch.from_numpy(emb), t_layers, cfg)
+    assert got.shape == (B, 4 * 2)
+    _close(got, want)
+
+
+def test_pair_indices_match_jax():
+    for f in (2, 5, 39):
+        for got, want in zip(cross.pair_indices(f), jax_cross.pair_indices(f)):
+            np.testing.assert_array_equal(got, want)
+
+
+def test_entries_reject_what_the_kernel_does_not_take():
+    _, cfg = _cfgs(num_fields=5, vocab_sizes=(32,) * 5, embed_dim=8,
+                   conv_channels=(4,), conv_kernel=2)
+    emb = torch.zeros((B, 5, 5, 8))
+    with pytest.raises(ValueError, match="odd k"):
+        ic.cross_conv1(emb, torch.zeros((4, 10, 2)), cfg)
+    _, movielens_like = _cfgs(num_fields=7, vocab_sizes=(9,) * 7, embed_dim=16,
+                              conv_channels=(4,))
+    assert not movielens_like.fused_linear
+    with pytest.raises(ValueError, match="fused first-order"):
+        ic.cross_conv1_lin_fm(torch.zeros((7, B, 112)), torch.zeros((4, 21, 3)),
+                              movielens_like)

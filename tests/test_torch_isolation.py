@@ -1,0 +1,48 @@
+"""The port stands alone: no file of cffm_tpu_torch, nor chip_smoke.py,
+imports jax, the JAX package or the oracle, and every port module
+imports with those blocked."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "cffm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "cffm_tpu", "oracle", "optax", "orbax")
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_imports(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_every_port_module_imports_without_jax():
+    code = "\n".join([
+        "import importlib, pkgutil, sys",
+        *[f"sys.modules[{name!r}] = None" for name in FORBIDDEN],
+        "import cffm_tpu_torch",
+        "names = [m.name for m in pkgutil.walk_packages(",
+        "    cffm_tpu_torch.__path__, 'cffm_tpu_torch.')]",
+        "for name in names:",
+        "    importlib.import_module(name)",
+        "import chip_smoke",
+        "print(len(names))",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 14
