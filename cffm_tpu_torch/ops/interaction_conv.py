@@ -1,13 +1,16 @@
-"""Fused pairwise cross + conv layer 1: kernel wrappers and plain version.
+"""Fused pairwise cross + conv layer 1: kernel wrappers, autograd and
+plain versions.
 
-The port's counterpart of `cffm_tpu/ops/interaction_conv.py` (forward
-only). The interaction map M (B, P, d), P = F(F-1)/2, is built on chip
-and fed straight into the first, heaviest conv layer (in_channels = P);
-M never reaches device memory. The remaining conv layers, bias, ReLU and
-pooling run in PyTorch on the small (B, C1, d) activation (`_conv_tail`).
+The port's counterpart of `cffm_tpu/ops/interaction_conv.py`. The
+interaction map M (B, P, d), P = F(F-1)/2, is built on chip and fed
+straight into the first, heaviest conv layer (in_channels = P); M never
+reaches device memory, forward or backward. The remaining conv layers,
+bias, ReLU and pooling run in PyTorch on the small (B, C1, d) activation
+(`_conv_tail`).
 
-The kernel is `csrc/cross_conv1_fwd.cu`. Its four wrappers keep the
-contracts of the four JAX entries:
+The forward kernel is `csrc/cross_conv1_fwd.cu`, the backward
+`csrc/cross_conv1_bwd.cu`. Four entries keep the contracts of the four
+JAX entries:
 
   cross_conv1          sliced rows (B,F,F,d) | (B,F,d) -> y (B,C1,d)
   cross_conv1_lin      flat full rows (B, F*table_width) -> (y, lin)
@@ -18,10 +21,20 @@ where lin[b] = sum_f E[b, f, row_width] in f32 (the fused first-order
 column). y is accumulated in f32 and returned in the input dtype; the
 cross products are rounded to the input dtype first, as on the TPU.
 
+Each entry is a `torch.autograd.Function`: gradients flow to the rows
+(E, or both parts of the fm2 form, in their own layouts) and to `w1`.
+The backward follows the JAX kernel: gY is rounded to the input dtype;
+dM is accumulated in f32 and rounded to the input dtype; field-aware dE
+is dM times the partner row, the product in the input dtype; the
+diagonal blocks of dE are exact zeros; glin lands in the fused column of
+every field and the other pad lanes are exact zeros; hadamard dE is
+summed in f32; dW1 is an f32 sum over the batch.
+
 A wrapper launches the CUDA kernel for a CUDA tensor and takes the plain
-PyTorch version (`cross_conv1_reference`) for a CPU tensor; any other
-device raises. Each wrapper counts its kernel launches in its
-`launches` attribute, a plain integer.
+PyTorch version (`cross_conv1_reference`, `cross_conv1_bwd_reference`)
+for a CPU tensor; any other device raises. Each forward entry counts its
+kernel launches in its `launches` attribute, a plain integer, and
+`cross_conv1_bwd.launches` counts the backward kernel's.
 """
 
 from __future__ import annotations
@@ -34,16 +47,17 @@ import torch.nn.functional as F
 from cffm_tpu_torch.config import ModelConfig
 from cffm_tpu_torch.ops import _build
 from cffm_tpu_torch.ops.cross import (build_cross_map, conv1d_same,
-                                      conv_core_reference)
+                                      conv_core_reference, pair_indices)
 
 _SOURCE = "cross_conv1_fwd"
-# conv widths the kernel is instantiated for (any other odd k raises on CUDA)
+_BWD_SOURCE = "cross_conv1_bwd"
+# conv widths the kernels are instantiated for (any other odd k raises on CUDA)
 KERNEL_WIDTHS = (1, 3, 5, 7)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
-# Plain version
+# Plain versions
 # ---------------------------------------------------------------------------
 
 
@@ -61,6 +75,55 @@ def _rows_reference(rows: torch.Tensor, w1: torch.Tensor, cfg: ModelConfig):
     emb = rows[..., : cfg.row_width].reshape(b, f, f, d)
     lin = rows[..., cfg.row_width].float().sum(dim=1)
     return cross_conv1_reference(emb, w1, cfg), lin
+
+
+def cross_conv1_bwd_reference(emb: torch.Tensor, w1: torch.Tensor,
+                              gy: torch.Tensor, cfg: ModelConfig):
+    """Plain backward of cross_conv1: emb (B,F,F,d) | (B,F,d), gy
+    (B, C1, d). Returns (dE in emb's shape and dtype, dW1 (C1, P, k) f32).
+
+    Written out, not autograd of the forward, so that it rounds where the
+    kernel does: gY and W1 to emb's dtype, dM summed in f32 then rounded,
+    field-aware dE products in emb's dtype, hadamard dE summed in f32."""
+    dt = emb.dtype
+    b, d = emb.shape[0], cfg.embed_dim
+    k = w1.shape[-1]
+    lo = (k - 1) // 2
+    m = build_cross_map(emb, cfg).float()                  # (B, P, d)
+    g = gy.to(dt).float()                                  # (B, C1, d)
+    w = w1.to(dt).float()                                  # (C1, P, k)
+    # dW[c,p,t] = sum_{b,x} g[b,c,x] M[b,p,x+t-lo]
+    mp = F.pad(m, (lo, k - 1 - lo))
+    g2 = g.permute(1, 0, 2).reshape(g.shape[1], -1)        # (C1, B*d)
+    dw = torch.stack([g2 @ mp[..., t:t + d].permute(0, 2, 1).reshape(-1, m.shape[1])
+                      for t in range(k)], dim=-1)          # (C1, P, k)
+    # dM[b,p,z] = sum_{c,t} W[c,p,t] g[b,c,z-t+lo]
+    gp = F.pad(g, (k - 1 - lo, lo))
+    dm = sum(torch.einsum("cp,bcz->bpz", w[:, :, t], gp[..., k - 1 - t:k - 1 - t + d])
+             for t in range(k)).to(dt)                     # (B, P, d)
+    pi, pj = (torch.from_numpy(a).to(emb.device) for a in pair_indices(cfg.num_fields))
+    if cfg.cross == "hadamard":
+        acc = torch.zeros(emb.shape, dtype=torch.float32, device=emb.device)
+        acc.index_add_(1, pi, dm.float() * emb[:, pj].float())
+        acc.index_add_(1, pj, dm.float() * emb[:, pi].float())
+        return acc.to(dt), dw
+    de = torch.zeros(emb.shape, dtype=dt, device=emb.device)
+    de[:, pi, pj] = dm * emb[:, pj, pi]
+    de[:, pj, pi] = dm * emb[:, pi, pj]
+    return de, dw
+
+
+def _rows_bwd_reference(rows: torch.Tensor, w1: torch.Tensor, gy: torch.Tensor,
+                        glin: torch.Tensor, cfg: ModelConfig):
+    """Plain backward of the full-rows entries: rows (B, F, table_width).
+    Returns (dRows (B, F, table_width), dW1 (C1, P, k) f32)."""
+    b, f = rows.shape[:2]
+    emb = rows[..., : cfg.row_width].reshape(b, f, f, cfg.embed_dim)
+    de, dw = cross_conv1_bwd_reference(emb, w1, gy, cfg)
+    drows = torch.zeros(rows.shape, dtype=rows.dtype, device=rows.device)
+    drows[..., : cfg.row_width] = de.reshape(b, f, cfg.row_width)
+    drows[..., cfg.row_width] = glin.to(rows.dtype)[:, None]
+    return drows, dw
 
 
 # ---------------------------------------------------------------------------
@@ -81,6 +144,21 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _bwd_library() -> ctypes.CDLL:
+    lib = _build.load(_BWD_SOURCE)
+    fn = lib.cffm_cross_conv1_bwd
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [i, p, p, i, ll, ll, ll, ll, p, p, ll, ll, ll, ll,
+                       p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+        lib.cffm_cross_conv1_bwd_blocks.argtypes = [i]
+        lib.cffm_cross_conv1_bwd_blocks.restype = ctypes.c_int
+        lib.cffm_cross_conv1_bwd_max_channels.argtypes = []
+        lib.cffm_cross_conv1_bwd_max_channels.restype = ctypes.c_int
+    return lib
+
+
 def _check_fused(cfg: ModelConfig, lin: bool = False):
     """The JAX entries' preconditions, raised instead of asserted."""
     if cfg.embed_dim % 2 != 0:
@@ -92,16 +170,11 @@ def _check_fused(cfg: ModelConfig, lin: bool = False):
                          "a fused first-order column")
 
 
-def _launch(parts, w1: torch.Tensor, cfg: ModelConfig, batch: int, lin: bool):
-    """Launch the kernel on field rows given as parts.
-
-    parts: [(tensor, num_fields, field_stride, batch_stride)], one or two
-    CUDA tensors of one dtype whose field rows have contiguous lanes.
-    Returns (y (B, C1, d) in the input dtype, lin (B,) f32 or None)."""
+def _check_launch(parts, w1: torch.Tensor, cfg: ModelConfig):
     t0 = parts[0][0]
     dtype, dev = t0.dtype, t0.device
     if dtype not in _DTYPES:
-        raise TypeError(f"cross_conv1 kernel takes float32 or bfloat16, got {dtype}")
+        raise TypeError(f"cross_conv1 kernels take float32 or bfloat16, got {dtype}")
     for t, _, _, _ in parts:
         if t.device != dev or t.dtype != dtype:
             raise ValueError("all parts must share one CUDA device and dtype")
@@ -109,11 +182,22 @@ def _launch(parts, w1: torch.Tensor, cfg: ModelConfig, batch: int, lin: bool):
             raise ValueError("field rows must have contiguous lanes")
     k = cfg.conv_kernel
     if k not in KERNEL_WIDTHS:
-        raise ValueError(f"cross_conv1 kernel is built for k in {KERNEL_WIDTHS}, got {k}")
+        raise ValueError(f"cross_conv1 kernels are built for k in {KERNEL_WIDTHS}, got {k}")
     c1, p, kw = w1.shape
     if p != cfg.num_pairs or kw != k:
         raise ValueError(f"w1 must be (C1, {cfg.num_pairs}, {k}), got {tuple(w1.shape)}")
+    return dtype, dev
 
+
+def _launch(parts, w1: torch.Tensor, cfg: ModelConfig, batch: int, lin: bool):
+    """Launch the forward kernel on field rows given as parts.
+
+    parts: [(tensor, num_fields, field_stride, batch_stride)], one or two
+    CUDA tensors of one dtype whose field rows have contiguous lanes.
+    Returns (y (B, C1, d) in the input dtype, lin (B,) f32 or None)."""
+    dtype, dev = _check_launch(parts, w1, cfg)
+    k = cfg.conv_kernel
+    c1 = w1.shape[0]
     lib = _library()
     tile = lib.cffm_cross_conv1_fwd_channel_tile()
     c1p = -(-c1 // tile) * tile
@@ -136,10 +220,136 @@ def _launch(parts, w1: torch.Tensor, cfg: ModelConfig, batch: int, lin: bool):
     return y, lin_out
 
 
+def cross_conv1_bwd(parts, dparts, w1: torch.Tensor, gy: torch.Tensor,
+                    glin, cfg: ModelConfig, w_phys: int) -> torch.Tensor:
+    """Launch the backward kernel: dE into dparts, returns dW1 (C1, P, k) f32.
+
+    parts / dparts: [(tensor, num_fields, field_stride, batch_stride)] of
+    the rows and of their gradient, one or two CUDA tensors each, with the
+    same field partition. gy (B, C1, d); glin (B,) or None; w_phys: the
+    lanes of one field row (table_width for the full-rows entries)."""
+    dtype, dev = _check_launch(parts, w1, cfg)
+    k, f, d = cfg.conv_kernel, cfg.num_fields, cfg.embed_dim
+    c1, p, _ = w1.shape
+    batch = gy.shape[0]
+    lib = _bwd_library()
+    if c1 > lib.cffm_cross_conv1_bwd_max_channels():
+        raise ValueError(f"cross_conv1 backward kernel takes C1 <= "
+                         f"{lib.cffm_cross_conv1_bwd_max_channels()}, got {c1}")
+    for t, _, _, _ in dparts:
+        if t.device != dev or t.dtype != dtype or t.stride(-1) != 1:
+            raise ValueError("gradient parts must match the rows' device and dtype")
+    wt = w1.to(device=dev, dtype=dtype).permute(2, 0, 1).contiguous()   # (k, C1, P)
+    g = gy.to(device=dev, dtype=dtype).contiguous()
+    gl = None if glin is None else glin.to(device=dev, dtype=torch.float32).contiguous()
+    blocks = lib.cffm_cross_conv1_bwd_blocks(batch)
+    dwp = torch.empty((blocks, k, p, c1), dtype=torch.float32, device=dev)
+    dw = torch.empty((k, p, c1), dtype=torch.float32, device=dev)
+    hadamard = cfg.cross == "hadamard"
+    hacc = (torch.empty((batch, f, d), dtype=torch.float32, device=dev)
+            if hadamard else None)
+    e0, nf0, fs0, bs0 = parts[0]
+    e1, _, fs1, bs1 = parts[-1]
+    d0, _, dfs0, dbs0 = dparts[0]
+    d1, _, dfs1, dbs1 = dparts[-1]
+    with torch.cuda.device(dev):
+        err = lib.cffm_cross_conv1_bwd(
+            int(dtype == torch.bfloat16), e0.data_ptr(), e1.data_ptr(), nf0,
+            fs0, bs0, fs1, bs1, d0.data_ptr(), d1.data_ptr(), dfs0, dbs0,
+            dfs1, dbs1, wt.data_ptr(), g.data_ptr(),
+            None if gl is None else gl.data_ptr(),
+            None if hacc is None else hacc.data_ptr(), dwp.data_ptr(),
+            dw.data_ptr(), batch, f, d, k, c1, int(hadamard), cfg.row_width,
+            w_phys, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cross_conv1_bwd kernel launch failed: CUDA error {err}")
+    cross_conv1_bwd.launches += 1
+    return dw.permute(2, 1, 0)
+
+
 def _require_cuda(*tensors):
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"cross_conv1 takes CPU or CUDA tensors, got {t.device}")
+
+
+# ---------------------------------------------------------------------------
+# Layouts and the autograd Function
+# ---------------------------------------------------------------------------
+
+
+def _descriptors(kind: str, cfg: ModelConfig, parts):
+    """Kernel part descriptors (tensor, fields, field stride, batch stride)."""
+    if kind == "sliced":
+        (emb,) = parts
+        return [(emb, cfg.num_fields, emb.stride(1), emb.stride(0))]
+    if kind == "flat":
+        (emb2d,) = parts
+        return [(emb2d, cfg.num_fields, cfg.table_width, emb2d.stride(0))]
+    return [(t, t.shape[0], t.stride(0), t.stride(1)) for t in parts]
+
+
+def _plain_rows(kind: str, parts, cfg: ModelConfig) -> torch.Tensor:
+    """The full-rows parts as one (B, F, table_width) tensor."""
+    if kind == "flat":
+        return parts[0].reshape(parts[0].shape[0], cfg.num_fields, -1)
+    return torch.cat(list(parts)).transpose(0, 1)
+
+
+def _split_rows(kind: str, parts, drows: torch.Tensor):
+    """(B, F, table_width) gradient -> the parts' own layouts."""
+    if kind == "flat":
+        return (drows.reshape(parts[0].shape),)
+    out, off = [], 0
+    for t in parts:
+        out.append(drows[:, off:off + t.shape[0]].transpose(0, 1).contiguous())
+        off += t.shape[0]
+    return tuple(out)
+
+
+class _Spec:
+    """Non-tensor arguments of one entry: the config and the layout kind
+    ("sliced" | "flat" | "fm" | "fm2")."""
+
+    def __init__(self, cfg: ModelConfig, kind: str):
+        self.cfg, self.kind, self.lin = cfg, kind, kind != "sliced"
+
+
+class _CrossConv1(torch.autograd.Function):
+    """y (, lin) = cross_conv1*(parts, w1); backward to the parts and w1."""
+
+    @staticmethod
+    def forward(ctx, spec: _Spec, w1, *parts):
+        ctx.spec = spec
+        ctx.save_for_backward(w1, *parts)
+        cfg, kind = spec.cfg, spec.kind
+        if parts[0].device.type == "cuda":
+            batch = parts[0].shape[0 if kind in ("sliced", "flat") else 1]
+            y, lin = _launch(_descriptors(kind, cfg, parts), w1, cfg, batch, spec.lin)
+            return (y, lin) if spec.lin else y
+        if kind == "sliced":
+            return cross_conv1_reference(parts[0], w1, cfg)
+        return _rows_reference(_plain_rows(kind, parts, cfg), w1, cfg)
+
+    @staticmethod
+    def backward(ctx, gy, glin=None):
+        spec = ctx.spec
+        cfg, kind = spec.cfg, spec.kind
+        w1, *parts = ctx.saved_tensors
+        if parts[0].device.type == "cuda":
+            dparts = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in parts]
+            w_phys = cfg.table_width if spec.lin else cfg.row_width
+            dw = cross_conv1_bwd(_descriptors(kind, cfg, parts),
+                                 _descriptors(kind, cfg, dparts), w1, gy,
+                                 glin if spec.lin else None, cfg, w_phys)
+        elif kind == "sliced":
+            de, dw = cross_conv1_bwd_reference(parts[0], w1, gy, cfg)
+            dparts = [de]
+        else:
+            drows, dw = _rows_bwd_reference(_plain_rows(kind, parts, cfg), w1, gy,
+                                            glin, cfg)
+            dparts = _split_rows(kind, parts, drows)
+        return (None, dw.to(w1.dtype), *dparts)
 
 
 # ---------------------------------------------------------------------------
@@ -152,18 +362,18 @@ def cross_conv1(emb: torch.Tensor, w1: torch.Tensor, cfg: ModelConfig
     """Fused cross + conv1 on sliced rows: emb (B,F,F,d) for the
     field-aware cross, (B,F,d) for hadamard. Returns y (B, C1, d)."""
     _check_fused(cfg)
-    if emb.device.type == "cpu":
-        return cross_conv1_reference(emb, w1, cfg)
-    _require_cuda(emb)
-    f, d = cfg.num_fields, cfg.embed_dim
-    want = (f, f, d) if cfg.cross == "field_aware" else (f, d)
-    if tuple(emb.shape[1:]) != want:
-        raise ValueError(f"emb must be (B, {want}), got {tuple(emb.shape)}")
-    if cfg.cross == "field_aware" and emb.stride(2) != d:
-        raise ValueError("each field row of emb must be contiguous")
-    part = (emb, f, emb.stride(1), emb.stride(0))
-    y, _ = _launch([part], w1, cfg, emb.shape[0], lin=False)
-    cross_conv1.launches += 1
+    on_card = emb.device.type != "cpu"
+    if on_card:
+        _require_cuda(emb)
+        f, d = cfg.num_fields, cfg.embed_dim
+        want = (f, f, d) if cfg.cross == "field_aware" else (f, d)
+        if tuple(emb.shape[1:]) != want:
+            raise ValueError(f"emb must be (B, {want}), got {tuple(emb.shape)}")
+        if cfg.cross == "field_aware" and emb.stride(2) != d:
+            raise ValueError("each field row of emb must be contiguous")
+    y = _CrossConv1.apply(_Spec(cfg, "sliced"), w1, emb)
+    if on_card:
+        cross_conv1.launches += 1
     return y
 
 
@@ -175,12 +385,12 @@ def cross_conv1_lin(emb2d: torch.Tensor, w1: torch.Tensor, cfg: ModelConfig):
     w = cfg.table_width
     if tuple(emb2d.shape) != (b, cfg.num_fields * w):
         raise ValueError(f"emb2d must be (B, {cfg.num_fields * w}), got {tuple(emb2d.shape)}")
-    if emb2d.device.type == "cpu":
-        return _rows_reference(emb2d.reshape(b, cfg.num_fields, w), w1, cfg)
-    _require_cuda(emb2d)
-    part = (emb2d, cfg.num_fields, w, emb2d.stride(0))
-    y, lin = _launch([part], w1, cfg, b, lin=True)
-    cross_conv1_lin.launches += 1
+    on_card = emb2d.device.type != "cpu"
+    if on_card:
+        _require_cuda(emb2d)
+    y, lin = _CrossConv1.apply(_Spec(cfg, "flat"), w1, emb2d)
+    if on_card:
+        cross_conv1_lin.launches += 1
     return y, lin
 
 
@@ -191,12 +401,12 @@ def cross_conv1_lin_fm(emb3: torch.Tensor, w1: torch.Tensor, cfg: ModelConfig):
     if f != cfg.num_fields or w != cfg.table_width:
         raise ValueError(f"emb3 must be ({cfg.num_fields}, B, {cfg.table_width}), "
                          f"got {tuple(emb3.shape)}")
-    if emb3.device.type == "cpu":
-        return _rows_reference(emb3.transpose(0, 1), w1, cfg)
-    _require_cuda(emb3)
-    part = (emb3, f, emb3.stride(0), emb3.stride(1))
-    y, lin = _launch([part], w1, cfg, b, lin=True)
-    cross_conv1_lin_fm.launches += 1
+    on_card = emb3.device.type != "cpu"
+    if on_card:
+        _require_cuda(emb3)
+    y, lin = _CrossConv1.apply(_Spec(cfg, "fm"), w1, emb3)
+    if on_card:
+        cross_conv1_lin_fm.launches += 1
     return y, lin
 
 
@@ -204,7 +414,8 @@ def cross_conv1_lin_fm2(e_small: torch.Tensor, e_big: torch.Tensor,
                         w1: torch.Tensor, cfg: ModelConfig):
     """Split-operand twin of cross_conv1_lin_fm for the hybrid lookup:
     e_small (Fs, B, W) and e_big (Fb, B, W) with Fs + Fb = F, read in
-    place as one field axis (no concatenation in device memory)."""
+    place as one field axis (no concatenation in device memory); the
+    gradient comes back as the same two parts."""
     _check_fused(cfg, lin=True)
     fs, b, w = e_small.shape
     fb = e_big.shape[0]
@@ -212,24 +423,23 @@ def cross_conv1_lin_fm2(e_small: torch.Tensor, e_big: torch.Tensor,
             or w != cfg.table_width):
         raise ValueError(f"parts must be (Fs, B, {cfg.table_width}) + (Fb, B, "
                          f"{cfg.table_width}) with Fs + Fb = {cfg.num_fields}")
-    if e_small.device.type == "cpu" and e_big.device.type == "cpu":
-        return _rows_reference(torch.cat([e_small, e_big]).transpose(0, 1), w1, cfg)
-    _require_cuda(e_small, e_big)
-    parts = [(e_small, fs, e_small.stride(0), e_small.stride(1)),
-             (e_big, fb, e_big.stride(0), e_big.stride(1))]
-    y, lin = _launch(parts, w1, cfg, b, lin=True)
-    cross_conv1_lin_fm2.launches += 1
+    on_card = not (e_small.device.type == "cpu" and e_big.device.type == "cpu")
+    if on_card:
+        _require_cuda(e_small, e_big)
+    y, lin = _CrossConv1.apply(_Spec(cfg, "fm2"), w1, e_small, e_big)
+    if on_card:
+        cross_conv1_lin_fm2.launches += 1
     return y, lin
 
 
 ENTRIES = (cross_conv1, cross_conv1_lin, cross_conv1_lin_fm, cross_conv1_lin_fm2)
-for _fn in ENTRIES:
+for _fn in ENTRIES + (cross_conv1_bwd,):
     _fn.launches = 0
 
 
 def reset_launches():
-    """Set every entry's launch count to 0."""
-    for fn in ENTRIES:
+    """Set every forward entry's and the backward's launch count to 0."""
+    for fn in ENTRIES + (cross_conv1_bwd,):
         fn.launches = 0
 
 

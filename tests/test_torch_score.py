@@ -14,7 +14,7 @@ from cffm_tpu.models.cffm import init_params as jax_init_params
 from cffm_tpu_torch import config, score as score_lib
 from cffm_tpu_torch.convert import params_from_jax
 from cffm_tpu_torch.ops import interaction_conv as ic
-from cffm_tpu_torch.train import evaluate
+from cffm_tpu_torch.train import TrainState, evaluate
 
 N_BATCHES = 3
 
@@ -59,7 +59,7 @@ def test_score_matches_jax_evaluate(tmp_path):
 def test_evaluate_matches_jax_evaluate():
     cfg, params, batches, want = _jax_side()
     ic.reset_launches()
-    got = evaluate(params, batches, cfg, ic.make_interaction_fn())
+    got = evaluate(TrainState(0, params, {}, {}), batches, cfg, ic.make_interaction_fn())
     assert sum(fn.launches for fn in ic.ENTRIES) == 0  # CPU: plain version
     for key in want:
         np.testing.assert_allclose(got[key], want[key], rtol=1e-5)
