@@ -21,26 +21,33 @@
 // axis in chunks of kPC pairs. Per chunk it stages the weight chunk, then
 // for each group of kEB examples stages g (halo-padded) and rebuilds the
 // chunk's cross map and its two factors in shared memory, so M never
-// reaches device memory. Two GEMMs share those tiles on the CUDA cores:
-//   dW: each thread owns one pair x 8 channels x K taps, accumulated in
-//       registers across all the block's example groups, and written once
-//       per chunk as this block's f32 partial;
-//   dM: each thread owns one (example, pair) and 8 positions at a time,
-//       then writes its two dE outputs straight from registers (field-aware)
-//       or hands dM to an f32 accumulator pass (hadamard).
+// reaches device memory. Two products share those tiles:
+//   dW: per pair tile, channels x taps, accumulated in registers across all
+//       the block's example groups, and written once per chunk as this
+//       block's f32 partial;
+//   dM: per example, then dE straight from registers (field-aware) or an
+//       f32 accumulator pass over (example, field, position) (hadamard).
 // The dW partials (blocks, K, P, C1) are summed by a second kernel, one
 // thread per weight, in block order: deterministic, no atomics.
+// Two kernels share that walk. Field-aware bf16 rows with d=16 and C1<=64
+// (the criteo_kaggle training path) take cross_conv1_bwd_mma_kernel: both
+// products as bf16 mma.sync tiles with f32 sums, every staged tile in
+// bf16, two blocks per SM. Everything else (f32, hadamard, other shapes)
+// takes cross_conv1_bwd_kernel: FMAs on the CUDA cores, f32 tiles.
 //
 // Bound on the H100. At criteo_kaggle shapes (F=39, d=16, W=640, C1=64,
 // k=3, bf16) dW and dM each take 2*d*P*k*C1 = 4.55 MFLOP per example
-// (298 GFLOP at B=65536) against ~100 KB of E, dE and g moved: about 90
-// FLOP per byte, memory-bound on paper. This simple design runs its FMAs
-// on the CUDA cores, so it is bound by FP32 issue (>= 4.5 ms at B=65536),
-// as the forward is. Left on the table: bf16 mma/wgmma tiles of M and g,
-// TMA loads, and fusing the forward's cross build with this one.
+// (298 GFLOP each at B=65536) against ~100 KB of E, dE and g moved: about
+// 90 FLOP per byte, so on paper the function is memory-bound (2.0 ms at
+// B=65536). The CUDA-core kernel is bound by FP32 issue and by the latency
+// of one 129 KB block per SM; the tensor-core kernel by its staging of g
+// and M per chunk and by synchronisation. Left on the table: wgmma with
+// TMA-fed tiles, staging g once per example group instead of per chunk,
+// and fusing the forward's cross build with this one.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -90,6 +97,29 @@ template <typename T>
 __device__ __forceinline__ T* out_row(const Args& a, int f, long long b) {
   if (f < a.nf0) return static_cast<T*>(a.de0) + f * a.dfs0 + b * a.dbs0;
   return static_cast<T*>(a.de1) + (f - a.nf0) * a.dfs1 + b * a.dbs1;
+}
+
+// Field-aware dE lanes no pair writes: diagonal blocks zero; with lin, the
+// fused column glin and the other pad lanes zero. One block's examples.
+template <typename T>
+__device__ void diag_and_pads(const Args& a, long long b_begin, long long b_end) {
+  const int extra = a.glin != nullptr ? a.w_phys - a.lin_col : 0;
+  const int lanes = a.d + extra;
+  const long long nb = b_end - b_begin;
+  for (long long u = threadIdx.x; u < nb * a.fields * lanes; u += blockDim.x) {
+    const long long bl = u / (a.fields * lanes);
+    const int r = static_cast<int>(u - bl * a.fields * lanes);
+    const int f = r / lanes;
+    const int l = r - f * lanes;
+    const long long b = b_begin + bl;
+    T* row = out_row<T>(a, f, b);
+    if (l < a.d) {
+      row[f * a.d + l] = from_f<T>(0.f);
+    } else {
+      const int col = a.lin_col + (l - a.d);
+      row[col] = from_f<T>(col == a.lin_col ? a.glin[b] : 0.f);
+    }
+  }
 }
 
 template <typename T, int K>
@@ -291,26 +321,234 @@ __global__ void __launch_bounds__(kThreads) cross_conv1_bwd_kernel(Args a) {
     __syncthreads();  // pair tables are rewritten by the next chunk
   }
 
-  // field-aware: diagonal blocks zero; fused column glin; other pad lanes zero
-  if (!a.hadamard) {
-    const int extra = a.glin != nullptr ? a.w_phys - a.lin_col : 0;
-    const int lanes = a.d + extra;
-    const long long nb = b_end - b_begin;
-    for (long long u = tid; u < nb * a.fields * lanes; u += kThreads) {
-      const long long bl = u / (a.fields * lanes);
-      const int r = static_cast<int>(u - bl * a.fields * lanes);
-      const int f = r / lanes;
-      const int l = r - f * lanes;
-      const long long b = b_begin + bl;
-      T* row = out_row<T>(a, f, b);
-      if (l < a.d) {
-        row[f * a.d + l] = from_f<T>(0.f);
-      } else {
-        const int col = a.lin_col + (l - a.d);
-        row[col] = from_f<T>(col == a.lin_col ? a.glin[b] : 0.f);
+  if (!a.hadamard) diag_and_pads<T>(a, b_begin, b_end);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 tensor-core path: field-aware, d == 16, C1 <= 64, 16-byte aligned rows.
+//
+// Same block walk (pair chunks outside, example groups inside) and the same
+// outputs; the two products run as mma.sync.m16n8k16 (bf16 in, f32 sums):
+//   dW: per example and tap, M[p, x+t-k/2] (16 pairs x 16 positions: d is
+//       exactly one k-step) times g[c, x] (16 positions x 8 channels); each
+//       warp owns 16 pairs x 16 channels x K taps, summed over the block;
+//   dM: per example, W[(t, c), p] (16 pairs x 16 channels) times
+//       g[c, x-t+k/2] (16 channels x 8 positions), over K taps and C1.
+// Every staged tile is bf16 (the values are bf16 anyway, so exactly), which
+// halves shared memory against the CUDA-core kernel: two blocks per SM. The
+// cross map is staged twice, at even and odd offsets, so every fragment
+// load of a shifted tap is an aligned 32-bit load.
+// ---------------------------------------------------------------------------
+
+constexpr int kD = 16;     // embed dim of this path
+constexpr int kRow = 24;   // bf16 row stride of the 16-wide tiles (bank spread)
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__host__ __device__ constexpr int mma_c16(int c1) { return (c1 + 15) / 16 * 16; }
+
+// bf16 elements of shared memory the tensor-core kernel needs
+__host__ __device__ constexpr long long mma_smem_elems(int k, int c1) {
+  return static_cast<long long>(k) * kPC * (mma_c16(c1) + 8) +          // W chunk
+         static_cast<long long>(kEB) * mma_c16(c1) * kRow +               // g, x-contiguous
+         static_cast<long long>(kEB) * (kD + k - 1) * (mma_c16(c1) + 8) +  // g, c-contiguous
+         4LL * kEB * kPC * kRow;                                          // M even/odd, factors
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads, 2) cross_conv1_bwd_mma_kernel(Args a) {
+  using bf = __nv_bfloat16;
+  constexpr int kHalf = K / 2;
+  constexpr int kQ = kD + 2 * kHalf;       // halo-padded positions
+  extern __shared__ float4 smem4[];
+  const int c16 = mma_c16(a.c1);
+  const int wrow = c16 + 8;                // row stride of ws and gm
+  bf* ws = reinterpret_cast<bf*>(smem4);   // [t][p][c] = W1[c, p0+p, t]
+  bf* gw = ws + K * kPC * wrow;            // [e][c][x] = g[b, c, x]
+  bf* gm = gw + kEB * c16 * kRow;          // [e][q][c] = g[b, c, q - k/2]
+  bf* me = gm + kEB * kQ * wrow;           // [e][p][q] = M[b, p, q - k/2]
+  bf* mo = me + kEB * kPC * kRow;          // [e][p][q] = M[b, p, q + 1 - k/2]
+  bf* fa = mo + kEB * kPC * kRow;          // [e][p][x] = E[b, i, j*d + x]
+  bf* fb = fa + kEB * kPC * kRow;          // [e][p][x] = E[b, j, i*d + x]
+  __shared__ int pi_s[kPC];
+  __shared__ int pj_s[kPC];
+
+  const int pairs = a.fields * (a.fields - 1) / 2;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const long long b_begin = static_cast<long long>(blockIdx.x) * a.ebl;
+  const long long b_end = min(static_cast<long long>(a.batch), b_begin + a.ebl);
+  const int wpt = warp >> 2;               // dW: pair tile of this warp
+  const int wct = (warp & 3) * 2;          // dW: first of its two channel tiles
+  const bf zero = __float2bfloat16_rn(0.f);
+
+  // halos and pads stay zero: the staging below writes interiors only
+  {
+    const long long n16 = mma_smem_elems(K, a.c1) / 8;
+    for (long long u = tid; u < n16; u += kThreads) smem4[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  for (int p0 = 0; p0 < pairs; p0 += kPC) {
+    const int npc = min(kPC, pairs - p0);
+    __syncthreads();
+    if (tid < kPC) {
+      int i = 0, rem = p0 + tid;
+      while (i < a.fields - 1 && rem >= a.fields - 1 - i) {
+        rem -= a.fields - 1 - i;
+        ++i;
+      }
+      pi_s[tid] = i;
+      pj_s[tid] = i + 1 + rem;
+    }
+    const bf* wg = static_cast<const bf*>(a.w);
+    for (int u = tid; u < K * c16 * kPC; u += kThreads) {
+      const int p = u % kPC;
+      const int r = u / kPC;
+      const int c = r % c16;
+      const int t = r / c16;
+      ws[(t * kPC + p) * wrow + c] =
+          (c < a.c1 && p < npc) ? wg[(static_cast<long long>(t) * a.c1 + c) * pairs + p0 + p] : zero;
+    }
+
+    float acc[2][K][4];
+#pragma unroll
+    for (int ct = 0; ct < 2; ++ct)
+#pragma unroll
+      for (int t = 0; t < K; ++t)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[ct][t][r] = 0.f;
+
+    for (long long b0 = b_begin; b0 < b_end; b0 += kEB) {
+      __syncthreads();  // previous group's tiles are consumed
+      const bf* gg = static_cast<const bf*>(a.g);
+      for (int u = tid; u < kEB * c16 * 2; u += kThreads) {
+        const int e = u / (c16 * 2);
+        const int r = u - e * c16 * 2;
+        const int c = r >> 1, hf = r & 1;
+        const long long b = b0 + e;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (b < b_end && c < a.c1)
+          v = *reinterpret_cast<const uint4*>(gg + (b * a.c1 + c) * kD + hf * 8);
+        *reinterpret_cast<uint4*>(gw + (e * c16 + c) * kRow + hf * 8) = v;
+        const bf* vv = reinterpret_cast<const bf*>(&v);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) gm[(e * kQ + kHalf + hf * 8 + n) * wrow + c] = vv[n];
+      }
+      for (int u = tid; u < kEB * kPC * 2; u += kThreads) {
+        const int e = u / (kPC * 2);
+        const int r = u - e * kPC * 2;
+        const int pc = r >> 1, x0 = (r & 1) * 8;
+        const long long b = b0 + e;
+        uint4 ua = make_uint4(0u, 0u, 0u, 0u), ub = ua;
+        if (pc < npc && b < b_end) {
+          const int i = pi_s[pc], j = pj_s[pc];
+          ua = *reinterpret_cast<const uint4*>(in_row<bf>(a, i, b) + j * kD + x0);
+          ub = *reinterpret_cast<const uint4*>(in_row<bf>(a, j, b) + i * kD + x0);
+        }
+        const int o = (e * kPC + pc) * kRow;
+        *reinterpret_cast<uint4*>(fa + o + x0) = ua;
+        *reinterpret_cast<uint4*>(fb + o + x0) = ub;
+        const bf* av = reinterpret_cast<const bf*>(&ua);
+        const bf* bv = reinterpret_cast<const bf*>(&ub);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const bf m = __float2bfloat16_rn(__bfloat162float(av[n]) * __bfloat162float(bv[n]));
+          const int q = kHalf + x0 + n;
+          me[o + q] = m;
+          if (q >= 1) mo[o + q - 1] = m;
+        }
+      }
+      __syncthreads();
+
+      // dW += M_t^T-tiles x g-tiles, per example and tap
+      for (int e = 0; e < kEB && b0 + e < b_end; ++e) {
+        const bf* gwe = gw + e * c16 * kRow;
+        uint32_t bw[2][2];
+        bool ok[2];
+#pragma unroll
+        for (int ct = 0; ct < 2; ++ct) {
+          ok[ct] = (wct + ct) * 8 < c16;
+          const bf* row = gwe + ((ok[ct] ? wct + ct : 0) * 8 + gid) * kRow + 2 * tig;
+          bw[ct][0] = ld32(row);
+          bw[ct][1] = ld32(row + 8);
+        }
+#pragma unroll
+        for (int t = 0; t < K; ++t) {
+          const bf* m = ((t & 1) ? mo : me) + (e * kPC + wpt * 16) * kRow + (t & ~1) + 2 * tig;
+          const uint32_t a0 = ld32(m + gid * kRow), a1 = ld32(m + (gid + 8) * kRow);
+          const uint32_t a2 = ld32(m + gid * kRow + 8), a3 = ld32(m + (gid + 8) * kRow + 8);
+#pragma unroll
+          for (int ct = 0; ct < 2; ++ct)
+            if (ok[ct]) mma_bf16(acc[ct][t], a0, a1, a2, a3, bw[ct][0], bw[ct][1]);
+        }
+      }
+
+      // dM for example `warp`, then its dE products straight from registers
+      const long long b = b0 + warp;
+      if (b < b_end) {
+        const bf* gme = gm + warp * kQ * wrow;
+        for (int mt = 0; mt < 2 && mt * 16 < npc; ++mt) {
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            float d4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int t = 0; t < K; ++t) {
+              const bf* wt = ws + (t * kPC + mt * 16) * wrow + 2 * tig;
+              const bf* gq = gme + (nt * 8 + gid - t + 2 * kHalf) * wrow + 2 * tig;
+              for (int cc = 0; cc < c16; cc += 16) {
+                mma_bf16(d4, ld32(wt + gid * wrow + cc), ld32(wt + (gid + 8) * wrow + cc),
+                         ld32(wt + gid * wrow + cc + 8), ld32(wt + (gid + 8) * wrow + cc + 8),
+                         ld32(gq + cc), ld32(gq + cc + 8));
+              }
+            }
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              const int p = mt * 16 + gid + rr * 8;
+              if (p >= npc) continue;
+              const int x = nt * 8 + 2 * tig;
+              const int i = pi_s[p], j = pj_s[p];
+              const float dm0 = round_t<bf>(d4[rr * 2]), dm1 = round_t<bf>(d4[rr * 2 + 1]);
+              const bf* fav = fa + (warp * kPC + p) * kRow + x;
+              const bf* fbv = fb + (warp * kPC + p) * kRow + x;
+              *reinterpret_cast<__nv_bfloat162*>(out_row<bf>(a, i, b) + j * kD + x) =
+                  __floats2bfloat162_rn(dm0 * __bfloat162float(fbv[0]),
+                                        dm1 * __bfloat162float(fbv[1]));
+              *reinterpret_cast<__nv_bfloat162*>(out_row<bf>(a, j, b) + i * kD + x) =
+                  __floats2bfloat162_rn(dm0 * __bfloat162float(fav[0]),
+                                        dm1 * __bfloat162float(fav[1]));
+            }
+          }
+        }
       }
     }
+
+    // this block's dW partial for the chunk
+    float* out = a.dwp + static_cast<long long>(blockIdx.x) * K * pairs * a.c1;
+#pragma unroll
+    for (int ct = 0; ct < 2; ++ct)
+#pragma unroll
+      for (int t = 0; t < K; ++t)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int p = wpt * 16 + gid + (r >> 1) * 8;
+          const int c = (wct + ct) * 8 + 2 * tig + (r & 1);
+          if (p < npc && c < a.c1)
+            out[(static_cast<long long>(t) * pairs + p0 + p) * a.c1 + c] = acc[ct][t][r];
+        }
   }
+  diag_and_pads<__nv_bfloat16>(a, b_begin, b_end);
 }
 
 // dw[i] = sum over blocks of dwp[blk, i], in block order
@@ -354,6 +592,38 @@ cudaError_t launch_k(const Args& a, int k, int blocks, cudaStream_t stream) {
   }
 }
 
+template <int K>
+cudaError_t launch_mma(const Args& a, int blocks, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(mma_smem_elems(K, a.c1)) * sizeof(__nv_bfloat16);
+  const cudaError_t err = cudaFuncSetAttribute(
+      cross_conv1_bwd_mma_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cross_conv1_bwd_mma_kernel<K><<<blocks, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_mma_k(const Args& a, int k, int blocks, cudaStream_t stream) {
+  switch (k) {
+    case 1: return launch_mma<1>(a, blocks, stream);
+    case 3: return launch_mma<3>(a, blocks, stream);
+    case 5: return launch_mma<5>(a, blocks, stream);
+    case 7: return launch_mma<7>(a, blocks, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// The tensor-core path reads rows and g with 16-byte loads.
+bool mma_path(const Args& a, int is_bf16) {
+  const long long strides[] = {a.fs0, a.bs0, a.fs1, a.bs1, a.dfs0, a.dbs0, a.dfs1, a.dbs1};
+  for (long long st : strides)
+    if (st % 8 != 0) return false;
+  return is_bf16 && !a.hadamard && a.d == kD && a.c1 <= 64 && aligned16(a.e0) &&
+         aligned16(a.e1) && aligned16(a.de0) && aligned16(a.de1) && aligned16(a.g);
+}
+
 }  // namespace
 
 extern "C" {
@@ -367,7 +637,8 @@ int cffm_cross_conv1_bwd_blocks(int batch) {
 // Largest C1 the kernel takes (kCG channels per thread, kPC pairs per pass).
 int cffm_cross_conv1_bwd_max_channels() { return kThreads / kPC * kCG; }
 
-// Returns a cudaError_t; 0 means both kernels were launched.
+// Returns a cudaError_t; 0 means both kernels were launched. tensor_cores:
+// take the bf16 tensor-core kernel where it applies (else CUDA cores).
 // w: (k, c1, P) in T; g: (batch, c1, d) in T; dwp: (blocks, k, P, c1) f32
 // scratch; dw: (k, P, c1) f32 out; hacc: (batch, fields, d) f32 scratch
 // for hadamard, else null.
@@ -377,7 +648,7 @@ int cffm_cross_conv1_bwd(int is_bf16, const void* e0, const void* e1, int nf0,
                          long long dfs1, long long dbs1, const void* w, const void* g,
                          const float* glin, float* hacc, float* dwp, float* dw,
                          int batch, int fields, int d, int k, int c1, int hadamard,
-                         int lin_col, int w_phys, void* stream) {
+                         int lin_col, int w_phys, int tensor_cores, void* stream) {
   Args a;
   a.e0 = e0;
   a.e1 = e1;
@@ -414,8 +685,9 @@ int cffm_cross_conv1_bwd(int is_bf16, const void* e0, const void* e1, int nf0,
   if (batch == 0) return cudaSuccess;
   const int blocks = cffm_cross_conv1_bwd_blocks(batch);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = is_bf16 ? launch_k<__nv_bfloat16>(a, k, blocks, s)
-                            : launch_k<float>(a, k, blocks, s);
+  cudaError_t err = tensor_cores && mma_path(a, is_bf16) ? launch_mma_k(a, k, blocks, s)
+                    : is_bf16           ? launch_k<__nv_bfloat16>(a, k, blocks, s)
+                                        : launch_k<float>(a, k, blocks, s);
   if (err != cudaSuccess) return err;
   const long long n = static_cast<long long>(k) * fields * (fields - 1) / 2 * c1;
   sum_partials_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(dwp, dw, blocks, n);

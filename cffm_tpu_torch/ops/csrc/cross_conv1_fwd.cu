@@ -28,15 +28,17 @@
 // k=3, bf16) one example reads 39*640*2 B = 49.9 KB of E and needs
 // 2*64*16*741*3 = 4.55 MFLOP: about 91 FLOP per byte, under the ~295 the
 // card needs to be bound by its bf16 tensor cores, so the function is
-// memory-bound on the card. This simple design does not reach that
-// bound: its FMAs run on the CUDA cores (about 1/15 of the bf16
-// tensor-core rate), so it is bound by FP32 issue instead. Left on the
-// table: wgmma on bf16 tiles of M fed from shared memory, TMA loads of
-// the field rows, and a persistent grid that overlaps one tile's cross
-// build with the previous tile's products.
+// memory-bound on the card. Two kernels: bf16 rows with d=16 and C1<=64
+// take cross_conv1_fwd_mma_kernel (below: bf16 mma.sync tiles, f32 sums);
+// everything else takes cross_conv1_fwd_kernel, whose FMAs run on the
+// CUDA cores (about 1/15 of the bf16 tensor-core rate), bound by FP32
+// issue. Left on the table: wgmma fed by TMA loads of the field rows, and
+// a persistent grid that overlaps one tile's cross build with the
+// previous tile's products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -205,6 +207,201 @@ cudaError_t launch_k(const Args& a, int k, cudaStream_t stream) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 tensor-core path: d == 16, C1 <= 64, 16-byte aligned rows.
+//
+// One block owns kEBM examples, one warp each, and walks the pair axis in
+// chunks of kPCM pairs. Per chunk it stages the weights as [t][c][p] and
+// the transposed, halo-padded cross map as [e][q][p] (pairs contiguous), so
+// y[c, x] += W[c, (p, t)] * M[p, x+t-k/2] runs as mma.sync.m16n8k16 (bf16
+// in, f32 sums): 16 channels x 8 positions per tile, 16 pairs per k-step.
+// A warp keeps its example's whole (C1, 16) output in registers across the
+// pair loop. The products are rounded to bf16 before the sums, as on the
+// CUDA-core path.
+// ---------------------------------------------------------------------------
+
+constexpr int kD = 16;       // embed dim of this path
+constexpr int kEBM = 8;      // examples per block (one warp each)
+constexpr int kPCM = 32;     // pairs per chunk (two k-steps)
+constexpr int kRowM = kPCM + 8;  // bf16 row stride of the staged tiles
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__host__ __device__ constexpr int mma_c16(int c1) { return (c1 + 15) / 16 * 16; }
+
+// bf16 elements of shared memory the tensor-core kernel needs
+__host__ __device__ constexpr int mma_smem_elems(int k, int c1) {
+  return k * mma_c16(c1) * kRowM + kEBM * (kD + k - 1) * kRowM;
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads) cross_conv1_fwd_mma_kernel(Args a) {
+  using bf = __nv_bfloat16;
+  constexpr int kHalf = K / 2;
+  constexpr int kQ = kD + 2 * kHalf;
+  extern __shared__ float4 smem4[];
+  const int c16 = mma_c16(a.c1);
+  bf* ws = reinterpret_cast<bf*>(smem4);   // [t][c][p] = W1[c, p0+p, t]
+  bf* mt = ws + K * c16 * kRowM;           // [e][q][p] = M[b, p0+p, q - k/2]
+  __shared__ int pi_s[kPCM];
+  __shared__ int pj_s[kPCM];
+
+  const int pairs = a.fields * (a.fields - 1) / 2;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const long long b0 = static_cast<long long>(blockIdx.x) * kEBM;
+  const bf zero = __float2bfloat16_rn(0.f);
+  const int ctiles = c16 / 16;
+
+  // halo rows stay zero: the staging writes interior rows only
+  for (int u = tid; u < mma_smem_elems(K, a.c1) / 8; u += kThreads)
+    smem4[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  float acc[4][2][4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[m][n][r] = 0.f;
+
+  const bf* wg = static_cast<const bf*>(a.w);  // (P, K, c1p), c1p a multiple of kTM
+  for (int p0 = 0; p0 < pairs; p0 += kPCM) {
+    const int npc = min(kPCM, pairs - p0);
+    __syncthreads();  // the previous chunk's tiles are consumed
+    if (tid < kPCM) {
+      int i = 0, rem = p0 + tid;
+      while (i < a.fields - 1 && rem >= a.fields - 1 - i) {
+        rem -= a.fields - 1 - i;
+        ++i;
+      }
+      pi_s[tid] = i;
+      pj_s[tid] = i + 1 + rem;
+    }
+    for (int u = tid; u < kPCM * K * c16; u += kThreads) {
+      const int c = u % c16;
+      const int r = u / c16;
+      const int t = r % K;
+      const int p = r / K;
+      ws[(t * c16 + c) * kRowM + p] =
+          (c < a.c1 && p < npc) ? wg[(static_cast<long long>(p0 + p) * K + t) * a.c1p + c] : zero;
+    }
+    __syncthreads();  // pair tables
+    for (int u = tid; u < kEBM * kPCM * 2; u += kThreads) {
+      const int hf = u & 1;
+      const int pc = (u >> 1) % kPCM;
+      const int e = (u >> 1) / kPCM;
+      const long long b = b0 + e;
+      uint4 ua = make_uint4(0u, 0u, 0u, 0u), ub = ua;
+      if (pc < npc && b < a.batch) {
+        const int i = pi_s[pc], j = pj_s[pc];
+        ua = *reinterpret_cast<const uint4*>(field_row<bf>(a, i, b) + (a.hadamard ? 0 : j * kD) +
+                                             hf * 8);
+        ub = *reinterpret_cast<const uint4*>(field_row<bf>(a, j, b) + (a.hadamard ? 0 : i * kD) +
+                                             hf * 8);
+      }
+      const bf* av = reinterpret_cast<const bf*>(&ua);
+      const bf* bv = reinterpret_cast<const bf*>(&ub);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        mt[(e * kQ + kHalf + hf * 8 + n) * kRowM + pc] =
+            __float2bfloat16_rn(__bfloat162float(av[n]) * __bfloat162float(bv[n]));
+    }
+    __syncthreads();
+
+    const bf* me = mt + warp * kQ * kRowM;
+#pragma unroll
+    for (int t = 0; t < K; ++t) {
+#pragma unroll
+      for (int ks = 0; ks < kPCM; ks += 16) {
+        uint32_t b[2][2];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const bf* row = me + (nt * 8 + gid + t) * kRowM + ks + 2 * tig;
+          b[nt][0] = ld32(row);
+          b[nt][1] = ld32(row + 8);
+        }
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          if (m >= ctiles) break;
+          const bf* w = ws + (t * c16 + m * 16) * kRowM + ks + 2 * tig;
+          const uint32_t a0 = ld32(w + gid * kRowM), a1 = ld32(w + (gid + 8) * kRowM);
+          const uint32_t a2 = ld32(w + gid * kRowM + 8), a3 = ld32(w + (gid + 8) * kRowM + 8);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) mma_bf16(acc[m][nt], a0, a1, a2, a3, b[nt][0], b[nt][1]);
+        }
+      }
+    }
+  }
+
+  const long long b = b0 + warp;
+  if (b < a.batch) {
+    bf* yb = static_cast<bf*>(a.y) + b * a.c1 * kD;
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int c = m * 16 + gid + rr * 8;
+          if (m < ctiles && c < a.c1)
+            *reinterpret_cast<__nv_bfloat162*>(yb + c * kD + nt * 8 + 2 * tig) =
+                __floats2bfloat162_rn(acc[m][nt][rr * 2], acc[m][nt][rr * 2 + 1]);
+        }
+  }
+  if (a.lin != nullptr && tid < kEBM && b0 + tid < a.batch) {
+    const long long bl = b0 + tid;
+    float s = 0.f;
+    for (int f = 0; f < a.fields; ++f) s += to_f(field_row<bf>(a, f, bl)[a.lin_col]);
+    a.lin[bl] = s;
+  }
+}
+
+template <int K>
+cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(mma_smem_elems(K, a.c1)) * sizeof(__nv_bfloat16);
+  const cudaError_t err = cudaFuncSetAttribute(
+      cross_conv1_fwd_mma_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = static_cast<unsigned>((a.batch + kEBM - 1) / kEBM);
+  cross_conv1_fwd_mma_kernel<K><<<blocks, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_mma_k(const Args& a, int k, cudaStream_t stream) {
+  switch (k) {
+    case 1: return launch_mma<1>(a, stream);
+    case 3: return launch_mma<3>(a, stream);
+    case 5: return launch_mma<5>(a, stream);
+    case 7: return launch_mma<7>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// The tensor-core path reads field rows with 16-byte loads.
+bool mma_path(const Args& a, int is_bf16) {
+  const long long strides[] = {a.fs0, a.bs0, a.fs1, a.bs1};
+  for (long long st : strides)
+    if (st % 8 != 0) return false;
+  return is_bf16 && a.d == kD && a.c1 <= 64 && aligned16(a.e0) && aligned16(a.e1) &&
+         aligned16(a.y);
+}
+
 }  // namespace
 
 extern "C" {
@@ -212,11 +409,13 @@ extern "C" {
 // Channel padding the weight operand must carry: w is (P, k, round_up(c1, tile)).
 int cffm_cross_conv1_fwd_channel_tile() { return kTM; }
 
-// Returns a cudaError_t; 0 means the kernel was launched.
+// Returns a cudaError_t; 0 means the kernel was launched. tensor_cores:
+// take the bf16 tensor-core kernel where it applies (else CUDA cores).
 int cffm_cross_conv1_fwd(int is_bf16, const void* e0, const void* e1, int nf0,
                          long long fs0, long long bs0, long long fs1, long long bs1,
                          const void* w, void* y, float* lin, int batch, int fields, int d,
-                         int k, int c1, int hadamard, int lin_col, void* stream) {
+                         int k, int c1, int hadamard, int lin_col, int tensor_cores,
+                         void* stream) {
   Args a;
   a.e0 = e0;
   a.e1 = e1;
@@ -242,6 +441,7 @@ int cffm_cross_conv1_fwd(int is_bf16, const void* e0, const void* e1, int nf0,
   a.xp = a.ngx * kTN + k - 1;
   if (batch == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tensor_cores && mma_path(a, is_bf16)) return launch_mma_k(a, k, s);
   return is_bf16 ? launch_k<__nv_bfloat16>(a, k, s) : launch_k<float>(a, k, s);
 }
 

@@ -154,6 +154,15 @@ def phase_parity() -> float:
             torch.testing.assert_close(lin, lin_ref, rtol=0.0, atol=1e-5)
             if case == "fm2" and dtype == torch.bfloat16:
                 fm2_err = err
+                # bf16 rows take the tensor-core kernel; hold the CUDA-core
+                # kernel, which the other shapes take, as well
+                y, lin = ic._launch(ic._descriptors("fm2", cfg, (es, eb)), w1, cfg, 4096,
+                                    True, tensor_cores=False)
+                err = (y.float() - y_ref.float()).abs().max().item()
+                print(f"parity criteo_kaggle fm2 bfloat16 CUDA-core kernel B=4096: y "
+                      f"max_abs_err={err:.3e} (rtol=atol=2e-2)", flush=True)
+                torch.testing.assert_close(y.float(), y_ref.float(), rtol=2e-2, atol=2e-2)
+                torch.testing.assert_close(lin, lin_ref, rtol=0.0, atol=1e-5)
         del es, eb, e3, flat
         for cross in ("field_aware", "hadamard"):
             mcfg = _movielens_model(cross, name)
@@ -241,6 +250,8 @@ def phase_time(params, cfg) -> dict:
         rows = torch.cat([es, eb]).transpose(0, 1)
         reps = 20 if b == 4096 else 5
         ms = cuda_ms(lambda: ic.cross_conv1_lin_fm2(es, eb, w1, mcfg), reps)
+        cuda_core_ms = cuda_ms(lambda: ic._launch(ic._descriptors("fm2", mcfg, (es, eb)), w1,
+                                                  mcfg, b, True, tensor_cores=False), reps)
         plain_ms = cuda_ms(lambda: ic._rows_reference(
             torch.cat([es, eb]).transpose(0, 1), w1, mcfg), reps)
         m = build_cross_map(rows[..., : mcfg.row_width].reshape(
@@ -256,10 +267,12 @@ def phase_time(params, cfg) -> dict:
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
         out[b] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                  "cuda_core_ms": cuda_core_ms,
                   "bound_ms": max(t_bytes, t_ops),
                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                   "bytes": nbytes, "flops": ops}
-        print(f"time B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        print(f"time B={b}: kernel {ms:.4f} ms (CUDA-core kernel {cuda_core_ms:.4f} ms), "
+              f"plain {plain_ms:.4f} ms, "
               f"conv1d on built M (excludes M's build) {library_ms:.4f} ms, "
               f"bound {max(t_bytes, t_ops):.4f} ms ({out[b]['bound_by']}: "
               f"{nbytes / 1e9:.3f} GB, {ops / 1e9:.1f} GFLOP)", flush=True)
@@ -387,6 +400,21 @@ def phase_parity_bwd() -> float:
                 _, dw2 = _grad_rows(ic, cfg, entry, es, eb, w1, gy, glin)
                 if not torch.equal(dw, dw2):
                     fail(f"parity_bwd fm2 {name}: dW differs between two runs")
+        if dtype == torch.bfloat16:
+            # bf16 rows take the tensor-core kernel above; hold the
+            # CUDA-core kernel, which the other shapes take, as well
+            des, deb = torch.empty_like(es), torch.empty_like(eb)
+            dw = ic.cross_conv1_bwd(ic._descriptors("fm2", cfg, (es, eb)),
+                                    ic._descriptors("fm2", cfg, (des, deb)), w1, gy, glin,
+                                    cfg, cfg.table_width, tensor_cores=False)
+            drows = torch.cat([des, deb]).transpose(0, 1)
+            err = (drows.float() - drows_ref.float()).abs().max().item()
+            print(f"parity_bwd criteo_kaggle fm2 bfloat16 CUDA-core kernel B=4096: dE "
+                  f"max_abs_err={err:.3e} (rtol=atol=2e-2)", flush=True)
+            torch.testing.assert_close(drows.float(), drows_ref.float(), rtol=2e-2,
+                                       atol=2e-2)
+            _check_dw(dw, dw_ref, "criteo_kaggle fm2 bfloat16 CUDA-core kernel")
+            del des, deb, drows
         print(f"parity_bwd {name}: diagonal and pad lanes exact zeros, fused column "
               f"== glin, dW bit-equal in two runs", flush=True)
         del es, eb, rows, drows_ref
@@ -775,6 +803,9 @@ def phase_time_train() -> dict:
                            mcfg, w)
 
     ms = cuda_ms(kernel2, 5)
+    cuda_core_ms = cuda_ms(lambda: ic.cross_conv1_bwd(
+        ic._descriptors("fm2", mcfg, (es, eb)), ic._descriptors("fm2", mcfg, (des, deb)),
+        w1, gy, glin, mcfg, w, tensor_cores=False), 2, warmup=1)
     plain_ms = cuda_ms(lambda: ic._rows_bwd_reference(
         torch.cat([es, eb]).transpose(0, 1), w1, gy, glin, mcfg), 2, warmup=1)
     rows = torch.cat([es, eb]).transpose(0, 1)
@@ -787,7 +818,7 @@ def phase_time_train() -> dict:
               + w1.numel() * 2 + w1.numel() * 4)
     ops = 2 * (2 * b * d * mcfg.num_pairs * k * c1)
     out["cross_conv1_bwd"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                              **_bound(nbytes, ops)}
+                              "cuda_core_ms": cuda_core_ms, **_bound(nbytes, ops)}
     del es, eb, des, deb, gy, glin
     torch.cuda.empty_cache()
 
@@ -851,7 +882,9 @@ def phase_time_train() -> dict:
               f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}: {r['bytes'] / 1e9:.3f} GB, {r['ops'] / 1e9:.2f} GOP)"
               + (f", touched rows {r['touched_rows']}" if "touched_rows" in r else "")
-              + (f", sgd kernel {r['sgd_ms']:.4f} ms" if "sgd_ms" in r else ""),
+              + (f", sgd kernel {r['sgd_ms']:.4f} ms" if "sgd_ms" in r else "")
+              + (f", CUDA-core kernel {r['cuda_core_ms']:.4f} ms" if "cuda_core_ms" in r
+                 else ""),
               flush=True)
 
     # the train step end to end, bf16 compute, f32 table, adagrad
@@ -864,6 +897,7 @@ def phase_time_train() -> dict:
     def step():
         box[0], _ = train.train_step(box[0], ids, dense, labels, cfg, fn)
 
+    torch.cuda.reset_peak_memory_stats()
     step()
     torch.cuda.synchronize()
     reps = 3
@@ -876,7 +910,8 @@ def phase_time_train() -> dict:
     print(f"time train step criteo_kaggle B={b} bf16 compute, f32 table, adagrad "
           f"(zipf ids, staged batch): {step_ms:.3f} ms = {b / step_ms * 1e3:.1f} ex/s",
           flush=True)
-    print(f"memory: peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+    print(f"memory: peak allocated over the train steps "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
           flush=True)
 
     from torch.profiler import ProfilerActivity, profile
@@ -967,8 +1002,10 @@ def main(argv=None) -> int:
             "launches": served[0], "max_abs_err": fm2_err,
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "cuda_core_ms": t["cuda_core_ms"],
             "at_batch_65536": {k: times[65536][k] for k in
-                               ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                               ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                "cuda_core_ms")},
             "forward_ms_65536": times["forward_ms_65536"],
             "train_launches": trained["adagrad_f32"]["cross_conv1_lin_fm2"],
         }
@@ -988,7 +1025,9 @@ def main(argv=None) -> int:
         records = [fwd] + [
             {"name": name, "route": "cuda", "source": f"cffm_tpu_torch/ops/csrc/{src}",
              "replaces": rep, "launches": launches, "max_abs_err": err,
-             **{k: ttimes[name][k] for k in keys}, "batch": 65536}
+             **{k: ttimes[name][k] for k in keys}, "batch": 65536,
+             **({"cuda_core_ms": ttimes[name]["cuda_core_ms"]}
+                if "cuda_core_ms" in ttimes[name] else {})}
             for name, src, rep, launches, err in new]
         records[-1]["train_step_ms_65536"] = ttimes["train_step_ms_65536"]
         print(json.dumps({"kernels": records}))
