@@ -47,7 +47,8 @@ import torch.nn.functional as F
 from cffm_tpu_torch.config import ModelConfig
 from cffm_tpu_torch.ops import _build
 from cffm_tpu_torch.ops.cross import (build_cross_map, conv1d_same,
-                                      conv_core_reference, pair_indices)
+                                      conv_core_reference, max_pool_valid,
+                                      pair_indices)
 
 _SOURCE = "cross_conv1_fwd"
 _BWD_SOURCE = "cross_conv1_bwd"
@@ -461,7 +462,7 @@ def _conv_tail(x: torch.Tensor, conv_params, cfg: ModelConfig) -> torch.Tensor:
     x = x + conv_params[0]["b"].to(x.dtype)[None, :, None]
     x = torch.relu(x)
     if cfg.conv_pool > 1:
-        x = F.max_pool1d(x, cfg.conv_pool, cfg.conv_pool)
+        x = max_pool_valid(x, cfg.conv_pool)
     rest = list(conv_params[1:])
     if rest:
         return conv_core_reference(x, rest, cfg)

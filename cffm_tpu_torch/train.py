@@ -75,20 +75,20 @@ def create_state(cfg: TrainConfig, generator: torch.Generator) -> TrainState:
 
 def _prefix_grad(g_small: torch.Tensor, ids_fm_small: torch.Tensor, cfg) -> torch.Tensor:
     """Gradient of the small-field prefix (small_rows, W) f32 from the
-    prefix lookup's output gradient (Fs, B, W): per row the f32 sum over
-    its lookups, rounded to the compute dtype as the JAX one-hot matmul's
-    transpose leaves it; ids outside their field's block add nothing."""
-    fs = cfg.small_field_prefix
-    vocab = torch.as_tensor(cfg.vocab_sizes[:fs], device=ids_fm_small.device)
-    offs = torch.cumsum(vocab, 0) - vocab
-    local = ids_fm_small - offs[:, None].to(ids_fm_small.dtype)
-    valid = ((local >= 0) & (local < vocab[:, None])).reshape(-1)
-    ids = ids_fm_small.reshape(-1).clamp(0, cfg.small_rows - 1).long()
-    g = g_small.reshape(-1, g_small.shape[-1]).float()
-    g = torch.where(valid[:, None], g, torch.zeros((), device=g.device))
-    dtab = torch.zeros((cfg.small_rows, g.shape[1]), dtype=torch.float32, device=g.device)
-    dtab.index_add_(0, ids, g)
-    return dtab.to(g_small.dtype).float()
+    prefix lookup's output gradient (Fs, B, W), as JAX takes it: per field
+    the transposed one-hot product onehot^T @ g in the compute dtype (f32
+    sums, rounded to the compute dtype); ids outside their field's block
+    add nothing."""
+    dt = g_small.dtype
+    blocks = []
+    off = 0
+    for f in range(cfg.small_field_prefix):
+        v = int(cfg.vocab_sizes[f])
+        rows = off + torch.arange(v, device=ids_fm_small.device, dtype=ids_fm_small.dtype)
+        onehot = (rows[:, None] == ids_fm_small[f][None, :]).to(dt)       # (v, B)
+        blocks.append(onehot @ g_small[f])
+        off += v
+    return torch.cat(blocks).float()
 
 
 def train_step(state: TrainState, ids: torch.Tensor, dense: Optional[torch.Tensor],

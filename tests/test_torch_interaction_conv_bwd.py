@@ -190,3 +190,21 @@ def test_gradients_reach_rows_and_w1_through_make_interaction_fn():
     (feats.sum() + lin.sum()).backward()
     assert rows.grad is not None and rows.grad.abs().sum() > 0
     assert conv[0]["w"].grad is not None and conv[0]["w"].grad.abs().sum() > 0
+
+
+@pytest.mark.parametrize("length", [16, 15])
+def test_max_pool_valid_matches_max_pool1d(length):
+    """Values and gradients of both forms equal max_pool1d's, ties (the
+    zeros after a ReLU) and a ragged tail included."""
+    from cffm_tpu_torch.ops.cross import max_pool_valid
+
+    x = torch.relu(torch.from_numpy(_draw(12, (4, 3, length))[0]))
+    g = torch.from_numpy(_draw(13, (4, 3, length // 2))[0])
+    a, b = x.clone().requires_grad_(), x.clone().requires_grad_()
+    ya, yb = max_pool_valid(a, 2), torch.nn.functional.max_pool1d(b, 2, 2)
+    assert torch.equal(ya, yb)
+    ya.backward(g)
+    yb.backward(g)
+    assert torch.equal(a.grad, b.grad)
+    with torch.no_grad():
+        assert torch.equal(max_pool_valid(x, 2), yb)
