@@ -241,6 +241,8 @@ def cross_conv1_bwd(parts, dparts, w1: torch.Tensor, gy: torch.Tensor,
     k, f, d = cfg.conv_kernel, cfg.num_fields, cfg.embed_dim
     c1, p, _ = w1.shape
     batch = gy.shape[0]
+    if tuple(gy.shape) != (batch, c1, d) or (glin is not None and tuple(glin.shape) != (batch,)):
+        raise ValueError(f"gy must be (B, {c1}, {d}) and glin (B,)")
     lib = _bwd_library()
     if c1 > lib.cffm_cross_conv1_bwd_max_channels():
         raise ValueError(f"cross_conv1 backward kernel takes C1 <= "

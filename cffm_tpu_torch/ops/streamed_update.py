@@ -132,9 +132,14 @@ def _apply(table, state: dict, uids, gsum, hyper, mode: str, sr_seed):
     if table.device.type != "cuda":
         raise ValueError(f"streamed update takes CPU or CUDA tensors, got {table.device}")
     dev = table.device
-    for t in (table, *state.values()):
-        if isinstance(t, torch.Tensor) and t.dim() and not t.is_contiguous():
-            raise ValueError("table and state must be contiguous (updated in place)")
+    want = {"accum": (v, 1), "m": (v, w), "v": (v, 1)}
+    for name, t in state.items():
+        if (t.shape != want[name] or t.dtype != torch.float32 or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"state {name!r} must be a contiguous f32 {want[name]} "
+                             f"tensor on {dev}")
+    if not table.is_contiguous():
+        raise ValueError("the table must be contiguous (updated in place)")
     uids = uids.to(dev).contiguous()
     g = gsum.to(device=dev, dtype=torch.bfloat16).contiguous()
     hyp = hyper.to(dev, non_blocking=True)  # a fresh CPU tensor: no host wait

@@ -634,13 +634,14 @@ def phase_parity_apply(seg_out) -> dict:
     return errs
 
 
-def _run_cfg(**overrides):
+def _run_cfg(overrides: dict):
+    """criteo_kaggle with dotted overrides, as the command line takes them."""
     from cffm_tpu_torch.cli import _apply_override
     from cffm_tpu_torch.config import get_config
 
     cfg = get_config("criteo_kaggle")
-    for k, v in overrides.items():
-        cfg = _apply_override(cfg, k.replace("__", "."), str(v))
+    for dotted, value in overrides.items():
+        cfg = _apply_override(cfg, dotted, str(value))
     return cfg
 
 
@@ -677,20 +678,20 @@ def phase_train() -> dict:
         "adagrad_f32": (3, {}, {"cross_conv1_lin_fm2": 3 + 2, "cross_conv1_bwd": 3,
                                 "sorted_segment_sum_compact": 3,
                                 "streamed_rowwise_apply": 3}),
-        "adagrad_bf16_table": (2, {"model__table_dtype": "bfloat16"},
+        "adagrad_bf16_table": (2, {"model.table_dtype": "bfloat16"},
                                {"cross_conv1_lin_fm2": 2 + 2, "cross_conv1_bwd": 2,
                                 "sorted_segment_sum_compact": 2,
                                 "streamed_rowwise_apply": 2}),
         # no hybrid for rowwise_adam: the fm route trains, eval takes fm2
-        "rowwise_adam": (2, {"optim__sparse_optimizer": "rowwise_adam"},
+        "rowwise_adam": (2, {"optim.sparse_optimizer": "rowwise_adam"},
                          {"cross_conv1_lin_fm": 2, "cross_conv1_lin_fm2": 2,
                           "cross_conv1_bwd": 2, "sorted_segment_sum_compact": 2,
                           "streamed_rowwise_adam_apply": 2}),
     }
     out = {}
     for name, (steps, extra, want) in runs.items():
-        cfg = _run_cfg(data__batch_size=65536, data__num_train_steps=steps,
-                       data__eval_batches=2, log_every=1, **extra)
+        cfg = _run_cfg({"data.batch_size": 65536, "data.num_train_steps": steps,
+                        "data.eval_batches": 2, "log_every": 1, **extra})
         logs = []
         torch.cuda.synchronize()
         _reset_counts()
@@ -731,8 +732,8 @@ def phase_step_vs_cpu():
 
     from cffm_tpu_torch import train
 
-    cfg = _run_cfg(model__compute_dtype="float32", optim__streamed_update="on",
-                   data__batch_size=4096)
+    cfg = _run_cfg({"model.compute_dtype": "float32", "optim.streamed_update": "on",
+                    "data.batch_size": 4096})
     state_cpu = train.create_state(cfg, torch.Generator().manual_seed(7))
     state_gpu = train.TrainState(0, _tree_to(state_cpu.params, "cuda"),
                                  _tree_to(state_cpu.dense_opt_state, "cuda"),
