@@ -56,13 +56,9 @@ def conv1d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def max_pool_valid(x: torch.Tensor, k: int) -> torch.Tensor:
     """Max over non-overlapping windows of k along the last axis of
-    (B, C, L), a ragged tail dropped (reduce_window VALID). Under autograd
-    it is a reshape and torch.max, whose backward scatters to each
-    window's first max as max_pool1d's does, but runs far faster on the
-    card at these shapes; without autograd max_pool1d's faster forward
-    gives the same values."""
-    if not (torch.is_grad_enabled() and x.requires_grad):
-        return F.max_pool1d(x, k, k)
+    (B, C, L), a ragged tail dropped (reduce_window VALID): a reshape and
+    torch.max, whose backward scatters to each window's first max as
+    max_pool1d's does, but runs far faster on the card at these shapes."""
     n = x.shape[-1] // k
     return x[..., : n * k].reshape(*x.shape[:-1], n, k).max(dim=-1).values
 

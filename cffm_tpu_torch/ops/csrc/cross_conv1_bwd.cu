@@ -637,8 +637,8 @@ int cffm_cross_conv1_bwd_blocks(int batch) {
 // Largest C1 the kernel takes (kCG channels per thread, kPC pairs per pass).
 int cffm_cross_conv1_bwd_max_channels() { return kThreads / kPC * kCG; }
 
-// Returns a cudaError_t; 0 means both kernels were launched. tensor_cores:
-// take the bf16 tensor-core kernel where it applies (else CUDA cores).
+// Returns a cudaError_t; 0 means both kernels were launched. bf16 rows
+// take the tensor-core kernel where mma_path allows, else the CUDA-core one.
 // w: (k, c1, P) in T; g: (batch, c1, d) in T; dwp: (blocks, k, P, c1) f32
 // scratch; dw: (k, P, c1) f32 out; hacc: (batch, fields, d) f32 scratch
 // for hadamard, else null.
@@ -648,7 +648,7 @@ int cffm_cross_conv1_bwd(int is_bf16, const void* e0, const void* e1, int nf0,
                          long long dfs1, long long dbs1, const void* w, const void* g,
                          const float* glin, float* hacc, float* dwp, float* dw,
                          int batch, int fields, int d, int k, int c1, int hadamard,
-                         int lin_col, int w_phys, int tensor_cores, void* stream) {
+                         int lin_col, int w_phys, void* stream) {
   Args a;
   a.e0 = e0;
   a.e1 = e1;
@@ -685,7 +685,7 @@ int cffm_cross_conv1_bwd(int is_bf16, const void* e0, const void* e1, int nf0,
   if (batch == 0) return cudaSuccess;
   const int blocks = cffm_cross_conv1_bwd_blocks(batch);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = tensor_cores && mma_path(a, is_bf16) ? launch_mma_k(a, k, blocks, s)
+  cudaError_t err = mma_path(a, is_bf16) ? launch_mma_k(a, k, blocks, s)
                     : is_bf16           ? launch_k<__nv_bfloat16>(a, k, blocks, s)
                                         : launch_k<float>(a, k, blocks, s);
   if (err != cudaSuccess) return err;

@@ -409,13 +409,12 @@ extern "C" {
 // Channel padding the weight operand must carry: w is (P, k, round_up(c1, tile)).
 int cffm_cross_conv1_fwd_channel_tile() { return kTM; }
 
-// Returns a cudaError_t; 0 means the kernel was launched. tensor_cores:
-// take the bf16 tensor-core kernel where it applies (else CUDA cores).
+// Returns a cudaError_t; 0 means the kernel was launched. bf16 rows take
+// the tensor-core kernel where mma_path allows, else the CUDA-core kernel.
 int cffm_cross_conv1_fwd(int is_bf16, const void* e0, const void* e1, int nf0,
                          long long fs0, long long bs0, long long fs1, long long bs1,
                          const void* w, void* y, float* lin, int batch, int fields, int d,
-                         int k, int c1, int hadamard, int lin_col, int tensor_cores,
-                         void* stream) {
+                         int k, int c1, int hadamard, int lin_col, void* stream) {
   Args a;
   a.e0 = e0;
   a.e1 = e1;
@@ -441,7 +440,7 @@ int cffm_cross_conv1_fwd(int is_bf16, const void* e0, const void* e1, int nf0,
   a.xp = a.ngx * kTN + k - 1;
   if (batch == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tensor_cores && mma_path(a, is_bf16)) return launch_mma_k(a, k, s);
+  if (mma_path(a, is_bf16)) return launch_mma_k(a, k, s);
   return is_bf16 ? launch_k<__nv_bfloat16>(a, k, s) : launch_k<float>(a, k, s);
 }
 

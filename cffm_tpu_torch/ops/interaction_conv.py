@@ -138,7 +138,7 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [i, p, p, i, ll, ll, ll, ll, p, p, p,
-                       i, i, i, i, i, i, i, i, p]
+                       i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         lib.cffm_cross_conv1_fwd_channel_tile.argtypes = []
         lib.cffm_cross_conv1_fwd_channel_tile.restype = ctypes.c_int
@@ -151,7 +151,7 @@ def _bwd_library() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [i, p, p, i, ll, ll, ll, ll, p, p, ll, ll, ll, ll,
-                       p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+                       p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         lib.cffm_cross_conv1_bwd_blocks.argtypes = [i]
         lib.cffm_cross_conv1_bwd_blocks.restype = ctypes.c_int
@@ -190,15 +190,13 @@ def _check_launch(parts, w1: torch.Tensor, cfg: ModelConfig):
     return dtype, dev
 
 
-def _launch(parts, w1: torch.Tensor, cfg: ModelConfig, batch: int, lin: bool,
-            tensor_cores: bool = True):
+def _launch(parts, w1: torch.Tensor, cfg: ModelConfig, batch: int, lin: bool):
     """Launch the forward kernel on field rows given as parts.
 
     parts: [(tensor, num_fields, field_stride, batch_stride)], one or two
     CUDA tensors of one dtype whose field rows have contiguous lanes.
-    tensor_cores=False keeps bf16 rows on the CUDA-core kernel (the
-    tensor-core one takes bf16 rows with d=16, C1 <= 64 and 16-byte
-    aligned rows; anything else runs on the CUDA cores anyway).
+    bf16 rows with d=16, C1 <= 64 and 16-byte aligned rows run on the
+    tensor cores; every other shape, and f32, on the CUDA cores.
     Returns (y (B, C1, d) in the input dtype, lin (B,) f32 or None)."""
     dtype, dev = _check_launch(parts, w1, cfg)
     k = cfg.conv_kernel
@@ -219,24 +217,22 @@ def _launch(parts, w1: torch.Tensor, cfg: ModelConfig, batch: int, lin: bool,
             fs0, bs0, fs1, bs1, wp.data_ptr(), y.data_ptr(),
             lin_out.data_ptr() if lin else None, batch, cfg.num_fields,
             cfg.embed_dim, k, c1, int(cfg.cross == "hadamard"),
-            cfg.row_width, int(tensor_cores), torch.cuda.current_stream(dev).cuda_stream)
+            cfg.row_width, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"cross_conv1_fwd kernel launch failed: CUDA error {err}")
     return y, lin_out
 
 
 def cross_conv1_bwd(parts, dparts, w1: torch.Tensor, gy: torch.Tensor,
-                    glin, cfg: ModelConfig, w_phys: int,
-                    tensor_cores: bool = True) -> torch.Tensor:
+                    glin, cfg: ModelConfig, w_phys: int) -> torch.Tensor:
     """Launch the backward kernel: dE into dparts, returns dW1 (C1, P, k) f32.
 
     parts / dparts: [(tensor, num_fields, field_stride, batch_stride)] of
     the rows and of their gradient, one or two CUDA tensors each, with the
     same field partition. gy (B, C1, d); glin (B,) or None; w_phys: the
     lanes of one field row (table_width for the full-rows entries).
-    tensor_cores=False keeps bf16 rows on the CUDA-core kernel (the
-    tensor-core one takes field-aware bf16 rows with d=16, C1 <= 64 and
-    16-byte aligned rows; anything else runs on the CUDA cores anyway)."""
+    Field-aware bf16 rows with d=16, C1 <= 64 and 16-byte aligned rows run
+    on the tensor cores; every other shape, and f32, on the CUDA cores."""
     dtype, dev = _check_launch(parts, w1, cfg)
     k, f, d = cfg.conv_kernel, cfg.num_fields, cfg.embed_dim
     c1, p, _ = w1.shape
@@ -271,7 +267,7 @@ def cross_conv1_bwd(parts, dparts, w1: torch.Tensor, gy: torch.Tensor,
             None if gl is None else gl.data_ptr(),
             None if hacc is None else hacc.data_ptr(), dwp.data_ptr(),
             dw.data_ptr(), batch, f, d, k, c1, int(hadamard), cfg.row_width,
-            w_phys, int(tensor_cores), torch.cuda.current_stream(dev).cuda_stream)
+            w_phys, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"cross_conv1_bwd kernel launch failed: CUDA error {err}")
     cross_conv1_bwd.launches += 1

@@ -11,7 +11,8 @@ nonzero without them, or when any phase fails. Phases, in order:
   3. parity: hold each forward entry against its plain PyTorch version on
      the card: criteo_kaggle shapes at B=4096 for the split field-major,
      field-major and flat full-rows entries, movielens shapes for the
-     sliced field-aware and hadamard entries; f32 (TF32 off) at
+     sliced field-aware and hadamard entries (and field-aware at d=8,
+     which takes the CUDA-core kernels in bf16 too); f32 (TF32 off) at
      rtol=atol=1e-4 and bf16 at rtol=atol=2e-2, lin at 1e-5;
   4. parity_bwd: the same entries' backward (kernel 2, through autograd)
      against the plain backward: dE f32 rtol=atol=1e-4, bf16 2e-2; dW
@@ -19,7 +20,9 @@ nonzero without them, or when any phase fails. Phases, in order:
      dE exact zeros, the fused column exactly glin; dW bit-equal in two runs;
   5. parity_segment: kernel 3 on the sorted big-field ids of one B=65536
      synthetic criteo_kaggle batch (zipf, hot segments) and on ids up to
-     2^31-2: uids and count exact, gsum within one bf16 ulp;
+     2^31-2: uids and count exact, empty slots zero, gsum within half a
+     bf16 ulp of the exact (f64) sums plus 4 * 2^-24 * sqrt(len * sum g^2)
+     for the f32 sum's own error;
   6. parity_apply: kernels 4 and 5 on the full 2.6M x 640 table with that
      batch's uids and sums, f32 and bf16: rows outside uids bit-equal;
      touched rows within 1e-6 (f32) or one bf16 ulp (nearest); stochastic
@@ -30,17 +33,20 @@ nonzero without them, or when any phase fails. Phases, in order:
      one kernel launch per batch, and the kernel route's logits against
      the reference route's in f32 on one batch;
   8. time the forward kernel, its plain version and torch's conv1d on an
-     already built cross map (CUDA events) at B=4096 and B=65536, and
+     already built cross map (CUDA events) at B=4096 and B=65536, hold the
+     kernel against its plain version at B=65536 (bf16, 2e-2), and time the
      forward end to end at B=65536;
   9. train criteo_kaggle at full width through cffm_tpu_torch.train.run:
      B=65536 for 3 steps (adagrad, f32 table), 2 steps with a bf16 table
      (stochastic rounding) and 2 steps of rowwise_adam, launch counts set
      to 0 before and read after each run; finite loss and AUC;
- 10. step_vs_cpu: one train step from the same state and batch on the card
-     and on the CPU (f32, f32 table, streamed update on, B=4096);
+ 10. step_vs_cpu: train steps from the same state and batches on the card
+     and on the CPU (f32, f32 table, streamed update on, B=4096): one
+     adagrad step, two rowwise-Adam steps;
  11. time kernels 2-5, their plain versions, library yardsticks and bounds
-     at the B=65536 training shapes, and the train step end to end with a
-     torch.profiler breakdown.
+     at the B=65536 training shapes, hold kernel 2 against its plain
+     version there (the phase-4 checks), and time the train step end to
+     end with a torch.profiler breakdown.
 
 Prints one JSON line of kernel records, then the card line, and ends
 with {"ok": true, "device": {...}}.
@@ -97,11 +103,17 @@ def _criteo_model(dtype: str):
     return dataclasses.replace(get_config("criteo_kaggle").model, compute_dtype=dtype)
 
 
-def _movielens_model(cross: str, dtype: str):
+def _movielens_model(cross: str, dtype: str, d: int = 16):
     from cffm_tpu_torch.config import get_config
 
     return dataclasses.replace(get_config("movielens").model, cross=cross,
-                               compute_dtype=dtype)
+                               compute_dtype=dtype, embed_dim=d)
+
+
+# movielens sliced cases (cross, embed_dim): bf16 rows with d=16 take the
+# tensor-core kernels (the backward's hadamard form excepted); d=8 holds
+# the bf16 CUDA-core kernels, which take every other shape
+MOVIELENS_CASES = (("field_aware", 16), ("hadamard", 16), ("field_aware", 8))
 
 
 def _inputs(cfg, b: int, dtype, gen, fm_split: int | None = None):
@@ -154,23 +166,14 @@ def phase_parity() -> float:
             torch.testing.assert_close(lin, lin_ref, rtol=0.0, atol=1e-5)
             if case == "fm2" and dtype == torch.bfloat16:
                 fm2_err = err
-                # bf16 rows take the tensor-core kernel; hold the CUDA-core
-                # kernel, which the other shapes take, as well
-                y, lin = ic._launch(ic._descriptors("fm2", cfg, (es, eb)), w1, cfg, 4096,
-                                    True, tensor_cores=False)
-                err = (y.float() - y_ref.float()).abs().max().item()
-                print(f"parity criteo_kaggle fm2 bfloat16 CUDA-core kernel B=4096: y "
-                      f"max_abs_err={err:.3e} (rtol=atol=2e-2)", flush=True)
-                torch.testing.assert_close(y.float(), y_ref.float(), rtol=2e-2, atol=2e-2)
-                torch.testing.assert_close(lin, lin_ref, rtol=0.0, atol=1e-5)
         del es, eb, e3, flat
-        for cross in ("field_aware", "hadamard"):
-            mcfg = _movielens_model(cross, name)
+        for cross, d in MOVIELENS_CASES:
+            mcfg = _movielens_model(cross, name, d)
             emb, w1 = _inputs(mcfg, 4096, dtype, gen)
             y = ic.cross_conv1(emb, w1, mcfg)
             y_ref = ic.cross_conv1_reference(emb, w1, mcfg)
             err = (y.float() - y_ref.float()).abs().max().item()
-            print(f"parity movielens sliced {cross} {name} B=4096: y max_abs_err="
+            print(f"parity movielens sliced {cross} d={d} {name} B=4096: y max_abs_err="
                   f"{err:.3e} (rtol=atol={tol[dtype]}, "
                   f"max|y|={y_ref.abs().max().item():.3f})", flush=True)
             torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol[dtype],
@@ -232,7 +235,8 @@ def phase_serve():
 
 def phase_time(params, cfg) -> dict:
     """Kernel, plain version and library conv at B=4096 and 65536 (bf16,
-    criteo_kaggle fm2 shapes), and forward end to end at 65536."""
+    criteo_kaggle fm2 shapes), the kernel held against the plain version at
+    65536 (the training batch), and forward end to end at 65536."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -250,10 +254,19 @@ def phase_time(params, cfg) -> dict:
         rows = torch.cat([es, eb]).transpose(0, 1)
         reps = 20 if b == 4096 else 5
         ms = cuda_ms(lambda: ic.cross_conv1_lin_fm2(es, eb, w1, mcfg), reps)
-        cuda_core_ms = cuda_ms(lambda: ic._launch(ic._descriptors("fm2", mcfg, (es, eb)), w1,
-                                                  mcfg, b, True, tensor_cores=False), reps)
         plain_ms = cuda_ms(lambda: ic._rows_reference(
             torch.cat([es, eb]).transpose(0, 1), w1, mcfg), reps)
+        if b == 65536:
+            y, lin = ic.cross_conv1_lin_fm2(es, eb, w1, mcfg)
+            y_ref, lin_ref = ic._rows_reference(rows, w1, mcfg)
+            out["max_abs_err_65536"] = err = (y.float() - y_ref.float()).abs().max().item()
+            lerr = (lin - lin_ref).abs().max().item()
+            print(f"parity criteo_kaggle fm2 bfloat16 B={b}: y max_abs_err={err:.3e} "
+                  f"(rtol=atol=2e-2, max|y|={y_ref.abs().max().item():.3f}) lin "
+                  f"max_abs_err={lerr:.3e} (atol=1e-5)", flush=True)
+            torch.testing.assert_close(y.float(), y_ref.float(), rtol=2e-2, atol=2e-2)
+            torch.testing.assert_close(lin, lin_ref, rtol=0.0, atol=1e-5)
+            del y, y_ref
         m = build_cross_map(rows[..., : mcfg.row_width].reshape(
             b, mcfg.num_fields, mcfg.num_fields, mcfg.embed_dim), mcfg)
         w_b = w1.to(torch.bfloat16)
@@ -267,12 +280,10 @@ def phase_time(params, cfg) -> dict:
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
         out[b] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                  "cuda_core_ms": cuda_core_ms,
                   "bound_ms": max(t_bytes, t_ops),
                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                   "bytes": nbytes, "flops": ops}
-        print(f"time B={b}: kernel {ms:.4f} ms (CUDA-core kernel {cuda_core_ms:.4f} ms), "
-              f"plain {plain_ms:.4f} ms, "
+        print(f"time B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"conv1d on built M (excludes M's build) {library_ms:.4f} ms, "
               f"bound {max(t_bytes, t_ops):.4f} ms ({out[b]['bound_by']}: "
               f"{nbytes / 1e9:.3f} GB, {ops / 1e9:.1f} GFLOP)", flush=True)
@@ -361,6 +372,28 @@ def _check_dw(dw, dw_ref, what: str) -> float:
     return err
 
 
+def _check_rows_grad(drows, drows_ref, dw, dw_ref, glin, cfg, what: str) -> float:
+    """A full-rows gradient (B, F, W) and dW against the plain backward:
+    dE at rtol=atol 1e-4 (f32) or 2e-2 (bf16), dW at 1e-4 of max|dW|, the
+    diagonal blocks and the pad lanes exact zeros, the fused column exactly
+    glin. Returns the dE error."""
+    import torch
+
+    tol = 1e-4 if drows.dtype == torch.float32 else 2e-2
+    rw, d = cfg.row_width, cfg.embed_dim
+    err = (drows.float() - drows_ref.float()).abs().max().item()
+    print(f"parity_bwd {what}: dE max_abs_err={err:.3e} (rtol=atol={tol}, max|dE|="
+          f"{drows_ref.abs().max().item():.3f})", flush=True)
+    torch.testing.assert_close(drows.float(), drows_ref.float(), rtol=tol, atol=tol)
+    _check_dw(dw, dw_ref, what)
+    diag = torch.stack([drows[:, f, f * d:(f + 1) * d] for f in range(cfg.num_fields)])
+    if (diag != 0).any() or (drows[..., rw + 1:] != 0).any():
+        fail(f"parity_bwd {what}: diagonal or pad lanes of dE not zero")
+    if not torch.equal(drows[..., rw], glin.to(drows.dtype)[:, None].expand(-1, cfg.num_fields)):
+        fail(f"parity_bwd {what}: fused column of dE is not glin")
+    return err
+
+
 def phase_parity_bwd() -> float:
     """Kernel 2 through every entry against the plain backward; returns the
     fm2 bf16 dE error."""
@@ -374,7 +407,7 @@ def phase_parity_bwd() -> float:
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         cfg = _criteo_model(name)
-        fs, rw, d = cfg.small_field_prefix, cfg.row_width, cfg.embed_dim
+        fs, d = cfg.small_field_prefix, cfg.embed_dim
         (es, eb), w1 = _inputs(cfg, 4096, dtype, gen, fm_split=fs)
         gy = torch.randn((4096, w1.shape[0], d), generator=gen, device="cuda").to(dtype)
         glin = torch.randn((4096,), generator=gen, device="cuda")
@@ -382,44 +415,19 @@ def phase_parity_bwd() -> float:
         drows_ref, dw_ref = ic._rows_bwd_reference(rows, w1, gy, glin, cfg)
         for entry in ("fm2", "fm", "flat"):
             drows, dw = _grad_rows(ic, cfg, entry, es, eb, w1, gy, glin)
-            err = (drows.float() - drows_ref.float()).abs().max().item()
-            print(f"parity_bwd criteo_kaggle {entry} {name} B=4096: dE max_abs_err="
-                  f"{err:.3e} (rtol=atol={tol[dtype]}, max|dE|="
-                  f"{drows_ref.abs().max().item():.3f})", flush=True)
-            torch.testing.assert_close(drows.float(), drows_ref.float(),
-                                       rtol=tol[dtype], atol=tol[dtype])
-            _check_dw(dw, dw_ref, f"criteo_kaggle {entry} {name}")
-            diag = torch.stack([drows[:, f, f * d:(f + 1) * d] for f in range(cfg.num_fields)])
-            if (diag != 0).any() or (drows[..., rw + 1:] != 0).any():
-                fail(f"parity_bwd {entry} {name}: diagonal or pad lanes of dE not zero")
-            if not torch.equal(drows[..., rw], glin.to(dtype)[:, None].expand(-1, cfg.num_fields)):
-                fail(f"parity_bwd {entry} {name}: fused column of dE is not glin")
+            err = _check_rows_grad(drows, drows_ref, dw, dw_ref, glin, cfg,
+                                   f"criteo_kaggle {entry} {name} B=4096")
             if entry == "fm2":
                 if dtype == torch.bfloat16:
                     fm2_err = err
                 _, dw2 = _grad_rows(ic, cfg, entry, es, eb, w1, gy, glin)
                 if not torch.equal(dw, dw2):
                     fail(f"parity_bwd fm2 {name}: dW differs between two runs")
-        if dtype == torch.bfloat16:
-            # bf16 rows take the tensor-core kernel above; hold the
-            # CUDA-core kernel, which the other shapes take, as well
-            des, deb = torch.empty_like(es), torch.empty_like(eb)
-            dw = ic.cross_conv1_bwd(ic._descriptors("fm2", cfg, (es, eb)),
-                                    ic._descriptors("fm2", cfg, (des, deb)), w1, gy, glin,
-                                    cfg, cfg.table_width, tensor_cores=False)
-            drows = torch.cat([des, deb]).transpose(0, 1)
-            err = (drows.float() - drows_ref.float()).abs().max().item()
-            print(f"parity_bwd criteo_kaggle fm2 bfloat16 CUDA-core kernel B=4096: dE "
-                  f"max_abs_err={err:.3e} (rtol=atol=2e-2)", flush=True)
-            torch.testing.assert_close(drows.float(), drows_ref.float(), rtol=2e-2,
-                                       atol=2e-2)
-            _check_dw(dw, dw_ref, "criteo_kaggle fm2 bfloat16 CUDA-core kernel")
-            del des, deb, drows
         print(f"parity_bwd {name}: diagonal and pad lanes exact zeros, fused column "
               f"== glin, dW bit-equal in two runs", flush=True)
         del es, eb, rows, drows_ref
-        for cross in ("field_aware", "hadamard"):
-            mcfg = _movielens_model(cross, name)
+        for cross, d in MOVIELENS_CASES:
+            mcfg = _movielens_model(cross, name, d)
             emb, w1 = _inputs(mcfg, 4096, dtype, gen)
             gy = torch.randn((4096, w1.shape[0], mcfg.embed_dim), generator=gen,
                              device="cuda").to(dtype)
@@ -428,11 +436,11 @@ def phase_parity_bwd() -> float:
             de, dw = torch.autograd.grad(ic.cross_conv1(e, w, mcfg), (e, w), gy)
             de_ref, dw_ref = ic.cross_conv1_bwd_reference(emb, w1, gy, mcfg)
             err = (de.float() - de_ref.float()).abs().max().item()
-            print(f"parity_bwd movielens sliced {cross} {name} B=4096: dE max_abs_err="
-                  f"{err:.3e} (rtol=atol={tol[dtype]})", flush=True)
+            print(f"parity_bwd movielens sliced {cross} d={d} {name} B=4096: dE "
+                  f"max_abs_err={err:.3e} (rtol=atol={tol[dtype]})", flush=True)
             torch.testing.assert_close(de.float(), de_ref.float(), rtol=tol[dtype],
                                        atol=tol[dtype])
-            _check_dw(dw, dw_ref, f"movielens sliced {cross} {name}")
+            _check_dw(dw, dw_ref, f"movielens sliced {cross} d={d} {name}")
     return fm2_err
 
 
@@ -476,27 +484,44 @@ def _check_segments(ss, sid, grads, m_pad: int, what: str) -> float:
                                                          m_pad)
     if not torch.equal(uids, uids_ref) or int(count) != int(count_ref):
         fail(f"parity_segment {what}: uids or count differ")
-    err = (gsum.float() - gsum_ref.float()).abs()
-    # one bf16 ulp of the larger result, plus the f32 rounding that two sum
-    # orders may differ by: (length - 1) * 2^-24 * sum|g| over the segment
-    runs = torch.zeros((m_pad,), device=sid.device).index_add_(
-        0, seg.long(), torch.ones_like(seg, dtype=torch.float32))
-    abs_sum = torch.zeros_like(gsum_ref, dtype=torch.float32).index_add_(
-        0, seg.long(), grads.to(torch.bfloat16).float().abs())
-    limit = (_bf16_ulp(torch.maximum(gsum.float().abs(), gsum_ref.float().abs()))
-             + (runs[:, None] - 1).clamp(min=0) * 2.0**-24 * abs_sum)
+    # the exact sums (f64 of the bf16 grads) against the kernel's bf16 result,
+    # which is its f32 sum rounded to nearest: half a bf16 ulp, plus the f32
+    # sum's own error, for which 4 * 2^-24 * sqrt(len * sum g^2) (len times
+    # the segment's RMS) stands ~30x above the spread of sequential f32 sums
+    # of random signs and far below one entry of a hot segment. An exact sum
+    # halfway between two bf16 values (a tie) sits at 1.000 of its limit.
+    c = int(count)
+    if (gsum[c:] != 0).any():
+        fail(f"parity_segment {what}: empty slots hold nonzero rows")
+    sl = seg.long()
+    g64 = grads.to(torch.bfloat16).double()
+    exact = torch.zeros((c, grads.shape[1]), dtype=torch.float64,
+                        device=sid.device).index_add_(0, sl, g64)
+    sumsq = torch.zeros_like(exact).index_add_(0, sl, g64 * g64)
+    del g64
+    runs = torch.zeros((c,), dtype=torch.float64, device=sid.device).index_add_(
+        0, sl, torch.ones_like(seg, dtype=torch.float64))
+    f32_term = 4 * 2.0**-24 * (runs[:, None] * sumsq).sqrt()
+    got = gsum[:c]
+    err = (got.double() - exact).abs()
+    limit = 0.5 * _bf16_ulp(torch.maximum(got.float().abs(), exact.float().abs())).double()
+    limit += f32_term
+    del sumsq
     bad = int((err > limit).sum())
-    worst = int((err / limit.clamp(min=1e-30)).argmax())
+    ratio = err / limit.clamp(min=1e-300)
+    worst = int(ratio.argmax())
     row, col = divmod(worst, gsum.shape[1])
+    hot = int(runs.argmax())
     print(f"parity_segment {what}: n={sid.numel()} count={int(count)} m_pad={m_pad} "
-          f"longest segment {int(runs.max())} entries, max id {int(sid.max())}: uids "
-          f"and count exact, gsum max_abs_err={err.max().item():.3e}, {bad} entries "
-          f"beyond one bf16 ulp + the f32 sum-order bound (worst: kernel "
-          f"{gsum[row, col].item():.6e}, plain {gsum_ref[row, col].item():.6e}, "
-          f"segment of {int(runs[row])})", flush=True)
+          f"longest segment {int(runs[hot])} entries, max id {int(sid.max())}: uids "
+          f"and count exact, gsum max_abs_err={err.max().item():.3e} against the exact "
+          f"sums, {bad} entries beyond half a bf16 ulp + the f32 term (f32 term on the "
+          f"longest segment at most {f32_term[hot].max().item():.3e}; worst entry at "
+          f"{ratio.max().item():.3f} of its limit: kernel {got[row, col].item():.6e}, "
+          f"exact {exact[row, col].item():.6e}, segment of {int(runs[row])})", flush=True)
     if bad:
-        fail(f"parity_segment {what}: gsum beyond one bf16 ulp")
-    return err.max().item()
+        fail(f"parity_segment {what}: gsum beyond half a bf16 ulp + the f32 term")
+    return (gsum.float() - gsum_ref.float()).abs().max().item()
 
 
 def phase_parity_segment():
@@ -726,55 +751,116 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def phase_step_vs_cpu():
-    """One train step on the card and on the CPU from one state and batch."""
+def _rows_apart(cpu, gpu, moved):
+    """Chunked over rows of two (V, n) tensors: max |cpu - gpu| on the
+    moved rows, and whether the other rows are bit-equal."""
+    import torch
+
+    err, equal = 0.0, True
+    for r0 in range(0, cpu.shape[0], 1 << 18):
+        sl = slice(r0, r0 + (1 << 18))
+        c, g, mv = cpu[sl].cuda(), gpu[sl], moved[sl]
+        if mv.any():
+            err = max(err, (c[mv] - g[mv]).abs().max().item())
+        equal &= torch.equal(c[~mv], g[~mv])
+    return err, equal
+
+
+def _step_vs_cpu(sparse: str, steps: int):
+    """`steps` train steps on the card and on the CPU from one state and
+    the same batches; card and CPU held to each other."""
     import torch
 
     from cffm_tpu_torch import train
+    from cffm_tpu_torch.data.loader import make_dataset
 
     cfg = _run_cfg({"model.compute_dtype": "float32", "optim.streamed_update": "on",
-                    "data.batch_size": 4096})
+                    "data.batch_size": 4096, "optim.sparse_optimizer": sparse})
     state_cpu = train.create_state(cfg, torch.Generator().manual_seed(7))
     state_gpu = train.TrainState(0, _tree_to(state_cpu.params, "cuda"),
                                  _tree_to(state_cpu.dense_opt_state, "cuda"),
                                  _tree_to(state_cpu.sparse_opt_state, "cuda"))
     table0 = state_gpu.params["embed"]["table"].clone()
-    _, batch = _real_batch(4096)
+    dense0 = [t.clone() for t in train.tree_leaves(train.split_dense_params(state_cpu.params))]
+    data = make_dataset(cfg, prefetch=0)
+    batches = [next(data) for _ in range(steps)]
     fn = train.default_interaction_fn(cfg)
-    out = {}
-    for dev, st in (("cpu", state_cpu), ("cuda", state_gpu)):
-        ids, dense, labels = train.batch_to_device(batch, torch.device(dev))
+    losses = {}
+    states = {"cpu": state_cpu, "cuda": state_gpu}
+    for dev in states:
         t0 = time.perf_counter()
-        _, m = train.train_step(st, ids, dense, labels, cfg, fn)
-        out[dev] = float(m["loss"])
-        print(f"step_vs_cpu: {dev} step took {time.perf_counter() - t0:.1f}s", flush=True)
-    lerr = abs(out["cpu"] - out["cuda"])
-    dense_err = max((a.cuda() - b).abs().max().item() for a, b in zip(
-        train.tree_leaves(train.split_dense_params(state_cpu.params)),
-        train.tree_leaves(train.split_dense_params(state_gpu.params))))
-    tcpu = state_cpu.params["embed"]["table"]
-    tgpu = state_gpu.params["embed"]["table"]
+        for batch in batches:
+            ids, dense, labels = train.batch_to_device(batch, torch.device(dev))
+            states[dev], m = train.train_step(states[dev], ids, dense, labels, cfg, fn)
+            losses.setdefault(dev, []).append(float(m["loss"]))
+        print(f"step_vs_cpu {sparse}: {steps} steps on {dev} took "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+    cpu, gpu = states["cpu"], states["cuda"]
+    # the first step starts from one state: rtol 1e-5; later steps start
+    # from tables whose bf16-rounded row sums may differ by an ulp in a few
+    # lanes (f32 sums in another order): rtol 1e-4
+    lerr = [abs(a - b) / abs(a) for a, b in zip(losses["cpu"], losses["cuda"])]
+    # dense params: atol 1e-5 after one step. After more, Adam's m/sqrt(v)
+    # turns the f32 noise of a gradient that nearly cancels across steps
+    # into a visible share of lr in single elements, so the whole dense step
+    # is held instead: |cpu - card| / |card - start| <= 1e-3 (L2 norms)
+    pairs = list(zip(train.tree_leaves(train.split_dense_params(cpu.params)),
+                     train.tree_leaves(train.split_dense_params(gpu.params)), dense0))
+    dense_err = max((a.cuda() - b).abs().max().item() for a, b, _ in pairs)
+    dense_rel = (math.sqrt(sum(float(((a.cuda() - b) ** 2).sum()) for a, b, _ in pairs))
+                 / math.sqrt(sum(float(((b - c.cuda()) ** 2).sum()) for _, b, c in pairs)))
+    dense_bad = dense_err > 1e-5 if steps == 1 else dense_rel > 1e-3
+    tgpu = gpu.params["embed"]["table"]
     moved = (tgpu != table0).any(dim=1)
-    rows = moved.nonzero()[:, 0]
-    delta = (tgpu[rows] - table0[rows]).abs().max().item()
-    terr = (tcpu[rows.cpu()].cuda() - tgpu[rows]).abs().max().item()
-    aerr = (state_cpu.sparse_opt_state["embed"]["accum"].cuda()
-            - state_gpu.sparse_opt_state["embed"]["accum"]).abs().max().item()
-    untouched_equal = torch.equal(tcpu[~moved.cpu()], table0[~moved].cpu())
-    print(f"step_vs_cpu criteo_kaggle B=4096 f32: loss cpu {out['cpu']:.7f} card "
-          f"{out['cuda']:.7f} (err {lerr:.2e}, rtol 1e-5); dense params max_abs_err "
-          f"{dense_err:.2e} (atol 1e-5); {rows.numel()} touched rows, max |delta| "
-          f"{delta:.3e}, table max_abs_err {terr:.2e} (atol 1e-2*max|delta|); accum "
-          f"max_abs_err {aerr:.2e} (atol 1e-6); CPU untouched rows equal: "
-          f"{untouched_equal}", flush=True)
-    if (lerr > 1e-5 * abs(out["cpu"]) or dense_err > 1e-5 or terr > 1e-2 * delta
-            or aerr > 1e-6 or not untouched_equal):
-        fail("step_vs_cpu: card and CPU disagree")
+    delta = max((tgpu[sl] - table0[sl]).abs().max().item()
+                for sl in (slice(r, r + (1 << 18)) for r in range(0, tgpu.shape[0], 1 << 18)))
+    # rows the card left alone are bit-equal to the start, so CPU == card
+    # there means the CPU left them alone too
+    terr, untouched = _rows_apart(cpu.params["embed"]["table"], tgpu, moved)
+    # sparse state on the moved rows: the accumulator at atol 1e-6 (a row
+    # mean of squares, where an ulp of one lane's bf16 sum all but vanishes);
+    # Adam's m, a row sum itself, at 1e-2 of max|m| like the table's step;
+    # v at 1e-2 of max|v|
+    state_bad, state_msg = False, []
+    for k, v in gpu.sparse_opt_state["embed"].items():
+        c = cpu.sparse_opt_state["embed"][k]
+        if v.dim() == 0:
+            ok = int(c) == int(v)
+            state_msg.append(f"{k} {int(c)}/{int(v)}")
+        else:
+            err, equal = _rows_apart(c, v, moved)
+            scale = v.abs().max().item()
+            ok = equal and err <= (1e-6 if k == "accum" else 1e-2 * scale)
+            state_msg.append(f"{k} max_abs_err {err:.2e} (max|{k}| {scale:.3e}), "
+                             f"untouched rows equal {equal}")
+        state_bad |= not ok
+    print(f"step_vs_cpu criteo_kaggle {sparse} B=4096 f32, {steps} steps: losses cpu "
+          f"{losses['cpu']} card {losses['cuda']} (relative err "
+          f"{', '.join(f'{e:.2e}' for e in lerr)}; rtol 1e-5, then 1e-4); dense params "
+          f"max_abs_err {dense_err:.2e} (atol 1e-5 after one step), relative L2 error of "
+          f"the dense step {dense_rel:.2e} (1e-3 after more); {int(moved.sum())} moved "
+          f"rows, max "
+          f"|delta| {delta:.3e}, table max_abs_err {terr:.2e} (atol 1e-2*max|delta|), "
+          f"the other rows bit-equal on both {untouched}; sparse state: "
+          f"{'; '.join(state_msg)}", flush=True)
+    if (lerr[0] > 1e-5 or any(e > 1e-4 for e in lerr[1:]) or dense_bad
+            or terr > 1e-2 * delta or not untouched or state_bad):
+        fail(f"step_vs_cpu {sparse}: card and CPU disagree")
+    return losses
+
+
+def phase_step_vs_cpu():
+    """Train steps on the card and on the CPU from one state and the same
+    batches: one adagrad step (the hybrid route, kernels 1-4) and two
+    rowwise-Adam steps (the fm route, kernel 5)."""
+    _step_vs_cpu("adagrad", 1)
+    _step_vs_cpu("rowwise_adam", 2)
 
 
 def phase_time_train() -> dict:
     """Kernels 2-5 at the B=65536 training shapes: kernel, plain, library,
-    bound; then the train step end to end and its profile."""
+    bound, and kernel 2 held against its plain version there; then the
+    train step end to end and its profile."""
     import torch
     import torch.nn.functional as F
 
@@ -799,17 +885,19 @@ def phase_time_train() -> dict:
     des, deb = torch.empty_like(es), torch.empty_like(eb)
 
     def kernel2():
-        ic.cross_conv1_bwd(ic._descriptors("fm2", mcfg, (es, eb)),
-                           ic._descriptors("fm2", mcfg, (des, deb)), w1, gy, glin,
-                           mcfg, w)
+        return ic.cross_conv1_bwd(ic._descriptors("fm2", mcfg, (es, eb)),
+                                  ic._descriptors("fm2", mcfg, (des, deb)), w1, gy, glin,
+                                  mcfg, w)
 
     ms = cuda_ms(kernel2, 5)
-    cuda_core_ms = cuda_ms(lambda: ic.cross_conv1_bwd(
-        ic._descriptors("fm2", mcfg, (es, eb)), ic._descriptors("fm2", mcfg, (des, deb)),
-        w1, gy, glin, mcfg, w, tensor_cores=False), 2, warmup=1)
     plain_ms = cuda_ms(lambda: ic._rows_bwd_reference(
         torch.cat([es, eb]).transpose(0, 1), w1, gy, glin, mcfg), 2, warmup=1)
     rows = torch.cat([es, eb]).transpose(0, 1)
+    dw = kernel2()
+    drows_ref, dw_ref = ic._rows_bwd_reference(rows, w1, gy, glin, mcfg)
+    bwd_err = _check_rows_grad(torch.cat([des, deb]).transpose(0, 1), drows_ref, dw, dw_ref,
+                               glin, mcfg, f"criteo_kaggle fm2 bfloat16 B={b}")
+    del drows_ref, dw_ref
     m = build_cross_map(rows[..., : mcfg.row_width].reshape(b, f, f, d), mcfg)
     wb = w1.to(torch.bfloat16)
     library_ms = cuda_ms(lambda: (torch.nn.grad.conv1d_weight(m, wb.shape, gy, padding=k // 2),
@@ -819,7 +907,7 @@ def phase_time_train() -> dict:
               + w1.numel() * 2 + w1.numel() * 4)
     ops = 2 * (2 * b * d * mcfg.num_pairs * k * c1)
     out["cross_conv1_bwd"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                              "cuda_core_ms": cuda_core_ms, **_bound(nbytes, ops)}
+                              "max_abs_err": bwd_err, **_bound(nbytes, ops)}
     del es, eb, des, deb, gy, glin
     torch.cuda.empty_cache()
 
@@ -883,9 +971,7 @@ def phase_time_train() -> dict:
               f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}: {r['bytes'] / 1e9:.3f} GB, {r['ops'] / 1e9:.2f} GOP)"
               + (f", touched rows {r['touched_rows']}" if "touched_rows" in r else "")
-              + (f", sgd kernel {r['sgd_ms']:.4f} ms" if "sgd_ms" in r else "")
-              + (f", CUDA-core kernel {r['cuda_core_ms']:.4f} ms" if "cuda_core_ms" in r
-                 else ""),
+              + (f", sgd kernel {r['sgd_ms']:.4f} ms" if "sgd_ms" in r else ""),
               flush=True)
 
     # the train step end to end, bf16 compute, f32 table, adagrad
@@ -1000,20 +1086,19 @@ def main(argv=None) -> int:
             "name": "cross_conv1_fwd", "route": "cuda",
             "source": "cffm_tpu_torch/ops/csrc/cross_conv1_fwd.cu",
             "replaces": "cffm_tpu/ops/interaction_conv.py:132",
-            "launches": served[0], "max_abs_err": fm2_err,
+            "launches": served[0], "max_abs_err": max(fm2_err, times["max_abs_err_65536"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "cuda_core_ms": t["cuda_core_ms"],
             "at_batch_65536": {k: times[65536][k] for k in
-                               ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                "cuda_core_ms")},
+                               ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "forward_ms_65536": times["forward_ms_65536"],
             "train_launches": trained["adagrad_f32"]["cross_conv1_lin_fm2"],
         }
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         new = [
             ("cross_conv1_bwd", "cross_conv1_bwd.cu", "cffm_tpu/ops/interaction_conv.py:268",
-             trained["adagrad_f32"]["cross_conv1_bwd"], bwd_err),
+             trained["adagrad_f32"]["cross_conv1_bwd"],
+             max(bwd_err, ttimes["cross_conv1_bwd"]["max_abs_err"])),
             ("sorted_segment_sum", "sorted_segment.cu", "cffm_tpu/ops/sorted_segment.py:65",
              trained["adagrad_f32"]["sorted_segment_sum_compact"], seg),
             ("streamed_apply", "streamed_update.cu", "cffm_tpu/ops/streamed_update.py:103",
@@ -1026,9 +1111,7 @@ def main(argv=None) -> int:
         records = [fwd] + [
             {"name": name, "route": "cuda", "source": f"cffm_tpu_torch/ops/csrc/{src}",
              "replaces": rep, "launches": launches, "max_abs_err": err,
-             **{k: ttimes[name][k] for k in keys}, "batch": 65536,
-             **({"cuda_core_ms": ttimes[name]["cuda_core_ms"]}
-                if "cuda_core_ms" in ttimes[name] else {})}
+             **{k: ttimes[name][k] for k in keys}, "batch": 65536}
             for name, src, rep, launches, err in new]
         records[-1]["train_step_ms_65536"] = ttimes["train_step_ms_65536"]
         print(json.dumps({"kernels": records}))

@@ -194,8 +194,8 @@ def test_gradients_reach_rows_and_w1_through_make_interaction_fn():
 
 @pytest.mark.parametrize("length", [16, 15])
 def test_max_pool_valid_matches_max_pool1d(length):
-    """Values and gradients of both forms equal max_pool1d's, ties (the
-    zeros after a ReLU) and a ragged tail included."""
+    """Values and gradients equal max_pool1d's, with and without autograd,
+    ties (the zeros after a ReLU) and a ragged tail included."""
     from cffm_tpu_torch.ops.cross import max_pool_valid
 
     x = torch.relu(torch.from_numpy(_draw(12, (4, 3, length))[0]))
