@@ -19,6 +19,12 @@ state, so the port imports no optax):
 
 and returns the port's `train.TrainState`. The step counters ("count",
 "t") stay on the CPU, as the port keeps them.
+
+`sharded_state_from_jax(np_state, rank, world, device)` does the same
+for a state of JAX's `create_sharded_state` (the same tree, tables and
+per-row state in mod-sharded global storage) and returns rank's share
+for the port's sharded step. `natural_from_shards` puts the ranks'
+shards of one table back into the natural row order.
 """
 
 from __future__ import annotations
@@ -62,3 +68,42 @@ def state_from_jax(np_state, device="cpu"):
         params=params_from_jax(np_state["params"], device),
         dense_opt_state=_state_tree(np_state["dense_opt_state"], device),
         sparse_opt_state=_state_tree(np_state["sparse_opt_state"], device))
+
+
+def _shard_rows(tree, rank: int, world: int):
+    """Rows [rank*Vs, (rank+1)*Vs) of every 2-d array (the row-sharded
+    leaves of the JAX sharded state); other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: _shard_rows(v, rank, world) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_shard_rows(v, rank, world) for v in tree]
+    a = np.asarray(tree)
+    if a.ndim != 2:
+        return a
+    vs = a.shape[0] // world
+    return a[rank * vs:(rank + 1) * vs]
+
+
+def sharded_state_from_jax(np_state, rank: int, world: int, device="cpu"):
+    """Rank's share of a JAX sharded TrainState given as numpy (see the
+    module note): rows [rank*Vs, (rank+1)*Vs) of the mod-sharded global
+    table, linear table, accum, m and v; dense params and their
+    optimizer state replicated."""
+    params = dict(np_state["params"])
+    params["embed"] = _shard_rows(params["embed"], rank, world)
+    if "table" in params.get("linear", {}):
+        params["linear"] = dict(params["linear"],
+                                table=_shard_rows(params["linear"]["table"], rank, world))
+    return state_from_jax({
+        "step": np_state["step"], "params": params,
+        "dense_opt_state": np_state["dense_opt_state"],
+        "sparse_opt_state": _shard_rows(np_state["sparse_opt_state"], rank, world)},
+        device)
+
+
+def natural_from_shards(shards, num_rows: int) -> torch.Tensor:
+    """The ranks' (Vs, n) shards of one table, in rank order -> the
+    (num_rows, n) table in natural row order (global id g at row g)."""
+    from cffm_tpu_torch.parallel.sharded_embedding import from_mod_sharded
+
+    return from_mod_sharded(torch.cat([s.cpu() for s in shards]), len(shards), num_rows)

@@ -1,19 +1,26 @@
 """Per-row sparse optimizer apply on the touched rows (adagrad, sgd and
 rowwise_adam).
 
-The port's counterpart of `cffm_tpu/ops/streamed_update.py`
-(`streamed_rowwise_apply`, `streamed_rowwise_adam_apply`). It keeps the
+The port's counterpart of `cffm_tpu/ops/streamed_update.py`. It keeps the
 contract, not the design: the TPU streams the whole table because its
-scatter is slow; the kernel (`csrc/streamed_update.cu`) reads and writes
-only the rows named in uids, in place. Contract:
+scatter is slow; the kernels (`csrc/streamed_update.cu`) read and write
+only the rows they are given, in place. Two contracts:
 
-  uids (M,) int32 ascending: the unique valid prefix in [0, V), the
+  flat (`streamed_rowwise_apply`, `streamed_rowwise_adam_apply`; kernels
+  4-5): uids (M,) int32 ascending: the unique valid prefix in [0, V), the
   sentinel V in the tail. gsum (M, W) duplicate-summed gradients, taken
-  in bf16. Rows outside uids keep table and state bit for bit.
+  in bf16.
+  bucketed (`bucketed_rowwise_apply`, `bucketed_rowwise_adam_apply`;
+  kernel 7, the sharded step's update): ids (NB, C) int32, each bucket
+  ascending and unique with the sentinel (>= V) in its empty tail; g
+  (NB, C, W), taken in bf16, garbage in sentinel slots. A row present in
+  several buckets has its partials summed in f32, in bucket order, before
+  the optimizer math; `clip` > 0 clips that total's L2 norm.
 
-Both functions UPDATE table and state IN PLACE (the JAX step donates its
-state) and return them. `pick_tile` and `padded_entries` stay as the
-gates and sizes `optim.rowwise` uses, so the port routes as JAX does.
+Rows outside the ids keep table and state bit for bit. Every function
+UPDATES table and state IN PLACE (the JAX step donates its state) and
+returns them. `pick_tile`, `padded_entries` and `bucketed_tile` stay as
+the gates and sizes `optim.rowwise` uses, so the port routes as JAX does.
 Stochastic rounding into a bf16 table uses Philox in the kernel, keyed
 by sr_seed; the plain version draws its dither from a torch.Generator
 seeded the same way, so the two agree in distribution, not in bits.
@@ -34,6 +41,7 @@ from cffm_tpu_torch.ops.rounding import random_dither, stochastic_round_bf16
 
 _SOURCE = "streamed_update"
 EB = 128  # entry block of the JAX kernel's windows; sizes padded_entries
+MAX_RESIDENT_IDS_BYTES = 32 * 1024 * 1024  # the JAX kernel's VMEM guard on the ids
 _MODES = {"sgd": 0, "adagrad": 1, "rowwise_adam": 2}
 
 
@@ -57,6 +65,19 @@ def padded_entries(m: int, r: int) -> int:
     return max(-(-m // EB), win_blocks(r)) * EB
 
 
+def bucketed_tile(num_rows: int, width: int, nb: int, c: int) -> int:
+    """The JAX bucketed kernel's row tile (0 = unsupported): the gate
+    `optim.rowwise.bucketed_rowwise_update` routes on. Each bucket must
+    hold a full entry window and be EB-aligned, and the ids must fit the
+    JAX kernel's VMEM guard."""
+    if width % 128 != 0 or c % EB != 0 or nb * c * 4 > MAX_RESIDENT_IDS_BYTES:
+        return 0
+    for r in (512, 256, 128, 64):
+        if num_rows >= r and c >= win_blocks(r) * EB:
+            return r
+    return 0
+
+
 def _hyper(lr, eps, extra=()) -> torch.Tensor:
     """f32 hyperparameters (lr, eps, ...) as one CPU tensor."""
     vals = [torch.as_tensor(x, dtype=torch.float32).reshape(()).cpu()
@@ -75,12 +96,37 @@ def _adam_extra(b1: float, b2: float, t_step):
 def streamed_apply_reference(table: torch.Tensor, state: dict, uids: torch.Tensor,
                              gsum: torch.Tensor, hyper: torch.Tensor, mode: str,
                              sr_seed: int | None = None):
-    """Plain version, in place: state holds "accum" (V, 1) for adagrad,
-    "m" (V, W) and "v" (V, 1) for rowwise_adam, nothing for sgd."""
+    """Plain version of kernels 4-5, in place: state holds "accum" (V, 1)
+    for adagrad, "m" (V, W) and "v" (V, 1) for rowwise_adam, nothing for
+    sgd."""
     v = table.shape[0]
     valid = (uids >= 0) & (uids < v)
-    rows = uids[valid].long()
-    s = gsum[valid].to(torch.bfloat16).float()
+    return _apply_rows(table, state, uids[valid].long(),
+                       gsum[valid].to(torch.bfloat16).float(), hyper, mode, sr_seed)
+
+
+def bucketed_apply_reference(table: torch.Tensor, state: dict, ids_bkt: torch.Tensor,
+                             g_bkt: torch.Tensor, hyper: torch.Tensor, mode: str,
+                             clip: float = 0.0, sr_seed: int | None = None):
+    """Plain version of kernel 7, in place: the valid rows of each bucket
+    summed into an f32 buffer one bucket at a time, in order, then the
+    per-row clip, then the update of `streamed_apply_reference`."""
+    v = table.shape[0]
+    valid = (ids_bkt >= 0) & (ids_bkt < v)
+    rows = torch.unique(ids_bkt[valid].long())
+    slot = torch.searchsorted(rows, ids_bkt.long())
+    s = torch.zeros((rows.numel(), table.shape[1]), dtype=torch.float32, device=table.device)
+    for o in range(ids_bkt.shape[0]):  # a row occurs at most once per bucket
+        s.index_add_(0, slot[o][valid[o]], g_bkt[o][valid[o]].to(torch.bfloat16).float())
+    if clip > 0:
+        norm = torch.sqrt(torch.sum(s * s, dim=1, keepdim=True))
+        s = s * torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
+    return _apply_rows(table, state, rows, s, hyper, mode, sr_seed)
+
+
+def _apply_rows(table, state: dict, rows: torch.Tensor, s: torch.Tensor,
+                hyper: torch.Tensor, mode: str, sr_seed: int | None):
+    """The update of the unique rows `rows` by their f32 gradients s, in place."""
     h = hyper.to(table.device)
     lr, eps = h[0], h[1]
     if mode == "adagrad":
@@ -113,22 +159,31 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
     fn = lib.cffm_streamed_apply
     if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [i, p, p, p, p, p, p, p, ll, ll, i, i, i, ctypes.c_ulonglong, p]
+        p, i, ll, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
+        fn.argtypes = [i, p, p, p, p, p, p, p, ll, ll, i, i, i, u64, p]
         fn.restype = ctypes.c_int
+        lib.cffm_bucketed_apply.argtypes = [i, p, p, p, p, p, p, p, ll, i, ll, i, i,
+                                            ctypes.c_float, i, u64, p]
+        lib.cffm_bucketed_apply.restype = ctypes.c_int
     return lib
 
 
-def _apply(table, state: dict, uids, gsum, hyper, mode: str, sr_seed):
+def _apply(table, state: dict, ids, g, hyper, mode: str, sr_seed, clip=None):
+    """Kernels 4-5 (ids (M,), clip None) or kernel 7 (ids (NB, C)), or the
+    plain version on the CPU."""
     v, w = table.shape
     if w % 128 != 0:
         raise ValueError(f"streamed update needs a 128-multiple width, got {w}")
     if table.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"streamed update takes an f32 or bf16 table, got {table.dtype}")
-    if uids.dim() != 1 or uids.dtype != torch.int32 or gsum.shape != (uids.shape[0], w):
-        raise ValueError("uids must be (M,) int32 and gsum (M, W)")
+    if ids.dtype != torch.int32 or g.shape != (*ids.shape, w) or ids.dim() != (
+            1 if clip is None else 2):
+        raise ValueError("ids must be (M,) int32 with gsum (M, W), or (NB, C) int32 "
+                         "with g (NB, C, W) for the bucketed apply")
     if table.device.type == "cpu":
-        return streamed_apply_reference(table, state, uids, gsum, hyper, mode, sr_seed)
+        if clip is None:
+            return streamed_apply_reference(table, state, ids, g, hyper, mode, sr_seed)
+        return bucketed_apply_reference(table, state, ids, g, hyper, mode, clip, sr_seed)
     if table.device.type != "cuda":
         raise ValueError(f"streamed update takes CPU or CUDA tensors, got {table.device}")
     dev = table.device
@@ -140,18 +195,23 @@ def _apply(table, state: dict, uids, gsum, hyper, mode: str, sr_seed):
                              f"tensor on {dev}")
     if not table.is_contiguous():
         raise ValueError("the table must be contiguous (updated in place)")
-    uids = uids.to(dev).contiguous()
-    g = gsum.to(device=dev, dtype=torch.bfloat16).contiguous()
+    ids = ids.to(dev).contiguous()
+    g = g.to(device=dev, dtype=torch.bfloat16).contiguous()
     hyp = hyper.to(dev, non_blocking=True)  # a fresh CPU tensor: no host wait
-    stochastic = table.dtype == torch.bfloat16 and sr_seed is not None
+    stochastic = int(table.dtype == torch.bfloat16 and sr_seed is not None)
+    seed = int(sr_seed or 0) & (2**64 - 1)
     ptrs = {name: t.data_ptr() for name, t in state.items()}
+    common = (int(table.dtype == torch.bfloat16), table.data_ptr(), ptrs.get("accum"),
+              ptrs.get("m"), ptrs.get("v"), ids.data_ptr(), g.data_ptr(), hyp.data_ptr(), v)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = _library().cffm_streamed_apply(
-            int(table.dtype == torch.bfloat16), table.data_ptr(),
-            ptrs.get("accum"), ptrs.get("m"), ptrs.get("v"),
-            uids.data_ptr(), g.data_ptr(), hyp.data_ptr(), v, uids.shape[0], w,
-            _MODES[mode], int(stochastic), int(sr_seed or 0) & (2**64 - 1),
-            torch.cuda.current_stream(dev).cuda_stream)
+        if clip is None:
+            err = _library().cffm_streamed_apply(*common, ids.shape[0], w, _MODES[mode],
+                                                 stochastic, seed, stream)
+        else:
+            err = _library().cffm_bucketed_apply(*common, ids.shape[0], ids.shape[1], w,
+                                                 _MODES[mode], float(clip), stochastic,
+                                                 seed, stream)
     if err != 0:
         raise RuntimeError(f"streamed_update kernel launch failed: CUDA error {err}")
     return table
@@ -185,5 +245,38 @@ def streamed_rowwise_adam_apply(table: torch.Tensor, m: torch.Tensor, v: torch.T
     return table, m, v
 
 
+def bucketed_rowwise_apply(table: torch.Tensor, accum: torch.Tensor | None,
+                           ids_bkt: torch.Tensor, g_bkt: torch.Tensor, lr, eps,
+                           clip: float = 0.0, sr_seed: int | None = None):
+    """Kernel 7, adagrad (accum (V, 1) f32) or sgd (accum None), in place,
+    straight from the sharded gradient return's buckets: ids_bkt (NB, C),
+    g_bkt (NB, C, W) (see the module note). clip > 0: per-row L2 clip of
+    each row's cross-bucket total. Returns (table, accum)."""
+    mode = "adagrad" if accum is not None else "sgd"
+    state = {"accum": accum} if accum is not None else {}
+    table = _apply(table, state, ids_bkt, g_bkt, _hyper(lr, eps), mode, sr_seed,
+                   clip=float(clip))
+    if table.device.type == "cuda":
+        bucketed_rowwise_apply.launches += 1
+    return table, accum
+
+
+def bucketed_rowwise_adam_apply(table: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+                                ids_bkt: torch.Tensor, g_bkt: torch.Tensor, lr, eps,
+                                b1: float, b2: float, t_step, clip: float = 0.0,
+                                sr_seed: int | None = None):
+    """Kernel 7, rowwise Adam from the buckets, in place (see
+    `bucketed_rowwise_apply` and `streamed_rowwise_adam_apply`). Returns
+    (table, m, v)."""
+    hyper = _hyper(lr, eps, _adam_extra(b1, b2, t_step))
+    table = _apply(table, {"m": m, "v": v}, ids_bkt, g_bkt, hyper, "rowwise_adam", sr_seed,
+                   clip=float(clip))
+    if table.device.type == "cuda":
+        bucketed_rowwise_adam_apply.launches += 1
+    return table, m, v
+
+
 streamed_rowwise_apply.launches = 0
 streamed_rowwise_adam_apply.launches = 0
+bucketed_rowwise_apply.launches = 0
+bucketed_rowwise_adam_apply.launches = 0

@@ -1,8 +1,7 @@
 """Per-row sparse optimizers for embedding tables + the dense optimizer chain.
 
-The port's counterpart of `cffm_tpu/optim/rowwise.py` (the bucketed
-update of the sharded engine comes with the sharded slice). Optimizer
-state is allocated row for row with the table. The train step hands over
+The port's counterpart of `cffm_tpu/optim/rowwise.py`. Optimizer state
+is allocated row for row with the table. The train step hands over
 the touched rows as (row_ids (N,), grads (N, W)); ids may repeat and are
 segment-summed before the state update, so adagrad sees one
 accumulation per row per step.
@@ -17,6 +16,9 @@ Two routes, with the JAX gate (`_should_stream`) choosing between them:
   streamed: per-field sort, the sorted-segment kernel, then the touched-
     row apply kernel (ops/sorted_segment.py, ops/streamed_update.py);
   scatter: torch sort, `index_add_` segment sums and `index_put_` writes.
+The sharded step's update (`bucketed_rowwise_update`) takes the gradient
+return's per-peer buckets straight into the bucketed apply kernel, with
+JAX's gate and fallback.
 
 Small scalars the JAX package keeps on the device stay on the CPU here:
 the sparse Adam step "t", the dense Adam "count" and the learning-rate
@@ -337,6 +339,65 @@ def rowwise_update(
         return table, state
 
     raise ValueError(opt.sparse_optimizer)
+
+
+def bucketed_rowwise_update(
+    table: torch.Tensor,
+    state: Dict,
+    ids_bkt: torch.Tensor,
+    grads_bkt: torch.Tensor,
+    opt: OptimizerConfig,
+    lr_scale=1.0,
+    sr_key: torch.Generator | None = None,
+) -> Tuple[torch.Tensor, Dict]:
+    """Sparse per-row update in place, straight from the sharded gradient
+    return's buckets (parallel/sharded_embedding.grad_return): ids_bkt
+    (T, C) local rows, ascending and unique per bucket, the out-of-range
+    sentinel (>= table rows) in empty slots; grads_bkt (T, C, W) the
+    per-bucket dedup-summed grads, GARBAGE in sentinel slots.
+
+    When the JAX gate passes (`bucketed_tile` and the 8% rule, or
+    streamed_update "on") the buckets feed the bucketed apply kernel
+    directly; it sums a row's partials across buckets before the
+    optimizer math and applies opt.clip_norm to that total. Otherwise the
+    buckets flatten into `rowwise_update`, whose global dedup handles the
+    cross-bucket duplicates (sentinel ids sort last and land nowhere).
+    Returns (table, state), the same objects, updated."""
+    from cffm_tpu_torch.ops.streamed_update import (bucketed_rowwise_adam_apply,
+                                                    bucketed_rowwise_apply, bucketed_tile)
+
+    v, w = table.shape
+    nb, c = ids_bkt.shape[0], ids_bkt.shape[1]
+    r = 0
+    if (opt.streamed_update != "off"
+            and opt.sparse_optimizer in ("adagrad", "sgd", "rowwise_adam")
+            and table.dtype in (torch.float32, torch.bfloat16)
+            and grads_bkt.shape[-1] == w):
+        r = bucketed_tile(v, w, nb, c)
+    touched = min(nb * c, v)
+    if r and (opt.streamed_update == "on" or (v * w >= (1 << 24) and touched >= 0.08 * v)):
+        lr = opt.sparse_lr * torch.as_tensor(lr_scale, dtype=torch.float32)
+        seed = None
+        if table.dtype == torch.bfloat16 and opt.table_rounding == "stochastic":
+            if sr_key is None:
+                raise ValueError("bf16 streamed update with stochastic rounding needs sr_key")
+            seed = _draw_seed(sr_key)
+        if opt.sparse_optimizer == "adagrad":
+            bucketed_rowwise_apply(table, state["accum"], ids_bkt, grads_bkt, lr, opt.eps,
+                                   clip=opt.clip_norm, sr_seed=seed)
+        elif opt.sparse_optimizer == "rowwise_adam":
+            state["t"] = state["t"] + 1
+            bucketed_rowwise_adam_apply(table, state["m"], state["v"], ids_bkt, grads_bkt, lr,
+                                        opt.eps, opt.adam_b1, opt.adam_b2, state["t"],
+                                        clip=opt.clip_norm, sr_seed=seed)
+        else:
+            bucketed_rowwise_apply(table, None, ids_bkt, grads_bkt, lr, opt.eps,
+                                   clip=opt.clip_norm, sr_seed=seed)
+        return table, state
+    # ids are >= 0 by construction: no sentinel masking pass
+    return rowwise_update(table, state, ids_bkt.reshape(-1), grads_bkt.reshape(-1, w), opt,
+                          lr_scale=lr_scale, max_unique=v + 1, mask_sentinels=False,
+                          sr_key=sr_key)
 
 
 def dense_rowwise_apply(table: torch.Tensor, state: Dict, g: torch.Tensor,

@@ -13,9 +13,12 @@ take the optax chain of `make_dense_optimizer`.
 `train_step` updates the state's tensors IN PLACE (the JAX step donates
 its state) and returns a new TrainState that shares them. The packed
 wire-format step (`train_step_wire`) comes with the port's data slice.
+The row-sharded step lives in `parallel/sharded_train.py`; `run` takes
+it for a sharded config launched on more than one process.
 
 Usage: python -m cffm_tpu_torch.train --config=<name> [--device=cuda]
        [section.field=value ...]
+       torchrun --nproc_per_node=N -m cffm_tpu_torch.train --config=avazu
 """
 
 from __future__ import annotations
@@ -255,57 +258,96 @@ def run(cfg: TrainConfig, device=None, log_fn=print, interaction_fn=None) -> Dic
     """Train cfg.data.num_train_steps steps, then evaluate on a window of
     the val stream. Runs on the CUDA device unless device says otherwise.
 
-    The single-device path of the JAX run loop; checkpoints, TensorBoard
-    and the row-sharded engine arrive with later slices and raise here."""
+    With cfg.sharding.table_sharded in a group of more than one process
+    (torchrun's environment, or a default group already initialised) this
+    takes the row-sharded path (parallel/sharded_train.py): each rank draws
+    its own B/T block of every batch, and only rank 0 logs. Otherwise it
+    takes the single-device path, as the JAX run does on one device.
+    Checkpoints, TensorBoard and the hierarchical and intra-host
+    exchanges arrive with later slices and raise here."""
     from cffm_tpu_torch.data.loader import make_dataset
+    from cffm_tpu_torch.parallel.mesh import close_mesh, make_mesh, requested_world_size
 
     device = resolve_device(device)
     if cfg.checkpoint_dir or cfg.tensorboard_dir:
         raise NotImplementedError(
             "checkpoint_dir and tensorboard_dir arrive with the port's checkpoint "
             "slice (ROADMAP queue 1, checkpoint/score/export/utils)")
-    if (cfg.sharding.table_sharded and device.type == "cuda"
-            and torch.cuda.device_count() > 1):
+    sharded = cfg.sharding.table_sharded and requested_world_size() > 1
+    if sharded and cfg.sharding.table_axis != "global":
         raise NotImplementedError(
-            "the row-sharded engine (table_sharded on more than one device) "
-            "arrives with the port's sharded slice")
+            f"table_axis={cfg.sharding.table_axis!r}: the hierarchical and intra-host "
+            "exchanges arrive with the port's next sharded slice; only the flat "
+            "exchange (table_axis='global') is ported")
     if interaction_fn is None:
         interaction_fn = default_interaction_fn(cfg)
-    state = create_state(cfg, torch.Generator(device=device).manual_seed(cfg.data.seed))
-    ds = make_dataset(cfg)
-    val_ds = make_dataset(cfg, split="val")
+    mesh = None
+    if sharded:
+        from cffm_tpu_torch.parallel.sharded_train import (create_sharded_state,
+                                                           make_sharded_eval_step,
+                                                           make_sharded_train_step)
 
-    def run_eval():
-        # the synthetic stream is infinite: a fixed window of val batches
-        auc_state = metrics.auc_state_init(device=device)
-        for _ in range(cfg.data.eval_batches or 32):
-            ids, dense, labels = batch_to_device(next(val_ds), device)
-            auc_state = eval_step(state, auc_state, ids, dense, labels, cfg,
-                                  interaction_fn)
-        return {k: float(v) for k, v in metrics.auc_state_finalize(auc_state).items()}
+        mesh = make_mesh(backend="gloo" if device.type == "cpu" else "nccl",
+                         device=device if device.type == "cpu" else None)
+        device = mesh.device
+        if mesh.rank != 0:
+            log_fn = lambda *_: None  # noqa: E731  (one rank logs)
+        state = create_sharded_state(
+            cfg, torch.Generator(device=device).manual_seed(cfg.data.seed), mesh)
+        step_fn = make_sharded_train_step(cfg, mesh, interaction_fn)
+        sharded_eval = make_sharded_eval_step(cfg, mesh, interaction_fn)
 
-    t0 = time.time()
-    examples = 0
-    last_loss = float("nan")
-    m = None
-    for step in range(cfg.data.num_train_steps):
-        ids, dense, labels = batch_to_device(next(ds), device)
-        state, m = train_step(state, ids, dense, labels, cfg, interaction_fn)
-        examples += int(labels.shape[0])
-        if cfg.log_every and (step + 1) % cfg.log_every == 0:
+        def eval_fn(auc_state, ids, dense, labels):
+            return sharded_eval(state, auc_state, ids, dense, labels)[0]
+    else:
+        state = create_state(cfg, torch.Generator(device=device).manual_seed(cfg.data.seed))
+
+        def step_fn(state, ids, dense, labels):
+            return train_step(state, ids, dense, labels, cfg, interaction_fn)
+
+        def eval_fn(auc_state, ids, dense, labels):
+            return eval_step(state, auc_state, ids, dense, labels, cfg, interaction_fn)
+
+    rank, world = (mesh.rank, mesh.world) if mesh else (0, 1)
+    try:
+        ds = make_dataset(cfg, rank, world)
+        val_ds = make_dataset(cfg, rank, world, split="val")
+
+        def run_eval():
+            # the synthetic stream is infinite: a fixed window of val batches
+            auc_state = metrics.auc_state_init(device=device)
+            for _ in range(cfg.data.eval_batches or 32):
+                auc_state = eval_fn(auc_state, *batch_to_device(next(val_ds), device))
+            return {k: float(v) for k, v in metrics.auc_state_finalize(auc_state).items()}
+
+        t0 = time.time()
+        examples = 0
+        last_loss = float("nan")
+        m = None
+        for step in range(cfg.data.num_train_steps):
+            ids, dense, labels = batch_to_device(next(ds), device)
+            state, m = step_fn(state, ids, dense, labels)
+            examples += int(labels.shape[0]) * world
+            if cfg.log_every and (step + 1) % cfg.log_every == 0:
+                last_loss = float(m["loss"])
+                elapsed = time.time() - t0
+                rec = {"step": step + 1, "loss": last_loss,
+                       "examples_per_s": examples / max(elapsed, 1e-9)}
+                if "overflow" in m:
+                    rec["id_overflow"] = int(m["overflow"])
+                log_fn(json.dumps(rec))
+            if cfg.data.eval_every and (step + 1) % cfg.data.eval_every == 0:
+                log_fn(json.dumps({"step": step + 1, "eval": run_eval()}))
+
+        result = run_eval()
+        if math.isnan(last_loss) and m is not None:
             last_loss = float(m["loss"])
-            elapsed = time.time() - t0
-            log_fn(json.dumps({"step": step + 1, "loss": last_loss,
-                               "examples_per_s": examples / max(elapsed, 1e-9)}))
-        if cfg.data.eval_every and (step + 1) % cfg.data.eval_every == 0:
-            log_fn(json.dumps({"step": step + 1, "eval": run_eval()}))
-
-    result = run_eval()
-    if math.isnan(last_loss) and m is not None:
-        last_loss = float(m["loss"])
-    result["final_train_loss"] = last_loss
-    log_fn(json.dumps({"eval": result}))
-    return result
+        result["final_train_loss"] = last_loss
+        log_fn(json.dumps({"eval": result}))
+        return result
+    finally:
+        if mesh is not None:
+            close_mesh(mesh)
 
 
 if __name__ == "__main__":

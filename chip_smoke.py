@@ -46,7 +46,30 @@ nonzero without them, or when any phase fails. Phases, in order:
  11. time kernels 2-5, their plain versions, library yardsticks and bounds
      at the B=65536 training shapes, hold kernel 2 against its plain
      version there (the phase-4 checks), and time the train step end to
-     end with a torch.profiler breakdown.
+     end with a torch.profiler breakdown;
+ 12. parity_segment_by_seg: kernel 6 on the segment stream of one B=65536
+     batch routed at T=1 and on rank 0's at T=4: within half a bf16 ulp of
+     the exact sums plus the f32 term (phase 5's limit), slots past the
+     count exact zeros, and against its plain version;
+ 13. parity_bucketed: kernel 7 on rank 0's table shard and the buckets its
+     peers send it for that batch at T=1 (the full table), 4 and 8 (rows
+     in several buckets): adagrad, sgd with a clip and rowwise_adam on f32
+     tables (1e-6), adagrad on bf16 tables (nearest within one ulp,
+     stochastic within one ulp of nearest), NaN in every sentinel slot's
+     grads, rows outside the buckets bit-equal;
+ 14. train_sharded: criteo_kaggle with the row-sharded table at full width
+     through make_sharded_train_step on an NCCL group of one, B=65536: 3
+     adagrad steps (f32 table), 2 with a bf16 table (stochastic rounding),
+     2 of rowwise_adam, each with 2 sharded eval batches, launch counts
+     set to 0 before and read after each run (kernels 1, 2, 6 and 7 once
+     per step), no overflow, finite losses and AUC; then one adagrad step
+     against the single-device train_step from the same state and batch;
+ 15. sharded_multi: with more than one card, the sharded step on
+     min(cards, 4) NCCL ranks against the single-device step (two adagrad
+     steps); with one card it prints that it was not run;
+ 16. time kernels 6 and 7 at the T=1 and T=4 rank-0 shapes (kernel, plain,
+     library yardstick, bound) and the sharded step end to end with a
+     torch.profiler breakdown.
 
 Prints one JSON line of kernel records, then the card line, and ends
 with {"ok": true, "device": {...}}.
@@ -484,22 +507,32 @@ def _check_segments(ss, sid, grads, m_pad: int, what: str) -> float:
                                                          m_pad)
     if not torch.equal(uids, uids_ref) or int(count) != int(count_ref):
         fail(f"parity_segment {what}: uids or count differ")
-    # the exact sums (f64 of the bf16 grads) against the kernel's bf16 result,
-    # which is its f32 sum rounded to nearest: half a bf16 ulp, plus the f32
-    # sum's own error, for which 4 * 2^-24 * sqrt(len * sum g^2) (len times
-    # the segment's RMS) stands ~30x above the spread of sequential f32 sums
-    # of random signs and far below one entry of a hot segment. An exact sum
-    # halfway between two bf16 values (a tie) sits at 1.000 of its limit.
-    c = int(count)
+    _check_sums("parity_segment", gsum, seg, grads, int(count),
+                f"{what}: n={sid.numel()} count={int(count)} m_pad={m_pad} max id "
+                f"{int(sid.max())}: uids and count exact,")
+    return (gsum.float() - gsum_ref.float()).abs().max().item()
+
+
+def _check_sums(phase: str, gsum, seg, grads, c: int, what: str):
+    """The kernel's bf16 segment sums against the exact (f64) sums of the
+    bf16 grads, and zero rows past the count."""
+    import torch
+
+    # the kernel's bf16 result is its f32 sum rounded to nearest: half a bf16
+    # ulp, plus the f32 sum's own error, for which 4 * 2^-24 * sqrt(len *
+    # sum g^2) (len times the segment's RMS) stands ~30x above the spread of
+    # sequential f32 sums of random signs and far below one entry of a hot
+    # segment. An exact sum halfway between two bf16 values (a tie) sits at
+    # 1.000 of its limit.
     if (gsum[c:] != 0).any():
-        fail(f"parity_segment {what}: empty slots hold nonzero rows")
+        fail(f"{phase} {what} empty slots hold nonzero rows")
     sl = seg.long()
     g64 = grads.to(torch.bfloat16).double()
     exact = torch.zeros((c, grads.shape[1]), dtype=torch.float64,
-                        device=sid.device).index_add_(0, sl, g64)
+                        device=seg.device).index_add_(0, sl, g64)
     sumsq = torch.zeros_like(exact).index_add_(0, sl, g64 * g64)
     del g64
-    runs = torch.zeros((c,), dtype=torch.float64, device=sid.device).index_add_(
+    runs = torch.zeros((c,), dtype=torch.float64, device=seg.device).index_add_(
         0, sl, torch.ones_like(seg, dtype=torch.float64))
     f32_term = 4 * 2.0**-24 * (runs[:, None] * sumsq).sqrt()
     got = gsum[:c]
@@ -512,16 +545,14 @@ def _check_segments(ss, sid, grads, m_pad: int, what: str) -> float:
     worst = int(ratio.argmax())
     row, col = divmod(worst, gsum.shape[1])
     hot = int(runs.argmax())
-    print(f"parity_segment {what}: n={sid.numel()} count={int(count)} m_pad={m_pad} "
-          f"longest segment {int(runs[hot])} entries, max id {int(sid.max())}: uids "
-          f"and count exact, gsum max_abs_err={err.max().item():.3e} against the exact "
-          f"sums, {bad} entries beyond half a bf16 ulp + the f32 term (f32 term on the "
-          f"longest segment at most {f32_term[hot].max().item():.3e}; worst entry at "
-          f"{ratio.max().item():.3f} of its limit: kernel {got[row, col].item():.6e}, "
-          f"exact {exact[row, col].item():.6e}, segment of {int(runs[row])})", flush=True)
+    print(f"{phase} {what} longest segment {int(runs[hot])} entries, gsum "
+          f"max_abs_err={err.max().item():.3e} against the exact sums, {bad} entries beyond "
+          f"half a bf16 ulp + the f32 term (f32 term on the longest segment at most "
+          f"{f32_term[hot].max().item():.3e}; worst entry at {ratio.max().item():.3f} of its "
+          f"limit: kernel {got[row, col].item():.6e}, exact {exact[row, col].item():.6e}, "
+          f"segment of {int(runs[row])}); rows past the count exact zeros", flush=True)
     if bad:
-        fail(f"parity_segment {what}: gsum beyond half a bf16 ulp + the f32 term")
-    return (gsum.float() - gsum_ref.float()).abs().max().item()
+        fail(f"{phase} {what} gsum beyond half a bf16 ulp + the f32 term")
 
 
 def phase_parity_segment():
@@ -560,7 +591,8 @@ def phase_parity_segment():
     return err, (uids_s, gsum, count, sid)
 
 
-def _compare_tables(a, b, base, touched, atol_ulps: bool, what: str):
+def _compare_tables(a, b, base, touched, atol_ulps: bool, what: str,
+                    phase: str = "parity_apply"):
     """Chunked: max |a - b| on all rows (in ulps of b for bf16), and
     whether any row outside `touched` moved from base in a or b."""
     import torch
@@ -576,7 +608,7 @@ def _compare_tables(a, b, base, touched, atol_ulps: bool, what: str):
             changed = (t[sl] != base[sl]).reshape(t[sl].shape[0], -1).any(dim=1)
             moved += int((changed & ~touched[sl]).sum())
     if moved:
-        fail(f"parity_apply {what}: {moved} untouched rows changed")
+        fail(f"{phase} {what}: {moved} untouched rows changed")
     return err
 
 
@@ -676,10 +708,16 @@ def _counts():
     from cffm_tpu_torch.ops import streamed_update as su
 
     out = {fn.__name__: fn.launches for fn in ic.ENTRIES + (ic.cross_conv1_bwd,)}
-    for fn in (ss.sorted_segment_sum_compact, su.streamed_rowwise_apply,
-               su.streamed_rowwise_adam_apply):
+    for fn in _counted(ss, su):
         out[fn.__name__] = fn.launches
     return out
+
+
+def _counted(ss, su):
+    """The launch-counted wrappers of kernels 3-7."""
+    return (ss.sorted_segment_sum_compact, ss.sorted_segment_sum_by_seg,
+            su.streamed_rowwise_apply, su.streamed_rowwise_adam_apply,
+            su.bucketed_rowwise_apply, su.bucketed_rowwise_adam_apply)
 
 
 def _reset_counts():
@@ -688,8 +726,7 @@ def _reset_counts():
     from cffm_tpu_torch.ops import streamed_update as su
 
     ic.reset_launches()
-    for fn in (ss.sorted_segment_sum_compact, su.streamed_rowwise_apply,
-               su.streamed_rowwise_adam_apply):
+    for fn in _counted(ss, su):
         fn.launches = 0
 
 
@@ -1024,8 +1061,541 @@ def phase_time_train() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The row-sharded path: kernels 6 and 7, the sharded step
+# ---------------------------------------------------------------------------
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _sharded_cfg(overrides=None):
+    """criteo_kaggle with the row-sharded table at B=65536."""
+    return _run_cfg({"data.batch_size": 65536, "sharding.table_sharded": True,
+                     **(overrides or {})})
+
+
+def _tree_clone(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_clone(v) for v in tree]
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _rank0_stream(cfg, ids_np, t: int):
+    """What rank 0 of t shards computes for one global batch split in t
+    blocks: the segment index of its own block's big-field ids routed at t
+    (kernel 6's input), the segment-sum slots m_pad, and the buckets its
+    peers send it (kernel 7's input): (seg, m_pad, ids_bkt (t, C), Vs)."""
+    import torch
+
+    from cffm_tpu_torch.optim.rowwise import unique_bound
+    from cffm_tpu_torch.parallel.mesh import Mesh
+    from cffm_tpu_torch.parallel.sharded_embedding import EB
+    from cffm_tpu_torch.parallel.sharded_train import _make_flat_router
+
+    model = cfg.model
+    fs = model.small_field_prefix
+    b = ids_np.shape[0] // t
+    router = _make_flat_router(cfg, Mesh(None, 0, t, torch.device("cuda"), False))
+    c, vs = router.capacity, router.rows_per_shard
+    blocks = [torch.from_numpy(ids_np[p * b:(p + 1) * b]).cuda().t()[fs:].reshape(-1).long()
+              for p in range(t)]
+    sk = torch.sort((blocks[0] % t) * vs + blocks[0] // t).values
+    first = torch.ones_like(sk, dtype=torch.int32)
+    first[1:] = (sk[1:] != sk[:-1]).to(torch.int32)
+    seg = torch.cumsum(first, 0, dtype=torch.int32) - 1
+    m = min(sk.numel(), unique_bound(model.vocab_sizes[fs:], b))
+    m_pad = -(-m // EB) * EB + -(-c // EB) * EB
+    ids_bkt = torch.full((t, c), vs, dtype=torch.int32, device="cuda")
+    for p, ids_p in enumerate(blocks):  # peer p's distinct ids that rank 0 owns
+        rows = torch.unique(ids_p[ids_p % t == 0]) // t
+        ids_bkt[p, :min(rows.numel(), c)] = rows[:c].to(torch.int32)
+    return seg, m_pad, ids_bkt, vs
+
+
+def phase_parity_segment_by_seg(ids_np) -> float:
+    """Kernel 6 against its plain version and the exact sums, on the seg
+    stream of one B=65536 batch routed at T=1 and on rank 0's at T=4."""
+    import torch
+
+    from cffm_tpu_torch.ops import sorted_segment as ss
+
+    cfg = _sharded_cfg()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    err = 0.0
+    for t in (1, 4):
+        seg, m_pad, _, _ = _rank0_stream(cfg, ids_np, t)
+        n, count = seg.numel(), int(seg[-1]) + 1
+        grads = (torch.randn((n, cfg.model.table_width), generator=gen, device="cuda")
+                 * 0.01).to(torch.bfloat16)
+        gsum = ss.sorted_segment_sum_by_seg(seg, grads, m_pad)
+        plain = ss.sorted_segment_by_seg_reference(seg, grads, m_pad)
+        e = (gsum.float() - plain.float()).abs().max().item()
+        _check_sums("parity_segment_by_seg", gsum, seg, grads, count,
+                    f"T={t} rank 0: n={n} count={count} m_pad={m_pad} (kernel vs plain "
+                    f"max_abs_err={e:.3e}):")
+        err = max(err, e)
+        del grads, gsum, plain
+        torch.cuda.empty_cache()
+    return err
+
+
+def phase_parity_bucketed(ids_np) -> float:
+    """Kernel 7 against its plain version on rank 0's shard and buckets at
+    T=1 (the full table), 4 and 8: adagrad, sgd with a clip, rowwise_adam on
+    f32 tables; adagrad on bf16 tables rounded to nearest and
+    stochastically; NaN in every sentinel slot's grads. Returns the largest
+    f32 error."""
+    import torch
+
+    from cffm_tpu_torch.ops import streamed_update as su
+
+    cfg = _sharded_cfg()
+    w = cfg.model.table_width
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    lr, eps, b1, b2, t_step, clip = 0.05, 1e-8, 0.9, 0.999, 3, 0.05
+    worst = 0.0
+    for t in (1, 4, 8):
+        _, _, ids_bkt, vs = _rank0_stream(cfg, ids_np, t)
+        nb, c = ids_bkt.shape
+        valid = ids_bkt < vs
+        present = torch.zeros((vs,), dtype=torch.int32, device="cuda")
+        present.index_add_(0, ids_bkt[valid].long(),
+                           torch.ones_like(ids_bkt[valid], dtype=torch.int32))
+        touched = present > 0
+        g = (torch.randn((nb, c, w), generator=gen, device="cuda") * 0.01).to(torch.bfloat16)
+        g[~valid] = float("nan")
+        what = f"NB={nb}"
+        print(f"parity_bucketed {what}: shard {vs} x {w}, C={c}, {int(valid.sum())} valid "
+              f"slots, {int(touched.sum())} distinct rows, {int((present > 1).sum())} of them "
+              f"in more than one bucket; NaN in all {int((~valid).sum())} sentinel slots' "
+              f"grads", flush=True)
+        base = torch.randn((vs, w), generator=gen, device="cuda") * 0.01
+        acc0 = torch.rand((vs, 1), generator=gen, device="cuda") + 0.1
+        for mode, cl in (("adagrad", 0.0), ("sgd", clip), ("rowwise_adam", 0.0)):
+            tk, tr = base.clone(), base.clone()
+            if mode == "rowwise_adam":
+                m0 = torch.randn((vs, w), generator=gen, device="cuda") * 0.01
+                v0 = torch.rand((vs, 1), generator=gen, device="cuda") * 1e-4
+                mk, mr, vk, vr = m0.clone(), m0.clone(), v0.clone(), v0.clone()
+                su.bucketed_rowwise_adam_apply(tk, mk, vk, ids_bkt, g, lr, eps, b1, b2, t_step,
+                                               clip=cl)
+                su.bucketed_apply_reference(tr, {"m": mr, "v": vr}, ids_bkt, g,
+                                            su._hyper(lr, eps, su._adam_extra(b1, b2, t_step)),
+                                            "rowwise_adam", cl)
+                state_err = max(
+                    _compare_tables(mk, mr, m0, touched, False, f"{what} m", "parity_bucketed"),
+                    _compare_tables(vk, vr, v0, touched, False, f"{what} v", "parity_bucketed"))
+                del mk, mr, vk, vr, m0, v0
+            else:
+                acc_k, acc_r = ((acc0.clone(), acc0.clone()) if mode == "adagrad"
+                                else (None, None))
+                su.bucketed_rowwise_apply(tk, acc_k, ids_bkt, g, lr, eps, clip=cl)
+                su.bucketed_apply_reference(tr, {"accum": acc_r} if acc_r is not None else {},
+                                            ids_bkt, g, su._hyper(lr, eps), mode, cl)
+                state_err = (_compare_tables(acc_k, acc_r, acc0, touched, False,
+                                             f"{what} accum", "parity_bucketed")
+                             if acc_k is not None else 0.0)
+            err = _compare_tables(tk, tr, base, touched, False, f"{what} {mode} f32",
+                                  "parity_bucketed")
+            print(f"parity_bucketed {what} {mode} (clip {cl}) f32: table max_abs_err={err:.3e}, "
+                  f"state max_abs_err={state_err:.3e} (atol=1e-6), rows outside the buckets "
+                  f"bit-equal", flush=True)
+            if err > 1e-6 or state_err > 1e-6 or not torch.isfinite(tk).all():
+                fail(f"parity_bucketed {what} {mode} f32 beyond 1e-6 or not finite")
+            worst = max(worst, err, state_err)
+            del tk, tr
+        # bf16 table, adagrad: nearest, then stochastic against nearest
+        b16 = base.to(torch.bfloat16)
+        tk, tr = b16.clone(), b16.clone()
+        su.bucketed_rowwise_apply(tk, acc0.clone(), ids_bkt, g, lr, eps)
+        su.bucketed_apply_reference(tr, {"accum": acc0.clone()}, ids_bkt, g, su._hyper(lr, eps),
+                                    "adagrad")
+        ulps = _compare_tables(tk, tr, b16, touched, True, f"{what} adagrad bf16 nearest",
+                               "parity_bucketed")
+        ts = b16.clone()
+        su.bucketed_rowwise_apply(ts, acc0.clone(), ids_bkt, g, lr, eps, sr_seed=1234)
+        ulps_sr = _compare_tables(ts, tk, b16, touched, True, f"{what} adagrad bf16 stochastic",
+                                  "parity_bucketed")
+        exact = b16.float()
+        del base
+        su.bucketed_apply_reference(exact, {"accum": acc0.clone()}, ids_bkt, g,
+                                    su._hyper(lr, eps), "adagrad")
+        rows = touched.nonzero()[:, 0]
+        ex = exact[rows]
+        del exact
+        e_sr = ((ts[rows].float() - ex) / _bf16_ulp(ex)).mean().item()
+        e_rn = ((tk[rows].float() - ex) / _bf16_ulp(ex)).mean().item()
+        dithered = (ts[rows] != tk[rows]).float().mean().item()
+        print(f"parity_bucketed {what} adagrad bf16: nearest max {ulps:.2f} ulp from the plain "
+              f"version (limit 1); stochastic max {ulps_sr:.2f} ulp from nearest (limit 1), "
+              f"mean signed error {e_sr:+.5f} ulp (nearest {e_rn:+.5f}, limit |0.01|), "
+              f"{dithered:.3f} of touched values rounded the other way; rows outside the "
+              f"buckets bit-equal", flush=True)
+        if ulps > 1 or ulps_sr > 1 or abs(e_sr) > 0.01 or dithered == 0:
+            fail(f"parity_bucketed {what} bf16 rounding out of bounds")
+        del b16, tk, tr, ts, ex, g, acc0
+        torch.cuda.empty_cache()
+    return worst
+
+
+def _sharded_run(cfg, mesh, steps: int, eval_batches: int, seed: int = 0):
+    """create_sharded_state, `steps` train steps and `eval_batches` eval
+    batches through make_sharded_train_step / make_sharded_eval_step, with
+    the batches staged first; returns (losses, overflows, eval, eval
+    overflow, wall seconds) and the launch counts of that run."""
+    import torch
+
+    from cffm_tpu_torch import metrics, train
+    from cffm_tpu_torch.data.loader import make_dataset
+    from cffm_tpu_torch.parallel.sharded_train import (create_sharded_state,
+                                                       make_sharded_eval_step,
+                                                       make_sharded_train_step)
+
+    dev = mesh.device
+    fn = train.default_interaction_fn(cfg)
+    state = create_sharded_state(cfg, torch.Generator(device=dev).manual_seed(seed), mesh)
+    step = make_sharded_train_step(cfg, mesh, fn)
+    ev = make_sharded_eval_step(cfg, mesh, fn)
+    data = make_dataset(cfg, mesh.rank, mesh.world, prefetch=0)
+    val = make_dataset(cfg, mesh.rank, mesh.world, split="val", prefetch=0)
+    batches = [train.batch_to_device(next(data), dev) for _ in range(steps)]
+    vbatches = [train.batch_to_device(next(val), dev) for _ in range(eval_batches)]
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    losses, overflows = [], []
+    for ids, dense, labels in batches:
+        state, m = step(state, ids, dense, labels)
+        losses.append(float(m["loss"]))
+        overflows.append(int(m["overflow"]))
+    auc, eval_ovf = metrics.auc_state_init(device=dev), 0
+    for ids, dense, labels in vbatches:
+        auc, ovf = ev(state, auc, ids, dense, labels)
+        eval_ovf += int(ovf)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    result = {k: float(v) for k, v in metrics.auc_state_finalize(auc).items()}
+    return (losses, overflows, result, eval_ovf, wall), _counts()
+
+
+def phase_train_sharded(mesh) -> dict:
+    """criteo_kaggle with the row-sharded table at full width, B=65536,
+    through make_sharded_train_step on an NCCL group of one: three runs with
+    launch counts, then one adagrad step against the single-device step."""
+    import torch
+
+    from cffm_tpu_torch import train
+    from cffm_tpu_torch.data.loader import make_dataset
+    from cffm_tpu_torch.parallel.sharded_train import (create_sharded_state,
+                                                       make_sharded_train_step)
+
+    k = {"fm2": "cross_conv1_lin_fm2", "fm": "cross_conv1_lin_fm", "flat": "cross_conv1_lin",
+         "bwd": "cross_conv1_bwd", "k6": "sorted_segment_sum_by_seg",
+         "k7": "bucketed_rowwise_apply", "k7adam": "bucketed_rowwise_adam_apply"}
+    ev = 2
+    runs = {
+        "adagrad_f32": (3, {}, {k["fm2"]: 3, k["bwd"]: 3, k["k6"]: 3, k["k7"]: 3,
+                                k["flat"]: ev}),
+        "adagrad_bf16_table": (2, {"model.table_dtype": "bfloat16"},
+                               {k["fm2"]: 2, k["bwd"]: 2, k["k6"]: 2, k["k7"]: 2,
+                                k["flat"]: ev}),
+        # no hybrid for rowwise_adam: the fm route trains, eval takes the flat entry
+        "rowwise_adam": (2, {"optim.sparse_optimizer": "rowwise_adam"},
+                         {k["fm"]: 2, k["bwd"]: 2, k["k6"]: 2, k["k7adam"]: 2, k["flat"]: ev}),
+    }
+    out = {}
+    for name, (steps, extra, want) in runs.items():
+        cfg = _sharded_cfg(extra)
+        (losses, ovfs, result, eval_ovf, wall), counts = _sharded_run(cfg, mesh, steps, ev)
+        per_step = {fn: n / steps for fn, n in counts.items() if n and fn != k["flat"]}
+        print(f"train_sharded {name}: B=65536, T={mesh.world}, {steps} steps, losses {losses}, "
+              f"overflow {ovfs}, eval {json.dumps(result)} (eval overflow {eval_ovf}), "
+              f"launches {counts}, per train step {per_step}, wall {wall:.2f}s", flush=True)
+        if not all(math.isfinite(x) for x in losses + [result["auc"], result["logloss"]]):
+            fail(f"train_sharded {name}: loss or AUC not finite")
+        if any(ovfs) or eval_ovf:
+            fail(f"train_sharded {name}: ids overflowed the capacity")
+        if any(n != want.get(fn, 0) for fn, n in counts.items()):
+            fail(f"train_sharded {name}: want launches {want}, got {counts}")
+        out[name] = counts
+        torch.cuda.empty_cache()
+
+    # one adagrad step, sharded (T=1: the natural layout) vs single-device
+    cfg = _sharded_cfg()
+    fn = train.default_interaction_fn(cfg)
+    sharded = create_sharded_state(cfg, torch.Generator(device="cuda").manual_seed(5), mesh)
+    single = train.TrainState(0, _tree_clone(sharded.params),
+                              _tree_clone(sharded.dense_opt_state),
+                              _tree_clone(sharded.sparse_opt_state))
+    table0 = sharded.params["embed"]["table"].clone()
+    ids, dense, labels = train.batch_to_device(next(make_dataset(cfg, prefetch=0)),
+                                               torch.device("cuda"))
+    sharded, m_sh = make_sharded_train_step(cfg, mesh, fn)(sharded, ids, dense, labels)
+    single, m_si = train.train_step(single, ids, dense, labels, cfg, fn)
+    l_sh, l_si = float(m_sh["loss"]), float(m_si["loss"])
+    t_sh, t_si = sharded.params["embed"]["table"], single.params["embed"]["table"]
+    moved = (t_si != table0).any(dim=1)
+    delta = max((t_si[sl] - table0[sl]).abs().max().item()
+                for sl in (slice(r, r + (1 << 18)) for r in range(0, t_si.shape[0], 1 << 18)))
+    terr, untouched = _rows_apart(t_si, t_sh, moved)
+    aerr, aequal = _rows_apart(single.sparse_opt_state["embed"]["accum"],
+                               sharded.sparse_opt_state["embed"]["accum"], moved)
+    dense_err = max((a - b).abs().max().item() for a, b in zip(
+        train.tree_leaves(train.split_dense_params(single.params)),
+        train.tree_leaves(train.split_dense_params(sharded.params))))
+    print(f"train_sharded step vs single-device criteo_kaggle adagrad B=65536: loss sharded "
+          f"{l_sh} single {l_si} (relative err {abs(l_sh - l_si) / abs(l_si):.2e}, rtol 1e-5); "
+          f"{int(moved.sum())} moved rows, max |delta| {delta:.3e}, table max_abs_err "
+          f"{terr:.2e} (atol 1e-2*max|delta|), other rows bit-equal {untouched}; accum "
+          f"max_abs_err {aerr:.2e} (atol 1e-6), equal elsewhere {aequal}; dense params "
+          f"max_abs_err {dense_err:.2e} (atol 1e-5)", flush=True)
+    if (abs(l_sh - l_si) > 1e-5 * abs(l_si) or terr > 1e-2 * delta or not untouched
+            or aerr > 1e-6 or not aequal or dense_err > 1e-5):
+        fail("train_sharded: the sharded step and the single-device step disagree")
+    return out
+
+
+def _multi_rank(rank: int, world: int, port: int, out_dir: str):
+    """One rank of sharded_multi: two sharded adagrad steps on this rank's
+    block of two B=65536 batches; rank 0 then runs the single-device step
+    on the whole batches from the same state and compares."""
+    import torch
+    import torch.distributed as dist
+
+    from cffm_tpu_torch import train
+    from cffm_tpu_torch.data.loader import make_dataset
+    from cffm_tpu_torch.parallel import sharded_embedding as se
+    from cffm_tpu_torch.parallel.mesh import close_mesh, make_mesh
+    from cffm_tpu_torch.parallel.sharded_train import make_sharded_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank)
+    mesh = make_mesh(init_method=f"tcp://localhost:{port}", rank=rank, world_size=world,
+                     backend="nccl", device=dev)
+    try:
+        # f32 compute, as step_vs_cpu: in bf16 the ranks' partial dense grads
+        # round apart from the whole batch's, which Adam magnifies
+        cfg = _sharded_cfg({"model.compute_dtype": "float32"})
+        fn = train.default_interaction_fn(cfg)
+        v = cfg.model.total_vocab
+        # the same natural-layout state on every rank, from one seed
+        full = train.create_state(cfg, torch.Generator(device=dev).manual_seed(3))
+
+        def shard(x):
+            storage = se.to_mod_sharded(x, world)
+            vs = storage.shape[0] // world
+            return storage[rank * vs:(rank + 1) * vs].clone()
+
+        params = {k: _tree_clone(x) for k, x in full.params.items() if k != "embed"}
+        params["embed"] = {"table": shard(full.params["embed"]["table"])}
+        accum = shard(full.sparse_opt_state["embed"]["accum"])
+        state = train.TrainState(0, params, _tree_clone(full.dense_opt_state),
+                                 {"embed": {"accum": accum}})
+        dense0 = [x.clone() for x in train.tree_leaves(train.split_dense_params(full.params))]
+        table0 = full.params["embed"]["table"].clone() if rank == 0 else None
+        if rank != 0:
+            del full
+        data = make_dataset(cfg, prefetch=0)
+        batches = [train.batch_to_device(next(data), dev) for _ in range(2)]
+        b = cfg.data.batch_size // world
+        step = make_sharded_train_step(cfg, mesh, fn)
+        losses = []
+        for ids, dense, labels in batches:
+            blk = slice(rank * b, (rank + 1) * b)
+            state, m = step(state, ids[blk], dense[blk], labels[blk])
+            losses.append(float(m["loss"]))
+        gathered = {}
+        for name, x in (("table", state.params["embed"]["table"]),
+                        ("accum", state.sparse_opt_state["embed"]["accum"])):
+            parts = [torch.empty_like(x) for _ in range(world)]
+            dist.all_gather(parts, x.contiguous())
+            gathered[name] = se.from_mod_sharded(torch.cat(parts), world, v) if rank == 0 else None
+            del parts
+        if rank == 0:
+            single, single_losses = full, []
+            for ids, dense, labels in batches:
+                single, m = train.train_step(single, ids, dense, labels, cfg, fn)
+                single_losses.append(float(m["loss"]))
+            t_si = single.params["embed"]["table"]
+            moved = (t_si != table0).any(dim=1)
+            delta = (t_si - table0).abs().max().item()
+            terr, untouched = _rows_apart(t_si, gathered["table"], moved)
+            aerr, aequal = _rows_apart(single.sparse_opt_state["embed"]["accum"],
+                                       gathered["accum"], moved)
+            pairs = list(zip(train.tree_leaves(train.split_dense_params(single.params)),
+                             train.tree_leaves(train.split_dense_params(state.params)), dense0))
+            dense_rel = (math.sqrt(sum(float(((a - b) ** 2).sum()) for a, b, _ in pairs))
+                         / math.sqrt(sum(float(((a - c) ** 2).sum()) for a, _, c in pairs)))
+            lerr = [abs(a - b) / abs(b) for a, b in zip(losses, single_losses)]
+            ok = (lerr[0] <= 1e-5 and lerr[1] <= 1e-4 and dense_rel <= 1e-3
+                  and terr <= 1e-2 * delta and untouched and aerr <= 1e-6 and aequal)
+            with open(f"{out_dir}/multi.json", "w") as f:
+                json.dump({"ok": ok, "world": world, "losses_sharded": losses,
+                           "losses_single": single_losses, "loss_relative_err": lerr,
+                           "dense_step_relative_l2": dense_rel, "moved_rows": int(moved.sum()),
+                           "max_delta": delta, "table_max_abs_err": terr,
+                           "untouched_equal": untouched, "accum_max_abs_err": aerr,
+                           "accum_untouched_equal": aequal}, f)
+        dist.barrier()
+    finally:
+        close_mesh(mesh)
+
+
+def phase_sharded_multi():
+    """The sharded step on min(cards, 4) NCCL ranks against the
+    single-device step, when the machine has more than one card."""
+    import os
+
+    import torch
+    import torch.multiprocessing as mp
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"sharded_multi: not run: {n} CUDA card visible, and the multi-rank NCCL step "
+              f"needs at least 2 (on a machine with more cards this phase spawns "
+              f"min(cards, 4) ranks)", flush=True)
+        return None
+    world = min(n, 4)
+    out_dir = os.path.join("build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    mp.spawn(_multi_rank, args=(world, _free_port(), out_dir), nprocs=world, join=True)
+    with open(os.path.join(out_dir, "multi.json")) as f:
+        res = json.load(f)
+    print(f"sharded_multi: criteo_kaggle adagrad f32 B=65536 on {world} NCCL ranks, 2 steps vs the "
+          f"single-device step: {json.dumps(res)} (rtol 1e-5 then 1e-4 on the losses, 1e-3 "
+          f"on the dense step's relative L2, 1e-2*max|delta| on the moved table rows, 1e-6 "
+          f"on the accumulator; other rows bit-equal); {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    if not res["ok"]:
+        fail("sharded_multi: the multi-rank step and the single-device step disagree")
+    return res
+
+
+def phase_time_sharded(mesh, ids_np) -> dict:
+    """Kernels 6 and 7 at the T=1 and T=4 rank-0 shapes: kernel, plain
+    version, library yardstick and bound; then the sharded step end to end
+    at B=65536 and its profile."""
+    import torch
+
+    from cffm_tpu_torch import train
+    from cffm_tpu_torch.data.loader import make_dataset
+    from cffm_tpu_torch.ops import sorted_segment as ss
+    from cffm_tpu_torch.ops import streamed_update as su
+    from cffm_tpu_torch.parallel.sharded_train import (create_sharded_state,
+                                                       make_sharded_train_step)
+
+    cfg = _sharded_cfg()
+    w = cfg.model.table_width
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    out = {}
+    for t in (1, 4):
+        seg, m_pad, ids_bkt, vs = _rank0_stream(cfg, ids_np, t)
+        n = seg.numel()
+        grads = (torch.randn((n, w), generator=gen, device="cuda") * 0.01).to(torch.bfloat16)
+        ms = cuda_ms(lambda: ss.sorted_segment_sum_by_seg(seg, grads, m_pad), 5)
+        plain_ms = cuda_ms(lambda: ss.sorted_segment_by_seg_reference(seg, grads, m_pad), 3)
+        seg_l, grads_f = seg.long(), grads.float()
+        acc = torch.zeros((m_pad, w), dtype=torch.float32, device="cuda")
+        library_ms = cuda_ms(lambda: acc.index_add_(0, seg_l, grads_f), 5)
+        out[f"k6_t{t}"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                           **_bound(n * 4 + n * w * 2 + m_pad * w * 2, n * w),
+                           "n": n, "count": int(seg[-1]) + 1, "m_pad": m_pad}
+        del grads, grads_f, acc, seg_l
+
+        nb, c = ids_bkt.shape
+        valid = ids_bkt < vs
+        g = (torch.randn((nb, c, w), generator=gen, device="cuda") * 0.01).to(torch.bfloat16)
+        g[~valid] = float("nan")
+        table = torch.randn((vs, w), generator=gen, device="cuda") * 0.01
+        accum = torch.full((vs, 1), 0.1, device="cuda")
+        ms = cuda_ms(lambda: su.bucketed_rowwise_apply(table, accum, ids_bkt, g, 1e-9, 1e-8), 5)
+        sgd_ms = cuda_ms(lambda: su.bucketed_rowwise_apply(table, None, ids_bkt, g, 1e-9, 1e-8), 5)
+        hyper = su._hyper(1e-9, 1e-8)
+        plain_ms = cuda_ms(lambda: su.bucketed_apply_reference(
+            table, {"accum": accum}, ids_bkt, g, hyper, "adagrad"), 3)
+        rows = ids_bkt[valid].long()
+        sgd_delta = g[valid].float() * -1e-9
+        library_ms = cuda_ms(lambda: table.index_add_(0, rows, sgd_delta), 5)
+        slots, distinct = rows.numel(), int(torch.unique(rows).numel())
+        nbytes = nb * c * 4 + slots * w * 2 + distinct * (w * 4 * 2 + 4 * 2)
+        out[f"k7_t{t}"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                           "sgd_ms": sgd_ms,
+                           **_bound(nbytes, slots * w + distinct * w * 6, "float32"),
+                           "nb": nb, "c": c, "valid_slots": slots, "touched_rows": distinct}
+        del g, table, accum, rows, sgd_delta, ids_bkt, seg
+        torch.cuda.empty_cache()
+    for name, r in out.items():
+        print(f"time {name} B=65536: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}: {r['bytes'] / 1e9:.3f} GB, {r['ops'] / 1e9:.2f} GOP), "
+              + ", ".join(f"{k} {v}" for k, v in r.items() if k in
+                          ("n", "count", "m_pad", "nb", "c", "valid_slots", "touched_rows"))
+              + (f", sgd kernel {r['sgd_ms']:.4f} ms" if "sgd_ms" in r else ""), flush=True)
+
+    # the sharded step end to end: bf16 compute, f32 table, adagrad, T=1
+    fn = train.default_interaction_fn(cfg)
+    box = [create_sharded_state(cfg, torch.Generator(device="cuda").manual_seed(0), mesh)]
+    step = make_sharded_train_step(cfg, mesh, fn)
+    ids, dense, labels = train.batch_to_device(next(make_dataset(cfg, prefetch=0)),
+                                               torch.device("cuda"))
+
+    def one():
+        box[0], _ = step(box[0], ids, dense, labels)
+
+    torch.cuda.reset_peak_memory_stats()
+    one()
+    torch.cuda.synchronize()
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        one()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / reps
+    out["sharded_step_ms_65536"] = step_ms
+    print(f"time sharded train step criteo_kaggle B=65536 T={mesh.world} bf16 compute, f32 "
+          f"table, adagrad (zipf ids, staged batch): {step_ms:.3f} ms = "
+          f"{65536 / step_ms * 1e3:.1f} ex/s; peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    reps = 2
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            one()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    out["profile"] = {"busy_ms": busy_ms, "wall_ms": wall_ms}
+    print(f"profile sharded step B=65536: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms "
+          f"wall per step (idle share {1 - busy_ms / wall_ms:.3f}, profiler on)", flush=True)
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:16]:
+        ms = e.self_device_time_total / 1e3 / reps
+        print(f"profile   {ms:8.3f} ms {ms / busy_ms:6.1%} x{e.count // reps} "
+              f"{e.key[:90]}", flush=True)
+    return out
+
+
 PHASES = ("parity", "parity_bwd", "parity_segment", "parity_apply", "serve", "time",
-          "train", "step_vs_cpu", "time_train")
+          "train", "step_vs_cpu", "time_train", "parity_segment_by_seg", "parity_bucketed",
+          "train_sharded", "sharded_multi", "time_sharded")
+# the phases that run on the NCCL group of one
+GROUP_PHASES = ("train_sharded", "time_sharded")
 
 
 def main(argv=None) -> int:
@@ -1069,6 +1639,26 @@ def main(argv=None) -> int:
         print(f"phase {name}: done in {time.perf_counter() - t:.1f}s", flush=True)
         return res
 
+    mesh = None
+    if set(phases) & set(GROUP_PHASES):
+        from cffm_tpu_torch.parallel.mesh import make_mesh
+
+        # the sharded program on an NCCL group of one, as bench.py's sharded
+        # feed runs it on one device
+        mesh = make_mesh(init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1,
+                         backend="nccl", device="cuda:0")
+    try:
+        return _run_phases(phases, phase, mesh)
+    finally:
+        if mesh is not None:
+            from cffm_tpu_torch.parallel.mesh import close_mesh
+
+            close_mesh(mesh)
+
+
+def _run_phases(phases, phase, mesh) -> int:
+    import torch
+
     fm2_err = phase("parity", phase_parity)
     bwd_err = phase("parity_bwd", phase_parity_bwd)
     seg = phase("parity_segment", phase_parity_segment)
@@ -1079,6 +1669,13 @@ def main(argv=None) -> int:
     trained = phase("train", phase_train)
     phase("step_vs_cpu", phase_step_vs_cpu)
     ttimes = phase("time_train", phase_time_train)
+    sharded_phases = {"parity_segment_by_seg", "parity_bucketed", "time_sharded"}
+    ids_np = _real_batch(65536)[1]["ids"] if set(phases) & sharded_phases else None
+    k6_err = phase("parity_segment_by_seg", phase_parity_segment_by_seg, ids_np)
+    k7_err = phase("parity_bucketed", phase_parity_bucketed, ids_np)
+    strained = phase("train_sharded", phase_train_sharded, mesh)
+    phase("sharded_multi", phase_sharded_multi)
+    stimes = phase("time_sharded", phase_time_sharded, mesh, ids_np)
 
     if set(phases) == set(PHASES):
         t = times[4096]
@@ -1114,6 +1711,19 @@ def main(argv=None) -> int:
              **{k: ttimes[name][k] for k in keys}, "batch": 65536}
             for name, src, rep, launches, err in new]
         records[-1]["train_step_ms_65536"] = ttimes["train_step_ms_65536"]
+        # kernels 6-7 at the T=1 shapes of the sharded step, T=4 rank 0 beside
+        for name, src, rep, launches, err, tk in (
+                ("sorted_segment_sum_by_seg", "sorted_segment.cu",
+                 "cffm_tpu/ops/sorted_segment.py:245",
+                 strained["adagrad_f32"]["sorted_segment_sum_by_seg"], k6_err, "k6"),
+                ("bucketed_apply", "streamed_update.cu", "cffm_tpu/ops/streamed_update.py:278",
+                 strained["adagrad_f32"]["bucketed_rowwise_apply"], k7_err, "k7")):
+            records.append({
+                "name": name, "route": "cuda", "source": f"cffm_tpu_torch/ops/csrc/{src}",
+                "replaces": rep, "launches": launches, "max_abs_err": err,
+                **{k: stimes[f"{tk}_t1"][k] for k in keys}, "batch": 65536, "shards": 1,
+                "at_t4_rank0": {k: stimes[f"{tk}_t4"][k] for k in keys}})
+        records[-1]["sharded_step_ms_65536"] = stimes["sharded_step_ms_65536"]
         print(json.dumps({"kernels": records}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

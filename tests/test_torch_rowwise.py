@@ -232,3 +232,41 @@ def test_unique_bound_and_tree_order_match_jax():
         np.shape(x) for x in jax.tree.leaves(tree)]
     again = rw.tree_unflatten(tree, rw.tree_leaves(tree))
     assert list(again) == list(tree)
+
+
+@pytest.mark.parametrize("optimizer,stream", [("adagrad", "on"), ("rowwise_adam", "on"),
+                                              ("adagrad", "off"), ("adam", "auto")])
+def test_bucketed_rowwise_update_routes_and_matches_jax(optimizer, stream, monkeypatch):
+    """The sharded step's update from 4 overlapping buckets (sentinel V in
+    the tails, garbage grads there): the bucketed apply when the gate
+    passes ("on"), the flattened rowwise_update fallback otherwise (a
+    table below 2^24 elements with "auto", or full Adam)."""
+    rng = np.random.default_rng(3)
+    table = rng.normal(size=(V, W)).astype(np.float32)
+    nb, c = 4, 256
+    ids = np.full((nb, c), V, np.int32)
+    for o in range(nb):
+        rows = np.union1d(np.arange(8), rng.choice(V, size=150, replace=False))
+        ids[o, :len(rows)] = rows
+    grads = (rng.normal(size=(nb, c, W)) * 0.1).astype(np.float32)
+    jopt, opt = _opts(sparse_optimizer=optimizer, sparse_lr=0.05, streamed_update=stream,
+                      clip_norm=0.5)
+    js = jax_rw.rowwise_init(jnp.asarray(table), jopt)
+    jt, js = jax_rw.bucketed_rowwise_update(jnp.asarray(table), js, jnp.asarray(ids),
+                                            jnp.asarray(grads), jopt)
+    tt = torch.from_numpy(table.copy())
+    ts = rw.rowwise_init(tt, opt)
+    calls = []
+    real = rw.rowwise_update
+    monkeypatch.setattr(rw, "rowwise_update", lambda *a, **k: calls.append(1) or real(*a, **k))
+    got_t, got_s = rw.bucketed_rowwise_update(tt, ts, torch.from_numpy(ids),
+                                              torch.from_numpy(grads), opt)
+    assert got_t is tt
+    assert bool(calls) == (stream != "on")
+    d_want, d_got = np.asarray(jt) - table, got_t.numpy() - table
+    np.testing.assert_allclose(d_got, d_want, atol=0.01 * np.abs(d_want).max())
+    touched = np.zeros(V, bool)
+    touched[ids[ids < V]] = True
+    np.testing.assert_array_equal(got_t.numpy()[~touched], table[~touched])
+    for k, v in js.items():
+        np.testing.assert_allclose(got_s[k].numpy(), np.asarray(v), rtol=1e-3, atol=1e-7)

@@ -1,6 +1,12 @@
-"""The port's sorted-segment dedup (plain version, CPU) vs
-`cffm_tpu.ops.sorted_segment.sorted_segment_sum_compact` (Pallas
-interpret mode).
+"""The port's sorted-segment dedup (plain versions, CPU) vs
+`cffm_tpu.ops.sorted_segment.sorted_segment_sum_compact` (kernel 3) and
+`sorted_segment_sum_by_seg` (kernel 6), Pallas interpret mode.
+
+Kernel 6: one bf16 ulp of the larger value (each package rounds its f32
+sum once), and bit for bit where every sum is exact in f32 and bf16;
+slots past the segment count zero in both.
+
+Kernel 3:
 
 uids and count must be exact. gsum is an f32 sum rounded to bf16 in both
 packages, in different orders: within one bf16 ulp of the larger value
@@ -14,6 +20,7 @@ import pytest
 import torch
 
 from cffm_tpu.ops.sorted_segment import EB
+from cffm_tpu.ops.sorted_segment import sorted_segment_sum_by_seg as jax_by_seg
 from cffm_tpu.ops.sorted_segment import sorted_segment_sum_compact as jax_compact
 from cffm_tpu_torch.ops import sorted_segment as ss
 
@@ -90,3 +97,57 @@ def test_rejects_unaligned_width():
     with pytest.raises(ValueError, match="W % 128"):
         ss.sorted_segment_sum_compact(torch.zeros(4, dtype=torch.int32),
                                       torch.zeros(4, 100), 128)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 6: sorted_segment_sum_by_seg (the sharded gradient return's dedup)
+# ---------------------------------------------------------------------------
+
+
+def _by_seg_case(n, w, seed, hot=0, integer=False):
+    """A routing-style seg stream (from 0, steps of 0 or 1) and bf16 grads."""
+    rng = np.random.default_rng(seed)
+    steps = (rng.random(n) < 0.3).astype(np.int32)
+    steps[0] = 0
+    if hot:
+        steps[n // 3:n // 3 + hot] = 0  # one hot segment spanning many blocks
+    seg = np.cumsum(steps).astype(np.int32)
+    g = (rng.integers(-4, 5, size=(n, w)) if integer else rng.normal(size=(n, w)))
+    grads = np.asarray(jnp.asarray(g.astype(np.float32)).astype(jnp.bfloat16))
+    m_pad = -(-n // EB) * EB + EB
+    return seg, grads, m_pad
+
+
+def _bf16_torch(a):
+    return torch.from_numpy(np.asarray(a).view(np.int16).copy()).view(torch.bfloat16)
+
+
+@pytest.mark.parametrize("n,seed,hot", [(333, 0, 150), (1000, 1, 0), (129, 2, 100)])
+def test_by_seg_matches_jax_within_one_ulp(n, seed, hot):
+    seg, grads, m_pad = _by_seg_case(n, 256, seed, hot)
+    want = np.asarray(jax_by_seg(jnp.asarray(seg), jnp.asarray(grads), m_pad), np.float32)
+    got = ss.sorted_segment_sum_by_seg(torch.from_numpy(seg), _bf16_torch(grads), m_pad)
+    assert got.dtype == torch.bfloat16 and got.shape == (m_pad, 256)
+    got = got.float().numpy()
+    count = int(seg[-1]) + 1
+    assert (got[count:] == 0).all() and (want[count:] == 0).all()
+    big = np.maximum(np.abs(got), np.abs(want))
+    ulp = np.ldexp(1.0, np.frexp(np.maximum(big, 1e-30))[1] - 8)
+    assert (np.abs(got - want) <= ulp).all()
+
+
+def test_by_seg_is_exact_where_the_sums_are():
+    """Small-integer grads: every f32 sum is exact and fits bf16, so the two
+    packages agree bit for bit, the hot segment included."""
+    seg, grads, m_pad = _by_seg_case(700, 128, 3, hot=300, integer=True)
+    want = np.asarray(jax_by_seg(jnp.asarray(seg), jnp.asarray(grads), m_pad), np.float32)
+    got = ss.sorted_segment_sum_by_seg(torch.from_numpy(seg), _bf16_torch(grads), m_pad)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_by_seg_rejects_what_the_kernel_does_not_take():
+    seg = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="W % 128"):
+        ss.sorted_segment_sum_by_seg(seg, torch.zeros(4, 100, dtype=torch.bfloat16), 128)
+    with pytest.raises(TypeError, match="bf16"):
+        ss.sorted_segment_sum_by_seg(seg, torch.zeros(4, 128), 128)

@@ -1,6 +1,9 @@
-"""The port's touched-row apply (plain version, CPU) vs the JAX streamed
+"""The port's touched-row apply (plain versions, CPU) vs the JAX streamed
 apply (`streamed_rowwise_apply`, `streamed_rowwise_adam_apply`, Pallas
-interpret mode), on the same uids and bf16 gradient sums.
+interpret mode), on the same uids and bf16 gradient sums; and the
+bucketed apply of the sharded step (`bucketed_rowwise_apply`,
+`bucketed_rowwise_adam_apply`) on the same overlapping buckets, with and
+without the per-row clip (kernel 7's plain version).
 
 f32 tables: rtol 1e-6, atol 1e-7 (mean(S^2) sums in another order).
 bf16 tables round to nearest in both (the JAX interpret mode has no
@@ -130,3 +133,110 @@ def test_gates_match_jax():
         for m in (1, 128, 129, 5000):
             r = su.pick_tile(v) or 64
             assert su.padded_entries(m, r) == jax_su.padded_entries(m, r)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 7: the bucketed apply of the sharded step
+# ---------------------------------------------------------------------------
+
+C = 256  # bucket capacity: passes bucketed_tile with a 128-row tile
+
+
+def _buckets(v, nb, seed, garbage=0.5):
+    """nb ascending unique buckets of up to C rows of [0, v), overlapping
+    (a hot block of rows sits in every bucket), sentinel v in the tails,
+    `garbage` in the sentinel slots' grads; bf16 grads."""
+    rng = np.random.default_rng(seed)
+    ids = np.full((nb, C), v, np.int32)
+    g = rng.normal(size=(nb, C, W)).astype(np.float32) * 0.1
+    hot = rng.choice(v, size=40, replace=False)
+    for o in range(nb):
+        rows = np.union1d(hot, rng.choice(v, size=rng.integers(60, 180), replace=False))
+        ids[o, :len(rows)] = np.sort(rows)
+        g[o, len(rows):] = garbage
+    return ids, np.asarray(jnp.asarray(g).astype(jnp.bfloat16))
+
+
+def _touched(ids, v):
+    return np.unique(ids[ids < v])
+
+
+@pytest.mark.parametrize("clip", [0.0, 0.5])
+@pytest.mark.parametrize("nb", [1, 3, 4])
+@pytest.mark.parametrize("mode", ["adagrad", "sgd", "rowwise_adam"])
+def test_bucketed_matches_jax(mode, nb, clip):
+    v = 1100  # a partial final tile of 128
+    assert su.bucketed_tile(v, W, nb, C) == jax_su.bucketed_tile(v, W, nb, C) == 128
+    ids, g = _buckets(v, nb, seed=nb)
+    table, _, _, _ = _inputs(v, 1, seed=20 + nb)
+    rng = np.random.default_rng(21)
+    acc = rng.uniform(0.1, 1.0, size=(v, 1)).astype(np.float32)
+    m = (rng.normal(size=(v, W)) * 0.01).astype(np.float32)
+    vv = rng.uniform(1e-5, 1e-3, size=(v, 1)).astype(np.float32)
+    j = jnp.asarray
+    if mode == "rowwise_adam":
+        want = jax_su.bucketed_rowwise_adam_apply(j(table), j(m), j(vv), j(ids), j(g), 0.01, 1e-8,
+                                                  0.9, 0.999, jnp.int32(3), clip=clip)
+        got = su.bucketed_rowwise_adam_apply(_t(table), _t(m), _t(vv), _t(ids), _t(g), 0.01,
+                                             1e-8, 0.9, 0.999, torch.tensor(3, dtype=torch.int32),
+                                             clip=clip)
+        befores = (table, m, vv)
+    else:
+        jacc, tacc = (j(acc), _t(acc)) if mode == "adagrad" else (None, None)
+        want = jax_su.bucketed_rowwise_apply(j(table), jacc, j(ids), j(g), 0.05, 1e-8, clip=clip)
+        got = su.bucketed_rowwise_apply(_t(table), tacc, _t(ids), _t(g), 0.05, 1e-8, clip=clip)
+        befores = (table, acc) if mode == "adagrad" else (table,)
+    touched = _touched(ids, v)
+    for got_x, want_x, before in zip(got, want, befores):
+        np.testing.assert_allclose(got_x.numpy(), np.asarray(want_x), rtol=1e-6, atol=1e-7)
+        _untouched_equal(got_x.numpy(), before, touched)
+
+
+@pytest.mark.parametrize("mode", ["adagrad", "sgd", "rowwise_adam"])
+def test_bucketed_bf16_nearest_matches_jax(mode):
+    v, nb = 1100, 4
+    ids, g = _buckets(v, nb, seed=30)
+    table, _, _, _ = _inputs(v, 1, seed=31, table_dtype="bf16")
+    acc = np.full((v, 1), 0.1, np.float32)
+    m = np.zeros((v, W), np.float32)
+    vv = np.zeros((v, 1), np.float32)
+    j = jnp.asarray
+    if mode == "rowwise_adam":
+        want = jax_su.bucketed_rowwise_adam_apply(j(table), j(m), j(vv), j(ids), j(g), 0.01, 1e-8,
+                                                  0.9, 0.999, jnp.int32(1), clip=0.5)[0]
+        got = su.bucketed_rowwise_adam_apply(_t(table), _t(m), _t(vv), _t(ids), _t(g), 0.01,
+                                             1e-8, 0.9, 0.999, torch.tensor(1, dtype=torch.int32),
+                                             clip=0.5)[0]
+    else:
+        jacc, tacc = (j(acc), _t(acc)) if mode == "adagrad" else (None, None)
+        want = jax_su.bucketed_rowwise_apply(j(table), jacc, j(ids), j(g), 0.05, 1e-8,
+                                             clip=0.5)[0]
+        got = su.bucketed_rowwise_apply(_t(table), tacc, _t(ids), _t(g), 0.05, 1e-8, clip=0.5)[0]
+    assert got.dtype == torch.bfloat16
+    got, want = got.float().numpy(), np.asarray(want, np.float32)
+    ulp = np.ldexp(1.0, np.frexp(np.maximum(np.abs(want), 1e-30))[1] - 8)
+    assert (np.abs(got - want) <= ulp).all()
+    assert (got == want).mean() > 0.999
+    _untouched_equal(got, np.asarray(table, np.float32), _touched(ids, v))
+
+
+def test_bucketed_sums_buckets_before_the_update_and_drops_nan_garbage():
+    """One row in all four buckets with partials 1, 2, 3, 4 (bf16-exact) and
+    NaN in every sentinel slot: adagrad sees S = 10 once, every other row
+    stays bit-equal."""
+    v, nb = 1100, 4
+    ids = np.full((nb, C), v, np.int32)
+    g = np.full((nb, C, W), np.nan, np.float32)
+    for o in range(nb):
+        ids[o, :2] = [7, 100 + o]
+        g[o, 0] = o + 1.0
+        g[o, 1] = 1.0
+    table = np.zeros((v, W), np.float32)
+    acc = np.full((v, 1), 0.1, np.float32)
+    t_got, a_got = su.bucketed_rowwise_apply(_t(table), _t(acc), _t(ids), _t(g), 0.05, 1e-8)
+    a7 = np.float32(0.1) + np.float32(100.0)
+    np.testing.assert_allclose(a_got[7].numpy(), [a7], rtol=1e-7)
+    np.testing.assert_allclose(t_got[7].numpy(), -0.05 * 10.0 / (np.sqrt(a7) + 1e-8), rtol=1e-6)
+    assert np.isfinite(t_got.numpy()).all()
+    _untouched_equal(t_got.numpy(), table, np.array([7, 100, 101, 102, 103]))
+    _untouched_equal(a_got.numpy(), acc, np.array([7, 100, 101, 102, 103]))

@@ -1,0 +1,136 @@
+"""Child-process bodies for the port's sharded CPU tests.
+
+`run(fn, out_dir, world, **inputs)` saves the inputs to
+`out_dir/inputs.pt` and has `torch.multiprocessing.spawn` run `fn` in
+fresh processes, one per rank of a gloo group. The children import only
+torch, numpy and the port (never JAX); each loads the inputs, computes,
+and saves its result to `out_dir/rank<r>.pt`, and `run` returns the
+ranks' results. The inputs go through a file, not spawn's arguments, so
+that the children start at once (spawn writes each child's arguments to
+it in turn). Rendezvous is through a file in out_dir, so parallel test
+workers never share a port.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+
+def run(fn, out_dir, world: int, **inputs):
+    """fn(rank, world, out_dir, **inputs) on world gloo ranks; their results."""
+    torch.save(inputs, os.path.join(out_dir, "inputs.pt"))
+    torch.multiprocessing.spawn(_main, args=(fn, world, str(out_dir)), nprocs=world)
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _main(rank: int, fn, world: int, out_dir: str):
+    inputs = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=False)
+    fn(rank, world, out_dir, **inputs)
+
+
+def _mesh(rank: int, world: int, out_dir: str):
+    from cffm_tpu_torch.parallel.mesh import make_mesh
+
+    torch.set_num_threads(1)
+    return make_mesh(init_method=f"file://{os.path.join(out_dir, 'rdzv')}", rank=rank,
+                     world_size=world, backend="gloo", device="cpu")
+
+
+def _save(out_dir: str, rank: int, result: dict):
+    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def routing(rank: int, world: int, out_dir: str, ids, table_storage, drows, capacity: int,
+            rows_per_shard: int, max_unique: int):
+    """build_routing, routed_lookup and grad_return on this rank's block
+    of ids (the global flat ids split evenly), its rows of the storage and
+    its block of the row grads."""
+    from cffm_tpu_torch.parallel import sharded_embedding as se
+    from cffm_tpu_torch.parallel.mesh import close_mesh
+
+    mesh = _mesh(rank, world, out_dir)
+    try:
+        n = len(ids) // world
+        vs = rows_per_shard
+        mine = torch.from_numpy(ids[rank * n:(rank + 1) * n])
+        table = torch.from_numpy(table_storage[rank * vs:(rank + 1) * vs])
+        r = se.build_routing(mine, capacity, mesh, rows_per_shard=vs)
+        rows = se.routed_lookup(table, r, mesh)
+        g = torch.from_numpy(drows[rank * n:(rank + 1) * n])
+        if g.dtype == torch.int16:  # bf16 carried as its bits
+            g = g.view(torch.bfloat16)
+        row_ids, grads = se.grad_return(g, r, mesh, max_unique=max_unique)
+        _save(out_dir, rank, {"recv_ids": r.recv_ids, "start": r.start,
+                              "idx_of_pos": r.idx_of_pos, "overflow": r.overflow,
+                              "rows": rows, "row_ids": row_ids, "grads": grads.float()})
+    finally:
+        close_mesh(mesh)
+
+
+def train(rank: int, world: int, out_dir: str, cfg, np_state, batches, use_kernel: bool,
+          eval_batches=()):
+    """Steps of the sharded train step from rank's share of np_state (a
+    JAX sharded state as numpy), one per (ids, labels) global batch, then
+    sharded eval steps on eval_batches. Saves the losses, overflows, the
+    state's shards and the eval results."""
+    from cffm_tpu_torch.convert import sharded_state_from_jax
+    from cffm_tpu_torch.metrics import auc_state_init
+    from cffm_tpu_torch.ops import sorted_segment as ss
+    from cffm_tpu_torch.ops import streamed_update as su
+    from cffm_tpu_torch.ops.interaction_conv import make_interaction_fn
+    from cffm_tpu_torch.parallel.mesh import close_mesh
+    from cffm_tpu_torch.parallel.sharded_train import (make_sharded_eval_step,
+                                                       make_sharded_train_step)
+
+    mesh = _mesh(rank, world, out_dir)
+    try:
+        fn = make_interaction_fn() if use_kernel else None
+        state = sharded_state_from_jax(np_state, rank, world)
+        step = make_sharded_train_step(cfg, mesh, fn)
+        b = cfg.data.batch_size // world
+        calls = {}
+
+        def count(name, fun):
+            def wrapped(*args, **kwargs):
+                calls[name] = calls.get(name, 0) + 1
+                return fun(*args, **kwargs)
+            return wrapped
+
+        # which plain versions the step reached (the CPU takes no kernel)
+        ss.sorted_segment_by_seg_reference = count("by_seg", ss.sorted_segment_by_seg_reference)
+        su.bucketed_apply_reference = count("bucketed", su.bucketed_apply_reference)
+        su.streamed_apply_reference = count("streamed", su.streamed_apply_reference)
+        losses, overflows = [], []
+        for ids, labels in batches:
+            state, m = step(state, torch.from_numpy(ids[rank * b:(rank + 1) * b]), None,
+                            torch.from_numpy(labels[rank * b:(rank + 1) * b]))
+            losses.append(float(m["loss"]))
+            overflows.append(int(m["overflow"]))
+        evals = []
+        if eval_batches:
+            ev = make_sharded_eval_step(cfg, mesh, fn)
+            for ids, labels in eval_batches:
+                auc, ovf = ev(state, auc_state_init(), torch.from_numpy(ids[rank * b:(rank + 1) * b]),
+                              None, torch.from_numpy(labels[rank * b:(rank + 1) * b]))
+                evals.append(({k: v.numpy() for k, v in auc.items()}, int(ovf)))
+        _save(out_dir, rank, {"losses": losses, "overflows": overflows, "state": state,
+                              "evals": evals, "calls": calls})
+    finally:
+        close_mesh(mesh)
+
+
+def run_train(rank: int, world: int, out_dir: str, cfg):
+    """train.run on this rank inside an already-initialised gloo group."""
+    from cffm_tpu_torch import train
+    from cffm_tpu_torch.parallel.mesh import close_mesh
+
+    mesh = _mesh(rank, world, out_dir)
+    try:
+        logs = []
+        result = train.run(cfg, device="cpu", log_fn=logs.append)
+        _save(out_dir, rank, {"result": result, "logs": logs})
+    finally:
+        close_mesh(mesh)
