@@ -18,6 +18,7 @@ Build a `Mesh` with `make_mesh()`:
 from __future__ import annotations
 
 import os
+import socket
 from typing import NamedTuple, Optional
 
 import torch
@@ -43,16 +44,19 @@ def make_mesh(init_method: Optional[str] = None, rank: Optional[int] = None,
     backend: "nccl" (CUDA devices) or "gloo" (CPU); by default NCCL when
     device is a CUDA device or, with no device given, when CUDA is
     available. device: the process's device; by default cuda:LOCAL_RANK
-    for NCCL and the CPU for gloo. With no init_method the environment
+    for NCCL and the CPU for gloo ("cuda" without an index also means
+    cuda:LOCAL_RANK). With no init_method the environment
     (torchrun's RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT) is read."""
     if device is not None:
         device = torch.device(device)
     if backend is None:
         backend = ("nccl" if (device.type == "cuda" if device is not None
                               else torch.cuda.is_available()) else "gloo")
+    local = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
     if device is None:
-        device = (torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
-                  if backend == "nccl" else torch.device("cpu"))
+        device = local if backend == "nccl" else torch.device("cpu")
+    elif device.type == "cuda" and device.index is None:
+        device = local
     if backend == "nccl" and device.type != "cuda":
         raise ValueError(f"the NCCL backend needs a CUDA device, got {device}")
     if device.type == "cuda":
@@ -68,6 +72,13 @@ def make_mesh(init_method: Optional[str] = None, rank: Optional[int] = None,
     elif dist.get_backend() != backend:
         raise ValueError(f"the default group runs {dist.get_backend()}, not {backend}")
     return Mesh(None, dist.get_rank(), dist.get_world_size(), device, owns)
+
+
+def free_port() -> int:
+    """A free TCP port on localhost, for init_method="tcp://localhost:<port>"."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
 
 
 def close_mesh(mesh: Mesh) -> None:

@@ -69,7 +69,28 @@ nonzero without them, or when any phase fails. Phases, in order:
      steps); with one card it prints that it was not run;
  16. time kernels 6 and 7 at the T=1 and T=4 rank-0 shapes (kernel, plain,
      library yardstick, bound) and the sharded step end to end with a
-     torch.profiler breakdown.
+     torch.profiler breakdown;
+ 17. parity_bwd_v1: kernel 8a (ops.bwd_variants.bwd_v1) at criteo_kaggle
+     shapes against its plain version and against kernel 2 (bwd_v0), and
+     row 8b (bwd_v2, kernel 2 from the variants' weights) against the
+     plain version: B=512 in f32 (the CUDA-core kernels), B=4096 and 65536
+     in bf16 (tensor cores), and kernel 8a alone at C1=72 in bf16, B=512
+     (its bf16 CUDA-core kernel, at the phase-4 tolerances); bf16 dE
+     within one bf16 ulp of the product plus two ulps of the product
+     taken from |E|, |W|, |g| (and at the phase-4 tolerances; f32 at
+     rtol=atol=1e-4 against kernel 2), dW at 1e-4 of
+     max|dW|, pad lanes, diagonal blocks and dW's pad rows exact zeros, the
+     fused column exactly glin, dW bit-equal in two runs; then kernel 8a
+     and kernel 2 in the variants' layout (row 8b) timed at B=65536;
+ 18. parity_dot_probe: kernel 9's three modes against the plain version at
+     the probe's shapes (rtol 1e-5, atol 1e-5 of max|out|), timed with
+     TMAC/s, torch.matmul as the yardstick;
+ 19. tools: main(argv) of `python -m cffm_tpu_torch.bench` (--feed=staged,
+     score, sharded), of the scripts bench_kernel, bench_bwd_variants
+     --check, probe_dot_orient, profile_step full and trace_step, in
+     process, launch counts set to 0 before and read after each: exit code
+     0, each kernel of its path launched, and each bench line with a value
+     and the card.
 
 Prints one JSON line of kernel records, then the card line, and ends
 with {"ok": true, "device": {...}}.
@@ -80,7 +101,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
-import subprocess
 import sys
 import time
 
@@ -89,19 +109,12 @@ import time
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 KERNEL_SOURCES = ["cross_conv1_fwd", "cross_conv1_bwd", "sorted_segment",
-                  "streamed_update"]
+                  "streamed_update", "cross_conv1_bwd_v1", "dot_orient_probe"]
 
 
 def fail(msg: str):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -708,9 +721,18 @@ def _counts():
     from cffm_tpu_torch.ops import streamed_update as su
 
     out = {fn.__name__: fn.launches for fn in ic.ENTRIES + (ic.cross_conv1_bwd,)}
-    for fn in _counted(ss, su):
+    for fn in _counted(ss, su) + _counted_tools():
         out[fn.__name__] = fn.launches
     return out
+
+
+def _counted_tools():
+    """The launch-counted wrappers of kernels 8a (bwd_v1), 9 (dot_probe) and
+    of kernel 2 in the variants' layout (bwd_v0, bwd_v2)."""
+    from cffm_tpu_torch.ops import bwd_variants as bv
+    from cffm_tpu_torch.ops import dot_probe as dp
+
+    return tuple(bv.VARIANTS.values()) + (dp.dot_probe,)
 
 
 def _counted(ss, su):
@@ -726,7 +748,7 @@ def _reset_counts():
     from cffm_tpu_torch.ops import streamed_update as su
 
     ic.reset_launches()
-    for fn in _counted(ss, su):
+    for fn in _counted(ss, su) + _counted_tools():
         fn.launches = 0
 
 
@@ -1064,14 +1086,6 @@ def phase_time_train() -> dict:
 # ---------------------------------------------------------------------------
 # The row-sharded path: kernels 6 and 7, the sharded step
 # ---------------------------------------------------------------------------
-
-
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        return sock.getsockname()[1]
 
 
 def _sharded_cfg(overrides=None):
@@ -1460,6 +1474,8 @@ def phase_sharded_multi():
     import torch
     import torch.multiprocessing as mp
 
+    from cffm_tpu_torch.parallel.mesh import free_port
+
     n = torch.cuda.device_count()
     if n < 2:
         print(f"sharded_multi: not run: {n} CUDA card visible, and the multi-rank NCCL step "
@@ -1470,7 +1486,7 @@ def phase_sharded_multi():
     out_dir = os.path.join("build", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
-    mp.spawn(_multi_rank, args=(world, _free_port(), out_dir), nprocs=world, join=True)
+    mp.spawn(_multi_rank, args=(world, free_port(), out_dir), nprocs=world, join=True)
     with open(os.path.join(out_dir, "multi.json")) as f:
         res = json.load(f)
     print(f"sharded_multi: criteo_kaggle adagrad f32 B=65536 on {world} NCCL ranks, 2 steps vs the "
@@ -1591,9 +1607,238 @@ def phase_time_sharded(mesh, ids_np) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The measurement entry points: kernels 8a and 9, the bench and the scripts
+# ---------------------------------------------------------------------------
+
+
+def _variant_grads(bv, cfg, x, name: str):
+    """(dE as (B, F, W), dW as (C1, P, k)) of one backward variant."""
+    fn = bv.VARIANTS[name]
+    de, dw = fn(x["emb3"], x["wr"] if name == "v1" else x["wrs"], x["g"], x["glin"], cfg)
+    p = cfg.num_pairs
+    if (dw[:, p:] != 0).any():
+        fail(f"parity_bwd_v1 {name}: dW rows past P={p} are not zero")
+    return de.transpose(0, 1), dw[:, :p].permute(2, 1, 0)
+
+
+def _de_limit_ratio(got, ref, de_abs) -> float:
+    """max |got - ref| / limit with limit = one bf16 ulp of |ref| (the
+    product's own rounding) plus two bf16 ulps of de_abs, the same product
+    taken from |E|, |W| and |g|: dM is summed in f32 in another order and
+    rounded to bf16, so where the sum nearly cancels it can sit ulps of
+    sum|w*g| apart, which the partner row scales. In slices of the leading
+    axis, to bound the f32 temporaries."""
+    worst = 0.0
+    for s in range(0, got.shape[0], 4096):
+        g, r = got[s:s + 4096].float(), ref[s:s + 4096].float()
+        limit = _bf16_ulp(r) + 2 * _bf16_ulp(de_abs[s:s + 4096].float())
+        worst = max(worst, ((g - r).abs() / limit).max().item())
+    return worst
+
+
+def phase_parity_bwd_v1() -> dict:
+    """Kernel 8a (bwd_v1) against its plain version and against kernel 2
+    (bwd_v0) at B=4096 and 65536 in bf16 and at B=512 in f32, criteo_kaggle
+    shapes; then kernel 8a, row 8b (bwd_v2, kernel 2 in the variants'
+    layout), their plain versions, library yardstick and bound at B=65536."""
+    import torch
+    import torch.nn.functional as F
+
+    from cffm_tpu_torch.ops import bwd_variants as bv
+    from cffm_tpu_torch.ops import interaction_conv as ic
+    from cffm_tpu_torch.ops.cross import build_cross_map
+    from cffm_tpu_torch.scripts.bench_bwd_variants import make_inputs
+
+    out = {"max_abs_err": 0.0, "v2_max_abs_err": 0.0}
+    # 8a's bf16 CUDA-core kernel, which bf16 rows with C1 > 64 take
+    cfg = dataclasses.replace(_criteo_model("bfloat16"), conv_channels=(72, 64))
+    x = make_inputs(cfg, 512, "cuda", torch.bfloat16)
+    de1, dw1 = _variant_grads(bv, cfg, x, "v1")
+    de_ref, dw_ref = bv.bwd_v1_reference(x["emb3"], x["wr"], x["g"], x["glin"], cfg)
+    out["max_abs_err"] = _check_rows_grad(
+        de1, de_ref.transpose(0, 1), dw1, dw_ref[:, :cfg.num_pairs].permute(2, 1, 0),
+        x["glin"], cfg, "v1 (kernel 8a, CUDA cores) vs plain criteo_kaggle C1=72 bfloat16 B=512")
+    del x, de1, dw1, de_ref, dw_ref
+    for b, dtype in ((512, torch.float32), (4096, torch.bfloat16), (65536, torch.bfloat16)):
+        name = str(dtype).removeprefix("torch.")
+        cfg = _criteo_model(name)
+        x = make_inputs(cfg, b, "cuda", dtype)
+        glin = x["glin"]
+        de1, dw1 = _variant_grads(bv, cfg, x, "v1")
+        de_ref, dw_ref = bv.bwd_v1_reference(x["emb3"], x["wr"], x["g"], glin, cfg)
+        de_ref, dw_ref = de_ref.transpose(0, 1), dw_ref[:, :cfg.num_pairs].permute(2, 1, 0)
+        what = f"criteo_kaggle {name} B={b}"
+        err = _check_rows_grad(de1, de_ref, dw1, dw_ref, glin, cfg,
+                               f"v1 (kernel 8a) vs plain {what}")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        de0, dw0 = _variant_grads(bv, cfg, x, "v0")
+        _check_dw(dw1, dw0, f"v1 (kernel 8a) vs v0 (kernel 2) {what}")
+        # row 8b: v2 (kernel 2 from wrs) against the same plain backward
+        de2, dw2 = _variant_grads(bv, cfg, x, "v2")
+        err2 = _check_rows_grad(de2, de_ref, dw2, dw_ref, glin, cfg,
+                                f"v2 (kernel 2) vs plain {what}")
+        out["v2_max_abs_err"] = max(out["v2_max_abs_err"], err2)
+        if dtype == torch.bfloat16:
+            de_abs = bv.bwd_v1_reference(x["emb3"].abs(), x["wr"].abs(), x["g"].abs(),
+                                         torch.zeros_like(glin), cfg)[0].transpose(0, 1)
+            r_ref, r_k2 = _de_limit_ratio(de1, de_ref, de_abs), _de_limit_ratio(de1, de0, de_abs)
+            r_v2 = _de_limit_ratio(de2, de_ref, de_abs)
+            print(f"parity_bwd_v1 {what}: dE of v1 vs plain at {r_ref:.3f}, v1 vs kernel 2 at "
+                  f"{r_k2:.3f}, v2 vs plain at {r_v2:.3f} of the limit (one bf16 ulp of the "
+                  f"product plus two of the product taken from |E|, |W|, |g|)", flush=True)
+            if max(r_ref, r_k2, r_v2) > 1:
+                fail(f"parity_bwd_v1 {what}: dE beyond its ulp limit")
+            del de_abs
+        else:
+            torch.testing.assert_close(de1, de0, rtol=1e-4, atol=1e-4)
+        dw1b = bv.bwd_v1(x["emb3"], x["wr"], x["g"], glin, cfg)[1]
+        if not torch.equal(dw1b[:, :cfg.num_pairs].permute(2, 1, 0), dw1):
+            fail(f"parity_bwd_v1 {what}: dW differs between two runs")
+        del de1, dw1, de0, dw0, de2, dw2, de_ref, dw_ref, dw1b
+        if b != 65536:
+            del x
+            torch.cuda.empty_cache()
+    print("parity_bwd_v1: diagonal and pad lanes exact zeros, fused column == glin, "
+          "dW pad rows zero and bit-equal in two runs", flush=True)
+
+    # times at B=65536 (bf16), the inputs of the last case
+    f, w, d, k = cfg.num_fields, cfg.table_width, cfg.embed_dim, cfg.conv_kernel
+    c1, p = cfg.conv_channels[0], cfg.num_pairs
+    p_pad = x["wrs"].shape[1]
+    args = {name: (x["emb3"], x["wr"] if name == "v1" else x["wrs"], x["g"], glin, cfg)
+            for name in ("v1", "v2")}
+    rows = x["emb3"].transpose(0, 1)
+    m = build_cross_map(rows[..., : cfg.row_width].reshape(b, f, f, d), cfg)
+    wb = bv.w1_from_wrs(x["wrs"], cfg).contiguous()
+    gy = x["g"].reshape(b, c1, d)
+    library_ms = cuda_ms(lambda: (torch.nn.grad.conv1d_weight(m, wb.shape, gy, padding=k // 2),
+                                  F.conv_transpose1d(gy, wb, padding=k // 2)), 5)
+    del m, rows
+    torch.cuda.empty_cache()
+    nbytes = 2 * f * b * w * 2 + b * c1 * d * 2 + b * 4 + p_pad * k * c1 * 2 + k * p_pad * c1 * 4
+    ops = 2 * (2 * b * d * p * k * c1)
+    for name, ref in (("v1", bv.bwd_v1_reference), ("v2", bv.bwd_v2_reference)):
+        ms = cuda_ms(lambda: bv.VARIANTS[name](*args[name]), 5)
+        plain_ms = cuda_ms(lambda: ref(*args[name]), 2, warmup=1)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     **_bound(nbytes, ops)}
+        print(f"time bwd {name} ({'kernel 8a' if name == 'v1' else 'kernel 2'}) B={b}: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (conv1d_weight + "
+              f"conv_transpose1d on a built M) {library_ms:.4f} ms, bound "
+              f"{out[name]['bound_ms']:.4f} ms ({out[name]['bound_by']}: {nbytes / 1e9:.3f} GB, "
+              f"{ops / 1e9:.1f} GFLOP)", flush=True)
+    ic.reset_launches()
+    bv.reset_launches()
+    return out
+
+
+def phase_parity_dot_probe() -> dict:
+    """Kernel 9's three modes against the plain version at the probe's
+    shapes (BT=128, P=744, KC=192, D=16, 512 steps); kernel, plain version,
+    torch.matmul yardstick (one product, scaled to the call's MACs), bound."""
+    import torch
+
+    from cffm_tpu_torch.ops import dot_probe as dp
+    from cffm_tpu_torch.scripts.probe_dot_orient import D, STEPS, make_operands
+
+    out = {"max_abs_err": 0.0}
+    for mode in dp.MODES:
+        a, b = make_operands(mode, "cuda")
+        got = dp.dot_probe(a, b, mode, STEPS, D)
+        ref = dp.dot_probe_reference(a, b, mode, STEPS, D)
+        scale = ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        print(f"parity_dot_probe {mode}: max_abs_err={err:.3e} (rtol=1e-5, atol=1e-5*max|out|="
+              f"{1e-5 * scale:.3e})", flush=True)
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * scale)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        macs = dp.macs(mode, a, b, STEPS, D)
+        ms = cuda_ms(lambda: dp.dot_probe(a, b, mode, STEPS, D), 20)
+        plain_ms = cuda_ms(lambda: dp.dot_probe_reference(a, b, mode, STEPS, D), 2, warmup=1)
+        left, right = dp.operands(mode, a, b)
+        library_ms = cuda_ms(lambda: torch.matmul(left, right), 50) * STEPS * D
+        out[mode] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "tmac_s": macs / ms / 1e9,
+                     **_bound(a.numel() * 2 + b.numel() * 2 + got.numel() * 4, 2 * macs)}
+        print(f"time dot_probe {mode}: kernel {ms:.4f} ms ({out[mode]['tmac_s']:.1f} TMAC/s), "
+              f"plain {plain_ms:.4f} ms, torch.matmul x{STEPS * D} {library_ms:.4f} ms, bound "
+              f"{out[mode]['bound_ms']:.4f} ms ({out[mode]['bound_by']}: {macs:.4e} MAC)",
+              flush=True)
+    dp.dot_probe.launches = 0
+    return out
+
+
+# the tools run in process: (name, module, argv, kernels that must launch)
+TOOLS = (
+    ("bench_staged", "cffm_tpu_torch.bench", ["--feed=staged"],
+     ("cross_conv1_lin_fm2", "cross_conv1_bwd", "sorted_segment_sum_compact",
+      "streamed_rowwise_apply")),
+    ("bench_score", "cffm_tpu_torch.bench", ["--feed=score"], ("cross_conv1_lin_fm2",)),
+    ("bench_sharded", "cffm_tpu_torch.bench", ["--feed=sharded"],
+     ("cross_conv1_lin_fm2", "cross_conv1_bwd", "sorted_segment_sum_by_seg",
+      "bucketed_rowwise_apply")),
+    ("bench_kernel", "cffm_tpu_torch.scripts.bench_kernel", [],
+     ("cross_conv1", "cross_conv1_bwd")),
+    ("bench_bwd_variants", "cffm_tpu_torch.scripts.bench_bwd_variants", ["--check"],
+     ("bwd_v0", "bwd_v1", "bwd_v2", "cross_conv1_bwd")),
+    ("probe_dot_orient", "cffm_tpu_torch.scripts.probe_dot_orient", [], ("dot_probe",)),
+    ("profile_step_full", "cffm_tpu_torch.scripts.profile_step", ["full"],
+     ("cross_conv1_lin_fm2", "cross_conv1_bwd", "sorted_segment_sum_compact",
+      "streamed_rowwise_apply")),
+    ("trace_step", "cffm_tpu_torch.scripts.trace_step", [],
+     ("cross_conv1_lin_fm2", "cross_conv1_bwd")),
+)
+
+
+def phase_tools() -> dict:
+    """Each measurement entry point's main(argv) in process, launch counts
+    set to 0 before and read after each; any failure, or a kernel of its
+    path that did not launch, fails the run. Returns {name: {rc, launches,
+    lines}}."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+
+    out = {}
+    for name, module, argv, must in TOOLS:
+        main = importlib.import_module(module).main
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        lines = buf.getvalue().strip().splitlines()
+        for line in lines:
+            print(f"tools {name}: {line}", flush=True)
+        launched = {k: v for k, v in counts.items() if v}
+        print(f"tools {name}: python -m {module} {' '.join(argv)} -> rc {rc} in {wall:.1f}s, "
+              f"launches {launched}", flush=True)
+        if rc != 0:
+            fail(f"tools {name}: exit code {rc}")
+        missing = [k for k in must if not counts[k]]
+        if missing:
+            fail(f"tools {name}: kernels {missing} never launched ({launched})")
+        out[name] = {"rc": rc, "launches": counts, "lines": lines}
+        if module == "cffm_tpu_torch.bench":
+            rec = json.loads(lines[-1])
+            if not rec["value"] > 0 or "error" in rec or not rec.get("card"):
+                fail(f"tools {name}: bad bench line {rec}")
+            out[name]["bench"] = rec
+        torch.cuda.empty_cache()
+    return out
+
+
 PHASES = ("parity", "parity_bwd", "parity_segment", "parity_apply", "serve", "time",
           "train", "step_vs_cpu", "time_train", "parity_segment_by_seg", "parity_bucketed",
-          "train_sharded", "sharded_multi", "time_sharded")
+          "train_sharded", "sharded_multi", "time_sharded", "parity_bwd_v1",
+          "parity_dot_probe", "tools")
 # the phases that run on the NCCL group of one
 GROUP_PHASES = ("train_sharded", "time_sharded")
 
@@ -1612,6 +1857,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device")
     try:
+        from cffm_tpu_torch.bench import card_line
         from cffm_tpu_torch.ops import _build
     except ImportError as e:
         fail(f"cannot import cffm_tpu_torch ({e}): run from the root of a checkout")
@@ -1641,11 +1887,11 @@ def main(argv=None) -> int:
 
     mesh = None
     if set(phases) & set(GROUP_PHASES):
-        from cffm_tpu_torch.parallel.mesh import make_mesh
+        from cffm_tpu_torch.parallel.mesh import free_port, make_mesh
 
         # the sharded program on an NCCL group of one, as bench.py's sharded
         # feed runs it on one device
-        mesh = make_mesh(init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1,
+        mesh = make_mesh(init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1,
                          backend="nccl", device="cuda:0")
     try:
         return _run_phases(phases, phase, mesh)
@@ -1658,6 +1904,8 @@ def main(argv=None) -> int:
 
 def _run_phases(phases, phase, mesh) -> int:
     import torch
+
+    from cffm_tpu_torch.bench import card_line
 
     fm2_err = phase("parity", phase_parity)
     bwd_err = phase("parity_bwd", phase_parity_bwd)
@@ -1676,6 +1924,9 @@ def _run_phases(phases, phase, mesh) -> int:
     strained = phase("train_sharded", phase_train_sharded, mesh)
     phase("sharded_multi", phase_sharded_multi)
     stimes = phase("time_sharded", phase_time_sharded, mesh, ids_np)
+    v1 = phase("parity_bwd_v1", phase_parity_bwd_v1)
+    probe = phase("parity_dot_probe", phase_parity_dot_probe)
+    tools = phase("tools", phase_tools)
 
     if set(phases) == set(PHASES):
         t = times[4096]
@@ -1724,6 +1975,26 @@ def _run_phases(phases, phase, mesh) -> int:
                 **{k: stimes[f"{tk}_t1"][k] for k in keys}, "batch": 65536, "shards": 1,
                 "at_t4_rank0": {k: stimes[f"{tk}_t4"][k] for k in keys}})
         records[-1]["sharded_step_ms_65536"] = stimes["sharded_step_ms_65536"]
+        # kernels 8a, 8b (kernel 2 in the variants' layout) and 9: launches
+        # from the scripts' runs in the tools phase
+        bwd_launches = tools["bench_bwd_variants"]["launches"]
+        for name, src, rep, key, err in (
+                ("cross_conv1_bwd_v1", "cross_conv1_bwd_v1.cu",
+                 "scripts/bench_bwd_variants.py:44", "v1", v1["max_abs_err"]),
+                ("cross_conv1_bwd_v2", "cross_conv1_bwd.cu",
+                 "scripts/bench_bwd_variants.py:144", "v2", v1["v2_max_abs_err"])):
+            records.append({
+                "name": name, "route": "cuda", "source": f"cffm_tpu_torch/ops/csrc/{src}",
+                "replaces": rep, "launches": bwd_launches[f"bwd_{key}"],
+                "max_abs_err": err, **{k: v1[key][k] for k in keys}, "batch": 65536})
+        records.append({
+            "name": "dot_orient_probe", "route": "cuda",
+            "source": "cffm_tpu_torch/ops/csrc/dot_orient_probe.cu",
+            "replaces": "scripts/probe_dot_orient.py:32",
+            "launches": tools["probe_dot_orient"]["launches"]["dot_probe"],
+            "max_abs_err": probe["max_abs_err"], **{k: probe["lane"][k] for k in keys},
+            "by_mode": {m: {k: probe[m][k] for k in keys + ("tmac_s",)}
+                        for m in ("lane", "sub", "rhs")}})
         print(json.dumps({"kernels": records}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """The port stands alone: no file of cffm_tpu_torch, nor chip_smoke.py,
-imports jax, the JAX package or the oracle, and every port module
-imports with those blocked."""
+imports jax, the JAX package, the oracle or a JAX-side script (bench.py,
+bench_input.py, bench_scaling.py, scripts/), and every port module,
+utils/ and scripts/ included, imports with those blocked."""
 
 import ast
 import pathlib
@@ -12,6 +13,9 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "cffm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "cffm_tpu", "oracle", "optax", "orbax")
+# the JAX side's scripts, importable through sys.path from the repo root
+JAX_SCRIPTS = ("scripts", "bench", "bench_input", "bench_scaling",
+               *sorted(p.stem for p in (ROOT / "scripts").glob("*.py")))
 
 
 def _imported_roots(path):
@@ -26,7 +30,7 @@ def _imported_roots(path):
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_imports(path):
-    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN + JAX_SCRIPTS))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
@@ -40,9 +44,13 @@ def test_every_port_module_imports_without_jax():
         "for name in names:",
         "    importlib.import_module(name)",
         "import chip_smoke",
-        "print(len(names))",
+        "print(' '.join(names))",
     ])
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 14
+    names = set(out.stdout.split())
+    assert len(names) >= 14
+    for sub in ("utils", "scripts"):
+        files = (ROOT / "cffm_tpu_torch" / sub).glob("*.py")
+        assert {f"cffm_tpu_torch.{sub}.{p.stem}" for p in files if p.stem != "__init__"} <= names
