@@ -29,12 +29,11 @@
 // 2*64*16*741*3 = 4.55 MFLOP: about 91 FLOP per byte, under the ~295 the
 // card needs to be bound by its bf16 tensor cores, so the function is
 // memory-bound on the card. Two kernels: bf16 rows with d=16 and C1<=64
-// take cross_conv1_fwd_mma_kernel (below: bf16 mma.sync tiles, f32 sums);
-// everything else takes cross_conv1_fwd_kernel, whose FMAs run on the
-// CUDA cores (about 1/15 of the bf16 tensor-core rate), bound by FP32
-// issue. Left on the table: wgmma fed by TMA loads of the field rows, and
-// a persistent grid that overlaps one tile's cross build with the
-// previous tile's products.
+// take cross_conv1_fwd_wgmma_kernel (below: one wgmma GEMM of the stacked
+// weights by the cross map, a persistent grid, the cross build overlapped
+// with the products); everything else takes cross_conv1_fwd_kernel, whose
+// FMAs run on the CUDA cores (about 1/15 of the bf16 tensor-core rate),
+// bound by FP32 issue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,7 +64,7 @@ struct Args {
   const void* w;         // (P, k, c1p) in T, channels zero-padded to c1p
   void* y;               // (batch, c1, d) in T
   float* lin;            // (batch,) f32, or null
-  int batch, fields, d, c1, c1p, hadamard, lin_col;
+  int batch, fields, d, k, c1, c1p, hadamard, lin_col;
   int eb, ngx, xp;       // examples per block, position groups, padded row
 };
 
@@ -208,185 +207,433 @@ cudaError_t launch_k(const Args& a, int k, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core path: d == 16, C1 <= 64, 16-byte aligned rows.
+// bf16 tensor-core path: d == 16, C1 <= 64, 16-byte aligned rows (wgmma).
 //
-// One block owns kEBM examples, one warp each, and walks the pair axis in
-// chunks of kPCM pairs. Per chunk it stages the weights as [t][c][p] and
-// the transposed, halo-padded cross map as [e][q][p] (pairs contiguous), so
-// y[c, x] += W[c, (p, t)] * M[p, x+t-k/2] runs as mma.sync.m16n8k16 (bf16
-// in, f32 sums): 16 channels x 8 positions per tile, 16 pairs per k-step.
-// A warp keeps its example's whole (C1, 16) output in registers across the
-// pair loop. The products are rounded to bf16 before the sums, as on the
-// CUDA-core path.
+// The conv's shift is folded into the GEMM's rows: with W_t = W1[:, :, t],
+// y[c, x] = sum_t Z[t*C1 + c, x + t - k/2] (zero outside [0, 16)) where
+// Z = A * M, A = [W_0; ...; W_{k-1}] the stacked weights (k*C1, P) and M
+// the cross map (P, examples*16). One block per SM walks tiles of kNE
+// examples (a persistent grid, so B=4096 runs in one wave). The pair axis
+// goes in chunks of kWP pairs through a ring of stages in shared memory,
+// each stage a slice of A (one bulk copy from the wrapper's layout, see
+// interaction_conv.wgmma_weights) and the tile's cross map for those
+// pairs. The producer warpgroup builds the cross map: a thread takes one
+// pair and reads 32 bytes of each of the pair's two rows for each of its
+// examples, multiplies them in bf16 (the product rounded to bf16, as the
+// TPU kernel rounds M to the input type) and stores the 16 products as two
+// 16-byte runs, MN-major: B is [pair][example*16 + x], which wgmma reads
+// with its transpose bit. The consumer warpgroups each own 64 rows of Z
+// (kTPW m-tiles of 64) and keep their f32 sums in registers over the whole
+// pair loop, one wgmma m64nNk16 per 16 pairs. mbarriers hand stages over:
+// "full" counts the producer's threads and the bulk copy's bytes, "empty"
+// the consumers' threads; a consumer releases a stage once the wgmma
+// group after it is issued and its own group has completed. The epilogue
+// writes Z to shared memory two examples at a time, shift-adds the k row
+// blocks and stores y in bf16; the producer meanwhile starts the next
+// tile. lin's terms are loaded as a tile starts, so their latency hides
+// behind the pair loop, and summed once per example, in field order.
+// Shared memory layouts, without swizzle, in 8x8 core matrices of 128
+// contiguous bytes (8 rows of 16 bytes):
+//   A stage: [k-step (16 pairs)][8-row group][pair half][row][8 pairs]:
+//     K-major, LBO 128 B (between the pair halves), SBO 256 B (row groups);
+//   B stage: [k-step][8-position group][pair half][pair][8 positions]:
+//     MN-major, LBO 128 B (between the pair halves), SBO 256 B (position
+//     groups).
 // ---------------------------------------------------------------------------
 
-constexpr int kD = 16;       // embed dim of this path
-constexpr int kEBM = 8;      // examples per block (one warp each)
-constexpr int kPCM = 32;     // pairs per chunk (two k-steps)
-constexpr int kRowM = kPCM + 8;  // bf16 row stride of the staged tiles
+constexpr int kD = 16;             // embed dim of this path
+constexpr int kWP = 64;            // pairs per chunk
+constexpr int kKSteps = kWP / 16;  // wgmma k-steps per chunk
+constexpr int kZS = 40;            // f32 row stride of the epilogue's Z tile
+constexpr int kBarBytes = 128;     // shared bytes of the ring's barriers
+constexpr int kMaxFields = 128;    // fields this path takes (lin's staging)
+constexpr int kSmemMax = 232448;   // shared memory a block may use on the H100
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// m-tiles of 64 rows of A: k*C1 rows
+__host__ __device__ constexpr int wg_mtiles(int k, int c1) { return (k * c1 + 63) / 64; }
+
+template <int MT>
+struct WgLayout {
+  static constexpr int kNE = MT <= 4 ? 8 : 4;   // examples per tile
+  static constexpr int kTPW = MT <= 4 ? 1 : 2;  // m-tiles per consumer warpgroup
+  static constexpr int kNWG = (MT + kTPW - 1) / kTPW;
+  static constexpr int kN = kNE * kD;           // GEMM columns per tile
+  static constexpr int kThreads = (kNWG + 1) * 128;
+  static constexpr int kABytes = MT * 64 * kWP * 2;
+  static constexpr int kBBytes = kWP * kN * 2;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kHead = kBarBytes + kNE * kMaxFields * 4;  // barriers, lin's terms
+  static constexpr int kZBytes = MT * 64 * kZS * 4;
+  static constexpr int kStages0 = (kSmemMax - kHead - kZBytes) / kStageBytes;
+  static constexpr int kStages = kStages0 < 4 ? kStages0 : 4;
+  static constexpr int kSmem = kHead + kStages * kStageBytes + kZBytes;
+  static_assert(kStages >= 2, "the ring needs two stages");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// bytes (a multiple of 16) from global src to shared dst, counted on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
-__host__ __device__ constexpr int mma_c16(int c1) { return (c1 + 15) / 16 * 16; }
-
-// bf16 elements of shared memory the tensor-core kernel needs
-__host__ __device__ constexpr int mma_smem_elems(int k, int c1) {
-  return k * mma_c16(c1) * kRowM + kEBM * (kD + k - 1) * kRowM;
+// shared-memory matrix descriptor, no swizzle
+__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
-template <int K>
-__global__ void __launch_bounds__(kThreads) cross_conv1_fwd_mma_kernel(Args a) {
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads across a wgmma wait
+template <int N>
+__device__ __forceinline__ void wg_pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x N, f32, this thread's N/2) += A (64 x 16, K-major) * B (16 x N, MN-major)
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a, uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <int MT>
+__global__ void __launch_bounds__(WgLayout<MT>::kThreads, 1)
+    cross_conv1_fwd_wgmma_kernel(Args a, int ntiles) {
+  using L = WgLayout<MT>;
   using bf = __nv_bfloat16;
-  constexpr int kHalf = K / 2;
-  constexpr int kQ = kD + 2 * kHalf;
-  extern __shared__ float4 smem4[];
-  const int c16 = mma_c16(a.c1);
-  bf* ws = reinterpret_cast<bf*>(smem4);   // [t][c][p] = W1[c, p0+p, t]
-  bf* mt = ws + K * c16 * kRowM;           // [e][q][p] = M[b, p0+p, q - k/2]
-  __shared__ int pi_s[kPCM];
-  __shared__ int pj_s[kPCM];
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + L::kStages;
+  float* lin_s = reinterpret_cast<float*>(smem + kBarBytes);  // (kNE, fields)
+  unsigned char* ring = smem + L::kHead;
+  float* zs = reinterpret_cast<float*>(ring + L::kStages * L::kStageBytes);
 
-  const int pairs = a.fields * (a.fields - 1) / 2;
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const long long b0 = static_cast<long long>(blockIdx.x) * kEBM;
-  const bf zero = __float2bfloat16_rn(0.f);
-  const int ctiles = c16 / 16;
+  const int pairs = a.fields * (a.fields - 1) / 2;
+  const int nq = (pairs + kWP - 1) / kWP;
+  if (tid == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full + s, 128 + 1);
+      mbar_init(empty + s, L::kNWG * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = tid / 128;
 
-  // halo rows stay zero: the staging writes interior rows only
-  for (int u = tid; u < mma_smem_elems(K, a.c1) / 8; u += kThreads)
-    smem4[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  float acc[4][2][4];
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[m][n][r] = 0.f;
-
-  const bf* wg = static_cast<const bf*>(a.w);  // (P, K, c1p), c1p a multiple of kTM
-  for (int p0 = 0; p0 < pairs; p0 += kPCM) {
-    const int npc = min(kPCM, pairs - p0);
-    __syncthreads();  // the previous chunk's tiles are consumed
-    if (tid < kPCM) {
-      int i = 0, rem = p0 + tid;
-      while (i < a.fields - 1 && rem >= a.fields - 1 - i) {
-        rem -= a.fields - 1 - i;
-        ++i;
+  if (wg == L::kNWG) {
+    // producer: the weight slice by bulk copy, the cross tile by hand
+    const int pt = tid - L::kNWG * 128;
+    const int pc = pt % kWP;  // the thread's pair in each chunk
+    const int eg = pt / kWP;  // examples eg, eg + 2, ...
+    constexpr int kEU = L::kNE / 2;
+    const int ks = pc / 16, kh = (pc % 16) / 8, kr = pc % 8;
+    uint32_t it = 0;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const long long b0 = static_cast<long long>(tile) * L::kNE;
+      int pi = 0, rem = pc;  // pair (pi, pi + 1 + rem)
+      while (pi < a.fields - 1 && rem >= a.fields - 1 - pi) {
+        rem -= a.fields - 1 - pi;
+        ++pi;
       }
-      pi_s[tid] = i;
-      pj_s[tid] = i + 1 + rem;
-    }
-    for (int u = tid; u < kPCM * K * c16; u += kThreads) {
-      const int c = u % c16;
-      const int r = u / c16;
-      const int t = r % K;
-      const int p = r / K;
-      ws[(t * c16 + c) * kRowM + p] =
-          (c < a.c1 && p < npc) ? wg[(static_cast<long long>(p0 + p) * K + t) * a.c1p + c] : zero;
-    }
-    __syncthreads();  // pair tables
-    for (int u = tid; u < kEBM * kPCM * 2; u += kThreads) {
-      const int hf = u & 1;
-      const int pc = (u >> 1) % kPCM;
-      const int e = (u >> 1) / kPCM;
-      const long long b = b0 + e;
-      uint4 ua = make_uint4(0u, 0u, 0u, 0u), ub = ua;
-      if (pc < npc && b < a.batch) {
-        const int i = pi_s[pc], j = pj_s[pc];
-        ua = *reinterpret_cast<const uint4*>(field_row<bf>(a, i, b) + (a.hadamard ? 0 : j * kD) +
-                                             hf * 8);
-        ub = *reinterpret_cast<const uint4*>(field_row<bf>(a, j, b) + (a.hadamard ? 0 : i * kD) +
-                                             hf * 8);
-      }
-      const bf* av = reinterpret_cast<const bf*>(&ua);
-      const bf* bv = reinterpret_cast<const bf*>(&ub);
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        mt[(e * kQ + kHalf + hf * 8 + n) * kRowM + pc] =
-            __float2bfloat16_rn(__bfloat162float(av[n]) * __bfloat162float(bv[n]));
-    }
-    __syncthreads();
-
-    const bf* me = mt + warp * kQ * kRowM;
-#pragma unroll
-    for (int t = 0; t < K; ++t) {
-#pragma unroll
-      for (int ks = 0; ks < kPCM; ks += 16) {
-        uint32_t b[2][2];
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const bf* row = me + (nt * 8 + gid + t) * kRowM + ks + 2 * tig;
-          b[nt][0] = ld32(row);
-          b[nt][1] = ld32(row + 8);
+      for (int q = 0; q < nq; ++q, ++it) {
+        const int s = it % L::kStages;
+        mbar_wait(empty + s, ((it / L::kStages) & 1) ^ 1);
+        unsigned char* st = ring + s * L::kStageBytes;
+        if (pt == 0) {
+          mbar_arrive_tx(full + s, L::kABytes);
+          const unsigned char* w = static_cast<const unsigned char*>(a.w);
+          bulk_copy(st, w + static_cast<size_t>(q) * L::kABytes, L::kABytes, full + s);
         }
+        const bool pv = q * kWP + pc < pairs;
+        const int i = pi, j = pi + 1 + rem;
+        uint4 va[kEU][2], vb[kEU][2];
 #pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          if (m >= ctiles) break;
-          const bf* w = ws + (t * c16 + m * 16) * kRowM + ks + 2 * tig;
-          const uint32_t a0 = ld32(w + gid * kRowM), a1 = ld32(w + (gid + 8) * kRowM);
-          const uint32_t a2 = ld32(w + gid * kRowM + 8), a3 = ld32(w + (gid + 8) * kRowM + 8);
+        for (int u = 0; u < kEU; ++u) {
+          const long long b = b0 + eg + 2 * u;
+          if (pv && b < a.batch) {
+            const uint4* ri = reinterpret_cast<const uint4*>(field_row<bf>(a, i, b) +
+                                                             (a.hadamard ? 0 : j * kD));
+            const uint4* rj = reinterpret_cast<const uint4*>(field_row<bf>(a, j, b) +
+                                                             (a.hadamard ? 0 : i * kD));
+            va[u][0] = __ldg(ri);
+            va[u][1] = __ldg(ri + 1);
+            vb[u][0] = __ldg(rj);
+            vb[u][1] = __ldg(rj + 1);
+          } else {
+            va[u][0] = va[u][1] = vb[u][0] = vb[u][1] = make_uint4(0u, 0u, 0u, 0u);
+          }
+        }
+        unsigned char* bt = st + L::kABytes;
 #pragma unroll
-          for (int nt = 0; nt < 2; ++nt) mma_bf16(acc[m][nt], a0, a1, a2, a3, b[nt][0], b[nt][1]);
+        for (int u = 0; u < kEU; ++u) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint4 prod;
+            const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&va[u][h]);
+            const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&vb[u][h]);
+            __nv_bfloat162* z = reinterpret_cast<__nv_bfloat162*>(&prod);
+#pragma unroll
+            for (int n = 0; n < 4; ++n) z[n] = __hmul2(x[n], y[n]);
+            const int ng = (eg + 2 * u) * 2 + h;
+            *reinterpret_cast<uint4*>(bt + ((ks * 2 * L::kNE + ng) * 2 + kh) * 128 + kr * 16) =
+                prod;
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(full + s);
+        rem += kWP;
+        while (pi < a.fields - 1 && rem >= a.fields - 1 - pi) {
+          rem -= a.fields - 1 - pi;
+          ++pi;
         }
       }
     }
+    return;
   }
 
-  const long long b = b0 + warp;
-  if (b < a.batch) {
-    bf* yb = static_cast<bf*>(a.y) + b * a.c1 * kD;
+  // consumers
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int ct = tid;  // consumer thread, 0 .. kNWG*128-1
+  const int half = a.k / 2;
+  float acc[L::kTPW][L::kN / 2];
+  uint32_t it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long b0 = static_cast<long long>(tile) * L::kNE;
 #pragma unroll
-    for (int m = 0; m < 4; ++m)
+    for (int tp = 0; tp < L::kTPW; ++tp) {
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+      for (int r = 0; r < L::kN / 2; ++r) acc[tp][r] = 0.f;
+      wg_pin<L::kN / 2>(acc[tp]);
+    }
+    // lin's terms E[b, f, lin_col], loaded now and summed in the epilogue
+    const int nlin = a.lin != nullptr ? L::kNE * a.fields : 0;
+    float lv = 0.f;
+    if (ct < nlin && b0 + ct / a.fields < a.batch)
+      lv = to_f(field_row<bf>(a, ct % a.fields, b0 + ct / a.fields)[a.lin_col]);
+    int prev = 0;
+    for (int q = 0; q < nq; ++q, ++it) {
+      const int s = it % L::kStages;
+      mbar_wait(full + s, (it / L::kStages) & 1);
+      const unsigned char* st = ring + s * L::kStageBytes;
+      wg_fence();
 #pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-          const int c = m * 16 + gid + rr * 8;
-          if (m < ctiles && c < a.c1)
-            *reinterpret_cast<__nv_bfloat162*>(yb + c * kD + nt * 8 + 2 * tig) =
-                __floats2bfloat162_rn(acc[m][nt][rr * 2], acc[m][nt][rr * 2 + 1]);
+      for (int k = 0; k < kKSteps; ++k) {
+        const uint64_t db = wg_desc(st + L::kABytes + k * 2 * L::kNE * 256, 128, 256);
+#pragma unroll
+        for (int tp = 0; tp < L::kTPW; ++tp) {
+          const int mt = wg * L::kTPW + tp;
+          if (mt < MT)
+            wgmma_bf16<L::kN>(acc[tp], wg_desc(st + (k * MT + mt) * 8 * 256, 128, 256), db);
         }
-  }
-  if (a.lin != nullptr && tid < kEBM && b0 + tid < a.batch) {
-    const long long bl = b0 + tid;
-    float s = 0.f;
-    for (int f = 0; f < a.fields; ++f) s += to_f(field_row<bf>(a, f, bl)[a.lin_col]);
-    a.lin[bl] = s;
+      }
+      wg_commit();
+      if (q > 0) {
+        wg_wait<1>();
+        mbar_arrive(empty + prev);
+      }
+      prev = s;
+    }
+    wg_wait<0>();
+#pragma unroll
+    for (int tp = 0; tp < L::kTPW; ++tp) wg_pin<L::kN / 2>(acc[tp]);
+    mbar_arrive(empty + prev);
+
+    // epilogue, two examples (32 columns of Z) at a time
+    if (ct < nlin) lin_s[ct] = lv;
+    for (int u = ct + L::kNWG * 128; u < nlin; u += L::kNWG * 128)
+      lin_s[u] = b0 + u / a.fields < a.batch
+                     ? to_f(field_row<bf>(a, u % a.fields, b0 + u / a.fields)[a.lin_col])
+                     : 0.f;
+#pragma unroll
+    for (int qq = 0; qq < L::kNE / 2; ++qq) {
+#pragma unroll
+      for (int tp = 0; tp < L::kTPW; ++tp) {
+        const int mt = wg * L::kTPW + tp;
+        if (mt < MT) {
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+            for (int hi = 0; hi < 2; ++hi) {
+              const int r = (qq * 4 + jj) * 4 + hi * 2;
+              float* z = zs + (mt * 64 + warp * 16 + gid + 8 * hi) * kZS + jj * 8 + tig * 2;
+              *reinterpret_cast<float2*>(z) = make_float2(acc[tp][r], acc[tp][r + 1]);
+            }
+        }
+      }
+      named_sync(1, L::kNWG * 128);
+      for (int u = ct; u < a.c1 * 16; u += L::kNWG * 128) {
+        const int c = u / 16, e = (u % 16) / 8, x0 = (u % 8) * 2;
+        float s0 = 0.f, s1 = 0.f;
+        for (int t = 0; t < a.k; ++t) {
+          const float* zr = zs + (t * a.c1 + c) * kZS + e * 16;
+          const int xa = x0 + t - half;
+          if (xa >= 0 && xa < kD) s0 += zr[xa];
+          if (xa + 1 >= 0 && xa + 1 < kD) s1 += zr[xa + 1];
+        }
+        const long long b = b0 + qq * 2 + e;
+        if (b < a.batch)
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf*>(a.y) + (b * a.c1 + c) * kD + x0) =
+              __floats2bfloat162_rn(s0, s1);
+      }
+      if (qq == L::kNE / 2 - 1 && nlin > 0 && ct < L::kNE && b0 + ct < a.batch) {
+        float sl = 0.f;  // in field order
+        for (int f = 0; f < a.fields; ++f) sl += lin_s[ct * a.fields + f];
+        a.lin[b0 + ct] = sl;
+      }
+      named_sync(1, L::kNWG * 128);
+    }
   }
 }
 
-template <int K>
-cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(mma_smem_elems(K, a.c1)) * sizeof(__nv_bfloat16);
-  const cudaError_t err = cudaFuncSetAttribute(
-      cross_conv1_fwd_mma_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+// SMs of the current device, asked once per device
+cudaError_t sm_count(int* sms) {
+  static int cache[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const unsigned blocks = static_cast<unsigned>((a.batch + kEBM - 1) / kEBM);
-  cross_conv1_fwd_mma_kernel<K><<<blocks, kThreads, smem, stream>>>(a);
+  if (dev >= 64) return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (cache[dev] == 0) {
+    err = cudaDeviceGetAttribute(&cache[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = cache[dev];
+  return cudaSuccess;
+}
+
+template <int MT>
+cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
+  using L = WgLayout<MT>;
+  cudaError_t err = cudaFuncSetAttribute(cross_conv1_fwd_wgmma_kernel<MT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  if ((err = sm_count(&sms)) != cudaSuccess) return err;
+  const int ntiles = (a.batch + L::kNE - 1) / L::kNE;
+  const int blocks = ntiles < sms ? ntiles : sms;
+  cross_conv1_fwd_wgmma_kernel<MT><<<blocks, L::kThreads, L::kSmem, stream>>>(a, ntiles);
   return cudaGetLastError();
 }
 
-cudaError_t launch_mma_k(const Args& a, int k, cudaStream_t stream) {
-  switch (k) {
-    case 1: return launch_mma<1>(a, stream);
-    case 3: return launch_mma<3>(a, stream);
-    case 5: return launch_mma<5>(a, stream);
-    case 7: return launch_mma<7>(a, stream);
+cudaError_t launch_wgmma_mt(const Args& a, cudaStream_t stream) {
+  switch (wg_mtiles(a.k, a.c1)) {
+    case 1: return launch_wgmma<1>(a, stream);
+    case 2: return launch_wgmma<2>(a, stream);
+    case 3: return launch_wgmma<3>(a, stream);
+    case 4: return launch_wgmma<4>(a, stream);
+    case 5: return launch_wgmma<5>(a, stream);
+    case 6: return launch_wgmma<6>(a, stream);
+    case 7: return launch_wgmma<7>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -394,24 +641,35 @@ cudaError_t launch_mma_k(const Args& a, int k, cudaStream_t stream) {
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // The tensor-core path reads field rows with 16-byte loads.
-bool mma_path(const Args& a, int is_bf16) {
-  const long long strides[] = {a.fs0, a.bs0, a.fs1, a.bs1};
+bool wgmma_path(int is_bf16, const void* e0, const void* e1, long long fs0, long long bs0,
+                long long fs1, long long bs1, int fields, int d, int c1) {
+  const long long strides[] = {fs0, bs0, fs1, bs1};
   for (long long st : strides)
     if (st % 8 != 0) return false;
-  return is_bf16 && a.d == kD && a.c1 <= 64 && aligned16(a.e0) && aligned16(a.e1) &&
-         aligned16(a.y);
+  return is_bf16 && d == kD && c1 <= 64 && fields <= kMaxFields && aligned16(e0) &&
+         aligned16(e1);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Channel padding the weight operand must carry: w is (P, k, round_up(c1, tile)).
+// Channel padding the CUDA-core kernel's weight operand must carry: w is
+// (P, k, round_up(c1, tile)).
 int cffm_cross_conv1_fwd_channel_tile() { return kTM; }
 
-// Returns a cudaError_t; 0 means the kernel was launched. bf16 rows take
-// the tensor-core kernel where mma_path allows, else the CUDA-core kernel.
-int cffm_cross_conv1_fwd(int is_bf16, const void* e0, const void* e1, int nf0,
+// 1 when these rows take the tensor-core (wgmma) kernel, whose weight
+// operand is the stacked layout of interaction_conv.wgmma_weights; 0 for
+// the CUDA-core kernel.
+int cffm_cross_conv1_fwd_wgmma(int is_bf16, const void* e0, const void* e1, long long fs0,
+                               long long bs0, long long fs1, long long bs1, int fields, int d,
+                               int c1) {
+  return wgmma_path(is_bf16, e0, e1, fs0, bs0, fs1, bs1, fields, d, c1) ? 1 : 0;
+}
+
+// Returns a cudaError_t; 0 means the kernel was launched. wgmma says which
+// weight layout w is in, and must be what cffm_cross_conv1_fwd_wgmma says.
+int cffm_cross_conv1_fwd(int is_bf16, int wgmma, const void* e0, const void* e1, int nf0,
                          long long fs0, long long bs0, long long fs1, long long bs1,
                          const void* w, void* y, float* lin, int batch, int fields, int d,
                          int k, int c1, int hadamard, int lin_col, void* stream) {
@@ -429,6 +687,7 @@ int cffm_cross_conv1_fwd(int is_bf16, const void* e0, const void* e1, int nf0,
   a.batch = batch;
   a.fields = fields;
   a.d = d;
+  a.k = k;
   a.c1 = c1;
   a.c1p = (c1 + kTM - 1) / kTM * kTM;
   a.hadamard = hadamard;
@@ -440,7 +699,10 @@ int cffm_cross_conv1_fwd(int is_bf16, const void* e0, const void* e1, int nf0,
   a.xp = a.ngx * kTN + k - 1;
   if (batch == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mma_path(a, is_bf16)) return launch_mma_k(a, k, s);
+  if (wgmma != (wgmma_path(is_bf16, e0, e1, fs0, bs0, fs1, bs1, fields, d, c1) ? 1 : 0) ||
+      (reinterpret_cast<uintptr_t>(y) & 3) != 0)
+    return cudaErrorInvalidValue;
+  if (wgmma) return launch_wgmma_mt(a, s);
   return is_bf16 ? launch_k<__nv_bfloat16>(a, k, s) : launch_k<float>(a, k, s);
 }
 

@@ -39,21 +39,25 @@
 // updates its row with two lanes' worth of columns per thread. The
 // hyperparameters are read from device memory, so a learning-rate
 // schedule or Adam's step costs no host synchronisation.
-// Kernel 7 gives each row one owner with no atomics: the warp of slot
-// (o, j) binary-searches its id in buckets 0..o-1 (each ascending), one
-// bucket per lane, and leaves if any holds it. The owner finds the id's
-// slot in each later bucket the same way, keeps those slots in shared
-// memory, and sums the partials in bucket order as it goes over the
-// columns (once for |S|^2, once more for the clipped mean(S^2) when clip is
-// on and the mode needs it, once for the update). The result does not
-// depend on the order the warps run in.
+// Kernel 7 runs a persistent grid, one wave of resident blocks, over the
+// live slots only: a bucket's live range ends at its first sentinel, found
+// on the device, so the ~95% of slots that are sentinels are never visited
+// and no count crosses to the host. Each block owns a range of ids, finds
+// its slots in every bucket, merges them in shared memory into (id,
+// bucket) order and gives each id's first slot the row (see
+// bucketed_kernel). The owner's warp issues every load of the row at once
+// (partials, table pair, m, state), sums S in bucket order into registers,
+// reading each partial once, and updates the row in one pass. No atomics;
+// the result does not depend on the order the blocks run in, and S and
+// the step round as in the warp-per-slot kernel this one replaced, so an
+// f32 table's result is bit for bit that kernel's.
 //
 // Bound on the H100: per touched row, read the bf16 gradient(s) and the row
 // (plus m for rowwise_adam) and write the row (and m) back: about 6.4 KB
 // per row for an f32 table at W=640, 0.87 GB for the ~136k distinct
 // big-field rows of a criteo_kaggle step at B=65536 -- memory-bound at
-// about 0.26 ms. Kernel 7 also reads the NB*C ids and, for the ids of
-// later buckets, about log2(C) of them per search.
+// about 0.26 ms. Kernel 7 also reads each live id once, and a few more per
+// block for its searches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -116,67 +120,100 @@ __device__ __forceinline__ float sum_sq(const Args& a, int lane, float scale, To
   return warp_sum(ss);
 }
 
-// The optimizer step of row uid from S(c) * scale; mean is mean(S^2) of the
-// scaled S (unused by sgd). Lane 0 writes the row's scalar state.
+// The row's scalar state before the step: accum (adagrad) or v
+// (rowwise_adam), 0 for sgd.
+__device__ __forceinline__ float row_state(const Args& a, int uid) {
+  if (a.mode == kAdagrad) return a.accum[uid];
+  if (a.mode == kRowwiseAdam) return a.v[uid];
+  return 0.f;
+}
+
+// The scalar part of row uid's optimizer step from its state st; mean is
+// mean(S^2) of the scaled S (unused by sgd). Lane 0 writes the new state.
+struct RowStep {
+  float lr, denom, b1, c1;
+};
+
+__device__ __forceinline__ RowStep row_step(const Args& a, int uid, int lane, float mean,
+                                            float st) {
+  RowStep r{a.hyper[0], 1.f, 0.f, 0.f};
+  const float eps = a.hyper[1];
+  if (a.mode == kAdagrad) {
+    const float acc = st + mean;
+    if (lane == 0) a.accum[uid] = acc;
+    r.denom = sqrtf(acc) + eps;
+  } else if (a.mode == kRowwiseAdam) {
+    r.b1 = a.hyper[2];
+    const float b2 = a.hyper[3];
+    r.c1 = a.hyper[4];
+    const float c2 = a.hyper[5];
+    const float vn = fmaf(1.f - b2, mean, __fmul_rn(b2, st));  // rounded as in pair_delta
+    if (lane == 0) a.v[uid] = vn;
+    r.denom = sqrtf(vn * c2) + eps;
+  }
+  return r;
+}
+
+// The step of one column pair: the delta for the scaled S pair s, with the
+// rowwise_adam first moment mv updated in place. The f32 roundings are
+// written out, none left to the compiler's contraction, as the
+// warp-per-slot kernel that kernel 7 replaced compiled them (checked bit
+// for bit on the card), so an f32 table's result is that kernel's.
+__device__ __forceinline__ float2 pair_delta(const Args& a, const RowStep& r, float2 s,
+                                             float2& mv) {
+  if (a.mode == kRowwiseAdam) {
+    mv.x = fmaf(1.f - r.b1, s.x, __fmul_rn(r.b1, mv.x));
+    mv.y = fmaf(1.f - r.b1, s.y, __fmul_rn(r.b1, mv.y));
+    return make_float2((-r.lr) * (mv.x * r.c1) / r.denom, (-r.lr) * (mv.y * r.c1) / r.denom);
+  }
+  if (a.mode == kAdagrad) return make_float2((-r.lr) * s.x / r.denom, (-r.lr) * s.y / r.denom);
+  return make_float2(__fmul_rn(-r.lr, s.x), __fmul_rn(-r.lr, s.y));
+}
+
+// Table pair c of row uid as f32.
+template <typename T>
+__device__ __forceinline__ float2 load_pair(const Args& a, int uid, int c) {
+  const long long i = static_cast<long long>(uid) * a.w2 + c;
+  if constexpr (sizeof(T) == 4) return reinterpret_cast<const float2*>(a.table)[i];
+  return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(a.table)[i]);
+}
+
+// Writes table pair c of row uid: its old value tv plus the delta d, in f32
+// or rounded into bf16 (stochastically with the Philox dither of (seed,
+// row, column)).
+template <typename T>
+__device__ __forceinline__ void store_pair(const Args& a, int uid, int c, float2 tv, float2 d) {
+  const long long i = static_cast<long long>(uid) * a.w2 + c;
+  if constexpr (sizeof(T) == 4) {
+    reinterpret_cast<float2*>(a.table)[i] = make_float2(__fadd_rn(tv.x, d.x), __fadd_rn(tv.y, d.y));
+  } else {
+    __nv_bfloat162* tp = reinterpret_cast<__nv_bfloat162*>(a.table) + i;
+    const float nx = tv.x + d.x, ny = tv.y + d.y;
+    if (a.stochastic) {
+      const uint4 r = philox(make_uint4(static_cast<uint32_t>(c), static_cast<uint32_t>(uid),
+                                        0u, 0u),
+                             a.key0, a.key1);
+      *tp = __halves2bfloat162(round_sr(nx, r.x), round_sr(ny, r.y));
+    } else {
+      *tp = __floats2bfloat162_rn(nx, ny);
+    }
+  }
+}
+
+// The optimizer step of row uid from S(c) * scale (see row_step).
 template <typename T, typename Total>
 __device__ __forceinline__ void update_row(const Args& a, int uid, int lane, float mean,
                                            float scale, Total total) {
-  const float lr = a.hyper[0], eps = a.hyper[1];
-  float denom = 1.f, b1 = 0.f, c1 = 0.f;
-  if (a.mode == kAdagrad) {
-    const float acc = a.accum[uid] + mean;
-    if (lane == 0) a.accum[uid] = acc;
-    denom = sqrtf(acc) + eps;
-  } else if (a.mode == kRowwiseAdam) {
-    b1 = a.hyper[2];
-    const float b2 = a.hyper[3];
-    c1 = a.hyper[4];
-    const float c2 = a.hyper[5];
-    const float vn = b2 * a.v[uid] + (1.f - b2) * mean;
-    if (lane == 0) a.v[uid] = vn;
-    denom = sqrtf(vn * c2) + eps;
-  }
-
-  const long long row = static_cast<long long>(uid) * a.w2;
+  const RowStep r = row_step(a, uid, lane, mean, row_state(a, uid));
+  float2* m = reinterpret_cast<float2*>(a.m) + static_cast<long long>(uid) * a.w2;
   for (int c = lane; c < a.w2; c += 32) {
     float2 s = total(c);
     s.x *= scale;
     s.y *= scale;
-    float dx, dy;
-    if (a.mode == kRowwiseAdam) {
-      float2* mp = reinterpret_cast<float2*>(a.m) + row + c;
-      float2 mv = *mp;
-      mv.x = b1 * mv.x + (1.f - b1) * s.x;
-      mv.y = b1 * mv.y + (1.f - b1) * s.y;
-      *mp = mv;
-      dx = (-lr) * (mv.x * c1) / denom;
-      dy = (-lr) * (mv.y * c1) / denom;
-    } else if (a.mode == kAdagrad) {
-      dx = (-lr) * s.x / denom;
-      dy = (-lr) * s.y / denom;
-    } else {
-      dx = (-lr) * s.x;
-      dy = (-lr) * s.y;
-    }
-    if constexpr (sizeof(T) == 4) {
-      float2* tp = reinterpret_cast<float2*>(a.table) + row + c;
-      float2 tv = *tp;
-      tv.x += dx;
-      tv.y += dy;
-      *tp = tv;
-    } else {
-      __nv_bfloat162* tp = reinterpret_cast<__nv_bfloat162*>(a.table) + row + c;
-      const float2 tv = __bfloat1622float2(*tp);
-      const float nx = tv.x + dx, ny = tv.y + dy;
-      if (a.stochastic) {
-        const uint4 r = philox(make_uint4(static_cast<uint32_t>(c), static_cast<uint32_t>(uid),
-                                          0u, 0u),
-                               a.key0, a.key1);
-        *tp = __halves2bfloat162(round_sr(nx, r.x), round_sr(ny, r.y));
-      } else {
-        *tp = __floats2bfloat162_rn(nx, ny);
-      }
-    }
+    float2 mv = a.mode == kRowwiseAdam ? m[c] : make_float2(0.f, 0.f);
+    const float2 d = pair_delta(a, r, s, mv);
+    if (a.mode == kRowwiseAdam) m[c] = mv;
+    store_pair<T>(a, uid, c, load_pair<T>(a, uid, c), d);
   }
 }
 
@@ -194,62 +231,302 @@ __global__ void __launch_bounds__(kWarps * 32) apply_kernel(Args a) {
   update_row<T>(a, uid, lane, mean, 1.f, total);
 }
 
-// Index of id in bucket b (ascending, sentinel tail), or -1.
-__device__ __forceinline__ int find(const Args& a, int b, int id) {
-  const int* p = a.ids + static_cast<long long>(b) * a.slots;
-  long long lo = 0, hi = a.slots;
+// ---------------------------------------------------------------------------
+// Kernel 7: the bucketed update over live slots only.
+// ---------------------------------------------------------------------------
+
+constexpr int k7Threads = 256;
+constexpr int k7Warps = k7Threads / 32;
+constexpr int k7Win = 2048;  // slots one window merges in shared memory
+
+// First index in [lo, hi) of the ascending p with p[i] >= key (hi if none),
+// by the whole warp: 32 probes a round.
+__device__ long long warp_lower_bound(const int* p, long long lo, long long hi, long long key,
+                                      int lane) {
+  while (hi - lo > 32) {
+    const long long step = (hi - lo + 31) / 32;
+    const long long i = lo + lane * step;
+    const unsigned below = __ballot_sync(0xFFFFFFFFu, i < hi && p[i] < key);
+    const int n = __popc(below);  // the probes below key are a prefix of the lanes
+    if (n == 0) return lo;
+    const long long nlo = lo + (n - 1) * step + 1;
+    hi = min(hi, lo + n * step);
+    lo = nlo;
+  }
+  const long long i = lo + lane;
+  return lo + __popc(__ballot_sync(0xFFFFFFFFu, i < hi && p[i] < key));
+}
+
+// First index in [0, n) of the ascending shared p with p[i] >= key (or > key
+// when upper), n if none.
+__device__ __forceinline__ int smem_bound(const int* p, int n, int key, bool upper) {
+  int lo = 0, hi = n;
   while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    if (p[mid] < id) {
+    const int mid = (lo + hi) >> 1;
+    if (p[mid] < key || (upper && p[mid] == key)) {
       lo = mid + 1;
     } else {
       hi = mid;
     }
   }
-  return (lo < a.slots && p[lo] == id) ? static_cast<int>(lo) : -1;
+  return lo;
 }
 
-// Kernel 7: one warp per bucket slot (o, j); the row's first bucket owns it.
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32) bucketed_kernel(Args a) {
-  extern __shared__ int pos_s[];  // (kWarps, nb): the row's slot in each bucket
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long slot = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  if (slot >= a.nb * a.slots) return;
-  const int o = static_cast<int>(slot / a.slots);
-  const int uid = a.ids[slot];
-  if (uid < 0 || uid >= a.rows) return;
-  bool earlier = false;
-  for (int b = lane; b < o; b += 32) earlier |= find(a, b, uid) >= 0;
-  if (__any_sync(0xFFFFFFFFu, earlier)) return;
-  int* pos = pos_s + warp * a.nb;
-  for (int b = o + 1 + lane; b < a.nb; b += 32) pos[b] = find(a, b, uid);
-  __syncwarp();
+// Kernel 7. Block k of G owns the ids in [s_k, s_k+1), with splitters
+// taken at even steps of the longest bucket's live range (the buckets come
+// from peers that route the same way, so their ids are spread alike); the
+// block finds each bucket's slots of that range with warp searches and
+// walks them in windows of at most k7Win slots, each window holding every
+// occurrence of its ids. In a window the slots are merged in shared memory
+// into (id, bucket) order by co-rank: a slot's rank is its index in its
+// bucket plus, in every other bucket, the count of smaller ids (and of
+// equal ids in earlier buckets). The first slot of each run of one id owns
+// the row; the run lists its partials in bucket order. A warp per row sums
+// the partials into registers once (S, NPL column pairs a lane), takes
+// |S|^2, the clip scale and mean(S^2) from them, and updates the row.
+template <typename T, int NPL>
+__global__ void __launch_bounds__(k7Threads, 2) bucketed_kernel(Args a) {
+  extern __shared__ long long sm7[];
+  const int nb = a.nb;
+  long long* lo_s = sm7;               // (nb) live range [lo, hi) of each bucket
+  long long* hi_s = lo_s + nb;
+  long long* cur_s = hi_s + nb;        // (nb) the block's next slot in each bucket
+  long long* end_s = cur_s + nb;       // (nb) the end of the block's slots
+  long long* src_s = end_s + nb;       // (k7Win) merged: the slot's (bucket, slot) index
+  int* ids_s = reinterpret_cast<int*>(src_s + k7Win);  // (k7Win) the window's ids by bucket
+  int* mid_s = ids_s + k7Win;          // (k7Win) merged ids
+  int* head_s = mid_s + k7Win;         // (k7Win) positions of the runs' first slots
+  int* cnt_s = head_s + k7Win;         // (nb) the window's slots in each bucket
+  int* off_s = cnt_s + nb;             // (nb + 1) their offsets in the window
+  __shared__ long long split_s[2];
+  __shared__ int warp_s[k7Warps];
+  __shared__ int nheads_s, more_s;
 
-  const __nv_bfloat162* g0 = a.g + slot * a.w2;
-  auto total = [&](int c) {
-    float2 s = __bfloat1622float2(g0[c]);
-    for (int b = o + 1; b < a.nb; ++b) {
-      const int p = pos[b];
-      if (p >= 0) {
-        const float2 x =
-            __bfloat1622float2(a.g[(static_cast<long long>(b) * a.slots + p) * a.w2 + c]);
-        s.x += x.x;
-        s.y += x.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const long long c = a.slots;
+  for (int b = warp; b < nb; b += k7Warps) {
+    const int* p = a.ids + b * c;
+    const long long lo = warp_lower_bound(p, 0, c, 0, lane);
+    const long long hi = warp_lower_bound(p, lo, c, a.rows, lane);
+    if (lane == 0) {
+      lo_s[b] = lo;
+      hi_s[b] = hi;
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int best = 0;
+    for (int b = 1; b < nb; ++b)
+      if (hi_s[b] - lo_s[b] > hi_s[best] - lo_s[best]) best = b;
+    const int* p = a.ids + best * c + lo_s[best];
+    const long long len = hi_s[best] - lo_s[best];
+    const long long k = blockIdx.x, g = gridDim.x;
+    split_s[0] = k == 0 ? 0 : p[k * len / g];
+    split_s[1] = k + 1 == g ? a.rows : p[(k + 1) * len / g];
+    if (len == 0) split_s[1] = split_s[0];
+  }
+  __syncthreads();
+  const long long s_lo = split_s[0], s_hi = split_s[1];
+  if (s_lo >= s_hi) return;  // no id falls in this block's range
+  for (int b = warp; b < nb; b += k7Warps) {
+    const int* p = a.ids + b * c;
+    const long long st = warp_lower_bound(p, lo_s[b], hi_s[b], s_lo, lane);
+    const long long en = warp_lower_bound(p, st, hi_s[b], s_hi, lane);
+    if (lane == 0) {
+      cur_s[b] = st;
+      end_s[b] = en;
+    }
+  }
+  __syncthreads();
+
+  const int cap = k7Win / nb;
+  while (true) {
+    // load up to cap ids of each bucket
+    for (int u = tid; u < nb * cap; u += k7Threads) {
+      const int b = u / cap, j = u - b * cap;
+      if (cur_s[b] + j < end_s[b]) ids_s[u] = a.ids[b * c + cur_s[b] + j];
+    }
+    __syncthreads();
+    if (tid == 0) {
+      // the window ends below the last loaded id of any bucket cut short
+      long long v_end = s_hi;
+      bool any = false;
+      for (int b = 0; b < nb; ++b) {
+        const long long left = end_s[b] - cur_s[b];
+        any |= left > 0;
+        if (left > cap) v_end = min(v_end, static_cast<long long>(ids_s[b * cap + cap - 1]) + 1);
+      }
+      more_s = any;
+      split_s[0] = v_end;  // s_lo is kept in a register
+    }
+    __syncthreads();
+    if (!more_s) break;
+    const long long v_end = split_s[0];
+    for (int b = tid; b < nb; b += k7Threads) {
+      const int n = static_cast<int>(min(static_cast<long long>(cap), end_s[b] - cur_s[b]));
+      cnt_s[b] = smem_bound(ids_s + b * cap, n, static_cast<int>(v_end), false);
+    }
+    __syncthreads();
+    if (tid == 0) {
+      int o = 0;
+      for (int b = 0; b < nb; ++b) {
+        off_s[b] = o;
+        o += cnt_s[b];
+      }
+      off_s[nb] = o;
+    }
+    __syncthreads();
+    const int n = off_s[nb];
+
+    // merge by co-rank into (id, bucket) order
+    for (int u = tid; u < n; u += k7Threads) {
+      int b = 0;
+      while (u >= off_s[b + 1]) ++b;
+      const int j = u - off_s[b];
+      const int x = ids_s[b * cap + j];
+      int rank = j;
+      for (int o = 0; o < nb; ++o)
+        if (o != b) rank += smem_bound(ids_s + o * cap, cnt_s[o], x, o < b);
+      mid_s[rank] = x;
+      src_s[rank] = b * c + cur_s[b] + j;
+    }
+    __syncthreads();
+
+    // the runs' first slots, compacted in order by a block scan
+    constexpr int kPer = k7Win / k7Threads;
+    int flags = 0, cnt = 0;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int r = tid * kPer + q;
+      if (r < n && (r == 0 || mid_s[r] != mid_s[r - 1])) {
+        flags |= 1 << q;
+        ++cnt;
       }
     }
-    return s;
-  };
-  float scale = 1.f, mean = 0.f;
-  if (a.clip > 0.f || a.mode != kSgd) {
-    float ss = sum_sq(a, lane, 1.f, total);
-    if (a.clip > 0.f) {
-      scale = fminf(1.f, a.clip / fmaxf(sqrtf(ss), 1e-12f));
-      if (a.mode != kSgd) ss = sum_sq(a, lane, scale, total);
+    int incl = cnt;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(0xFFFFFFFFu, incl, off);
+      if (lane >= off) incl += y;
     }
-    mean = ss / (2 * a.w2);
+    if (lane == 31) warp_s[warp] = incl;
+    __syncthreads();
+    if (tid == 0) {
+      int o = 0;
+      for (int w = 0; w < k7Warps; ++w) {
+        const int t = warp_s[w];
+        warp_s[w] = o;
+        o += t;
+      }
+      nheads_s = o;
+    }
+    __syncthreads();
+    int pos = warp_s[warp] + incl - cnt;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q)
+      if (flags & (1 << q)) head_s[pos++] = tid * kPer + q;
+    __syncthreads();
+
+    const int nheads = nheads_s;
+    for (int h = warp; h < nheads; h += k7Warps) {
+      const int r0 = head_s[h], r1 = h + 1 < nheads ? head_s[h + 1] : n;
+      const int uid = mid_s[r0];
+      // every load of the row at once: its first partial, its table pair,
+      // m and the scalar state
+      float2 s[NPL], tv[NPL], mv[NPL];
+      const __nv_bfloat162* g0 = a.g + src_s[r0] * a.w2;
+      const long long row = static_cast<long long>(uid) * a.w2;
+      const float2* mrow = reinterpret_cast<const float2*>(a.m) + row;
+#pragma unroll
+      for (int i = 0; i < NPL; ++i)
+        if (lane + 32 * i < a.w2) {
+          s[i] = __bfloat1622float2(g0[lane + 32 * i]);
+          tv[i] = load_pair<T>(a, uid, lane + 32 * i);
+          mv[i] = a.mode == kRowwiseAdam ? mrow[lane + 32 * i] : make_float2(0.f, 0.f);
+        }
+      const float st = row_state(a, uid);
+      for (int r = r0 + 1; r < r1; ++r) {
+        const __nv_bfloat162* gr = a.g + src_s[r] * a.w2;
+#pragma unroll
+        for (int i = 0; i < NPL; ++i)
+          if (lane + 32 * i < a.w2) {
+            const float2 x = __bfloat1622float2(gr[lane + 32 * i]);
+            s[i].x += x.x;
+            s[i].y += x.y;
+          }
+      }
+      float scale = 1.f, mean = 0.f;
+      if (a.clip > 0.f || a.mode != kSgd) {
+        float ss = 0.f;
+#pragma unroll
+        for (int i = 0; i < NPL; ++i)
+          if (lane + 32 * i < a.w2) ss = fmaf(s[i].x, s[i].x, fmaf(s[i].y, s[i].y, ss));
+        ss = warp_sum(ss);
+        if (a.clip > 0.f) {
+          scale = fminf(1.f, a.clip / fmaxf(sqrtf(ss), 1e-12f));
+          if (a.mode != kSgd) {
+            ss = 0.f;
+#pragma unroll
+            for (int i = 0; i < NPL; ++i)
+              if (lane + 32 * i < a.w2) {
+                const float x = s[i].x * scale, y = s[i].y * scale;
+                ss = fmaf(x, x, fmaf(y, y, ss));
+              }
+            ss = warp_sum(ss);
+          }
+        }
+        mean = ss / (2 * a.w2);
+      }
+      const RowStep rs = row_step(a, uid, lane, mean, st);
+      float2* mw = reinterpret_cast<float2*>(a.m) + row;
+#pragma unroll
+      for (int i = 0; i < NPL; ++i)
+        if (lane + 32 * i < a.w2) {
+          const float2 d =
+              pair_delta(a, rs, make_float2(s[i].x * scale, s[i].y * scale), mv[i]);
+          if (a.mode == kRowwiseAdam) mw[lane + 32 * i] = mv[i];
+          store_pair<T>(a, uid, lane + 32 * i, tv[i], d);
+        }
+    }
+    __syncthreads();
+    for (int b = tid; b < nb; b += k7Threads) cur_s[b] += cnt_s[b];
+    __syncthreads();
   }
-  update_row<T>(a, uid, lane, mean, scale, total);
+}
+
+size_t bucketed_smem(int nb) {
+  return sizeof(long long) * (4 * static_cast<size_t>(nb) + k7Win) +
+         sizeof(int) * (3 * static_cast<size_t>(k7Win) + 2 * nb + 1);
+}
+
+template <typename T, int NPL>
+cudaError_t launch_bucketed(const Args& a, cudaStream_t s) {
+  const size_t smem = bucketed_smem(a.nb);
+  cudaError_t err = cudaFuncSetAttribute(bucketed_kernel<T, NPL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  int per_sm = 0;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bucketed_kernel<T, NPL>,
+                                                           k7Threads, smem)) != cudaSuccess)
+    return err;
+  // one wave: every block resident at once
+  bucketed_kernel<T, NPL><<<sms * (per_sm > 0 ? per_sm : 1), k7Threads, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bucketed_w(const Args& a, cudaStream_t s) {
+  const int npl = a.w2 / 32;  // column pairs a lane
+  if (npl <= 4) return launch_bucketed<T, 4>(a, s);
+  if (npl <= 8) return launch_bucketed<T, 8>(a, s);
+  if (npl <= 10) return launch_bucketed<T, 10>(a, s);
+  if (npl <= 16) return launch_bucketed<T, 16>(a, s);
+  return launch_bucketed<T, 32>(a, s);
 }
 
 int check_state(int mode, float* accum, float* m, float* v) {
@@ -309,37 +586,24 @@ int cffm_streamed_apply(int is_bf16, void* table, float* accum, float* m, float*
   return cudaGetLastError();
 }
 
-// Kernel 7: ids (nb, c), g (nb, c, w) bf16; clip > 0 clips each row's
-// summed gradient. Same modes, return value and in-place update.
+// Kernel 7: ids (nb, c), g (nb, c, w) bf16 with w <= cffm_bucketed_max_width();
+// clip > 0 clips each row's summed gradient. Same modes, return value and
+// in-place update.
+int cffm_bucketed_max_width() { return 64 * 32; }
+
 int cffm_bucketed_apply(int is_bf16, void* table, float* accum, float* m, float* v,
                         const int* ids, const void* g, const float* hyper, long long rows,
                         int nb, long long c, int w, int mode, float clip, int stochastic,
                         unsigned long long seed, void* stream) {
-  if (w % 64 != 0 || nb < 1 || c < 0) return cudaErrorInvalidValue;
+  if (w % 64 != 0 || w > cffm_bucketed_max_width() || nb < 1 || nb > k7Win || c < 0 ||
+      rows > 0x7FFFFFFFLL)
+    return cudaErrorInvalidValue;
   if (const int err = check_state(mode, accum, m, v)) return err;
   const Args a = make_args(table, accum, m, v, ids, g, hyper, rows, c, nb, w, mode,
                            stochastic, clip, seed);
-  const long long slots = nb * c;
-  if (slots == 0) return cudaSuccess;
-  const unsigned blocks = static_cast<unsigned>((slots + kWarps - 1) / kWarps);
-  const size_t smem = sizeof(int) * kWarps * static_cast<size_t>(nb);
+  if (c == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaSuccess;
-  if (is_bf16) {
-    if (smem > 48 * 1024)
-      err = cudaFuncSetAttribute(bucketed_kernel<__nv_bfloat16>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-    if (err == cudaSuccess) bucketed_kernel<__nv_bfloat16><<<blocks, kWarps * 32, smem, s>>>(a);
-  } else {
-    if (smem > 48 * 1024)
-      err = cudaFuncSetAttribute(bucketed_kernel<float>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-    if (err == cudaSuccess) bucketed_kernel<float><<<blocks, kWarps * 32, smem, s>>>(a);
-  }
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return is_bf16 ? launch_bucketed_w<__nv_bfloat16>(a, s) : launch_bucketed_w<float>(a, s);
 }
 
 }  // extern "C"

@@ -69,6 +69,45 @@ def cross_conv1_reference(emb: torch.Tensor, w1: torch.Tensor, cfg: ModelConfig
     return conv1d_same(m, w1.to(m.dtype))
 
 
+def stacked_weights(w1: torch.Tensor) -> torch.Tensor:
+    """The stacked weights A (k*C1, P) of w1 (C1, P, k): A[t*C1 + c] = W1[c, :, t]."""
+    c1, p, k = w1.shape
+    return w1.permute(2, 0, 1).reshape(k * c1, p)
+
+
+def stacked_conv1(m: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
+    """The tensor-core forward's formulation in plain torch: Z = A @ M per
+    example, then the k row blocks of Z shift-added, y[c, x] = sum_t
+    Z[t*C1 + c, x + t - k//2] over the positions inside [0, d). Sums in
+    f32, y rounded once to m's dtype. m (B, P, d), w1 (C1, P, k) ->
+    y (B, C1, d)."""
+    c1, _, k = w1.shape
+    b, _, d = m.shape
+    lo = (k - 1) // 2
+    z = torch.matmul(stacked_weights(w1).to(m.dtype).float(), m.float())
+    zp = F.pad(z.reshape(b, k, c1, d), (lo, k - 1 - lo))
+    return sum(zp[:, t, :, t:t + d] for t in range(k)).to(m.dtype)
+
+
+# The tensor-core forward kernel's tiles: pairs per chunk and rows per
+# m-tile of the stacked weights
+WG_PAIRS = 64
+WG_ROWS = 64
+
+
+def wgmma_weights(w1: torch.Tensor, dtype=None, device=None) -> torch.Tensor:
+    """The stacked weights as the tensor-core forward kernel copies them
+    into shared memory, one chunk of WG_PAIRS pairs at a time: A zero-padded
+    to (MT*64, NQ*64) rows by pairs, then ordered (chunk, k-step of 16
+    pairs, 8-row group, pair half, row, 8 pairs), so that each chunk is one
+    contiguous block of 8x8 core matrices. Shape (NQ, 4, MT*8, 2, 8, 8)."""
+    a = stacked_weights(w1).to(device=device, dtype=dtype)
+    r, p = a.shape
+    mt, nq = -(-r // WG_ROWS), -(-p // WG_PAIRS)
+    a = F.pad(a, (0, nq * WG_PAIRS - p, 0, mt * WG_ROWS - r))
+    return a.reshape(mt * 8, 8, nq, WG_PAIRS // 16, 2, 8).permute(2, 3, 0, 4, 1, 5).contiguous()
+
+
 def _rows_reference(rows: torch.Tensor, w1: torch.Tensor, cfg: ModelConfig):
     """Plain version of the full-rows entries: rows (B, F, table_width)."""
     b = rows.shape[0]
@@ -137,11 +176,13 @@ def _library() -> ctypes.CDLL:
     fn = lib.cffm_cross_conv1_fwd
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [i, p, p, i, ll, ll, ll, ll, p, p, p,
+        fn.argtypes = [i, i, p, p, i, ll, ll, ll, ll, p, p, p,
                        i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         lib.cffm_cross_conv1_fwd_channel_tile.argtypes = []
         lib.cffm_cross_conv1_fwd_channel_tile.restype = ctypes.c_int
+        lib.cffm_cross_conv1_fwd_wgmma.argtypes = [i, p, p, ll, ll, ll, ll, i, i, i]
+        lib.cffm_cross_conv1_fwd_wgmma.restype = ctypes.c_int
     return lib
 
 
@@ -196,24 +237,31 @@ def _launch(parts, w1: torch.Tensor, cfg: ModelConfig, batch: int, lin: bool):
     parts: [(tensor, num_fields, field_stride, batch_stride)], one or two
     CUDA tensors of one dtype whose field rows have contiguous lanes.
     bf16 rows with d=16, C1 <= 64 and 16-byte aligned rows run on the
-    tensor cores; every other shape, and f32, on the CUDA cores.
+    tensor cores (wgmma), with the weights in `wgmma_weights`' layout;
+    every other shape, and f32, on the CUDA cores.
     Returns (y (B, C1, d) in the input dtype, lin (B,) f32 or None)."""
     dtype, dev = _check_launch(parts, w1, cfg)
     k = cfg.conv_kernel
     c1 = w1.shape[0]
     lib = _library()
-    tile = lib.cffm_cross_conv1_fwd_channel_tile()
-    c1p = -(-c1 // tile) * tile
-    # (C1, P, k) -> (P, k, C1p): one pair chunk is one contiguous block
-    wp = F.pad(w1.to(device=dev, dtype=dtype).permute(1, 2, 0), (0, c1p - c1))
-    wp = wp.contiguous()
-    y = torch.empty((batch, c1, cfg.embed_dim), dtype=dtype, device=dev)
-    lin_out = torch.empty((batch,), dtype=torch.float32, device=dev) if lin else None
     e0, nf0, fs0, bs0 = parts[0]
     e1, _, fs1, bs1 = parts[-1]
+    is_bf16 = int(dtype == torch.bfloat16)
+    wgmma = lib.cffm_cross_conv1_fwd_wgmma(is_bf16, e0.data_ptr(), e1.data_ptr(), fs0, bs0,
+                                            fs1, bs1, cfg.num_fields, cfg.embed_dim, c1)
+    if wgmma:
+        wp = wgmma_weights(w1, dtype, dev)
+    else:
+        tile = lib.cffm_cross_conv1_fwd_channel_tile()
+        c1p = -(-c1 // tile) * tile
+        # (C1, P, k) -> (P, k, C1p): one pair chunk is one contiguous block
+        wp = F.pad(w1.to(device=dev, dtype=dtype).permute(1, 2, 0), (0, c1p - c1))
+        wp = wp.contiguous()
+    y = torch.empty((batch, c1, cfg.embed_dim), dtype=dtype, device=dev)
+    lin_out = torch.empty((batch,), dtype=torch.float32, device=dev) if lin else None
     with torch.cuda.device(dev):
         err = lib.cffm_cross_conv1_fwd(
-            int(dtype == torch.bfloat16), e0.data_ptr(), e1.data_ptr(), nf0,
+            is_bf16, wgmma, e0.data_ptr(), e1.data_ptr(), nf0,
             fs0, bs0, fs1, bs1, wp.data_ptr(), y.data_ptr(),
             lin_out.data_ptr() if lin else None, batch, cfg.num_fields,
             cfg.embed_dim, k, c1, int(cfg.cross == "hadamard"),

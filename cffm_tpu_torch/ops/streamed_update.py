@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from cffm_tpu_torch.ops import _build
@@ -124,6 +125,61 @@ def bucketed_apply_reference(table: torch.Tensor, state: dict, ids_bkt: torch.Te
     return _apply_rows(table, state, rows, s, hyper, mode, sr_seed)
 
 
+# slots the bucketed kernel merges in shared memory per window (k7Win)
+BUCKETED_WINDOW = 2048
+
+
+def bucketed_owners(ids_bkt, rows: int, groups: int, window: int = BUCKETED_WINDOW):
+    """The bucketed kernel's partition and ownership rule in plain Python
+    (csrc/streamed_update.cu `bucketed_kernel`; `groups` is its grid, as
+    many blocks as the card holds at once). Each bucket's live range is
+    [first id >= 0, first id >= rows); block k owns the ids in
+    [s_k, s_k+1), s_k taken at step k/groups
+    of the longest live range (s_0 = 0, s_groups = rows), and walks them in
+    windows of at most `window` slots that each hold every occurrence of
+    their ids; in a window the slots go in (id, bucket) order and the first
+    slot of each id owns the row. Returns, per block, its rows in order as
+    (id, [(bucket, slot), ...]) with the partials in bucket order."""
+    ids = np.asarray(ids_bkt).astype(np.int64)
+    nb = ids.shape[0]
+    lo = [int(np.searchsorted(ids[b], 0)) for b in range(nb)]
+    hi = [int(np.searchsorted(ids[b], rows)) for b in range(nb)]
+    best = max(range(nb), key=lambda b: (hi[b] - lo[b], -b))
+    length = hi[best] - lo[best]
+    cap = window // nb
+    out = []
+    for k in range(groups):
+        owned = []
+        out.append(owned)
+        if length == 0:
+            continue
+        s_lo = 0 if k == 0 else int(ids[best, lo[best] + k * length // groups])
+        s_hi = rows if k + 1 == groups else int(ids[best, lo[best] + (k + 1) * length // groups])
+        if s_lo >= s_hi:
+            continue
+        cur = [lo[b] + int(np.searchsorted(ids[b, lo[b]:hi[b]], s_lo)) for b in range(nb)]
+        end = [lo[b] + int(np.searchsorted(ids[b, lo[b]:hi[b]], s_hi)) for b in range(nb)]
+        while any(cur[b] < end[b] for b in range(nb)):
+            v_end = s_hi
+            for b in range(nb):
+                if end[b] - cur[b] > cap:
+                    v_end = min(v_end, int(ids[b, cur[b] + cap - 1]) + 1)
+            merged = []
+            for b in range(nb):
+                seg = ids[b, cur[b]:cur[b] + min(cap, end[b] - cur[b])]
+                n = int(np.searchsorted(seg, v_end))
+                merged += [(int(seg[j]), b, cur[b] + j) for j in range(n)]
+                cur[b] += n
+            runs = []
+            for x, b, j in sorted(merged):  # (id, bucket) order
+                if runs and runs[-1][0] == x:
+                    runs[-1][1].append((b, j))
+                else:
+                    runs.append((x, [(b, j)]))
+            owned += runs
+    return out
+
+
 def _apply_rows(table, state: dict, rows: torch.Tensor, s: torch.Tensor,
                 hyper: torch.Tensor, mode: str, sr_seed: int | None):
     """The update of the unique rows `rows` by their f32 gradients s, in place."""
@@ -165,6 +221,8 @@ def _library() -> ctypes.CDLL:
         lib.cffm_bucketed_apply.argtypes = [i, p, p, p, p, p, p, p, ll, i, ll, i, i,
                                             ctypes.c_float, i, u64, p]
         lib.cffm_bucketed_apply.restype = ctypes.c_int
+        lib.cffm_bucketed_max_width.argtypes = []
+        lib.cffm_bucketed_max_width.restype = ctypes.c_int
     return lib
 
 
@@ -187,6 +245,10 @@ def _apply(table, state: dict, ids, g, hyper, mode: str, sr_seed, clip=None):
     if table.device.type != "cuda":
         raise ValueError(f"streamed update takes CPU or CUDA tensors, got {table.device}")
     dev = table.device
+    lib = _library()
+    if clip is not None and w > lib.cffm_bucketed_max_width():
+        raise ValueError(f"the bucketed apply takes W <= {lib.cffm_bucketed_max_width()}, "
+                         f"got {w}")
     want = {"accum": (v, 1), "m": (v, w), "v": (v, 1)}
     for name, t in state.items():
         if (t.shape != want[name] or t.dtype != torch.float32 or t.device != dev
@@ -206,12 +268,11 @@ def _apply(table, state: dict, ids, g, hyper, mode: str, sr_seed, clip=None):
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if clip is None:
-            err = _library().cffm_streamed_apply(*common, ids.shape[0], w, _MODES[mode],
-                                                 stochastic, seed, stream)
+            err = lib.cffm_streamed_apply(*common, ids.shape[0], w, _MODES[mode],
+                                          stochastic, seed, stream)
         else:
-            err = _library().cffm_bucketed_apply(*common, ids.shape[0], ids.shape[1], w,
-                                                 _MODES[mode], float(clip), stochastic,
-                                                 seed, stream)
+            err = lib.cffm_bucketed_apply(*common, ids.shape[0], ids.shape[1], w,
+                                          _MODES[mode], float(clip), stochastic, seed, stream)
     if err != 0:
         raise RuntimeError(f"streamed_update kernel launch failed: CUDA error {err}")
     return table

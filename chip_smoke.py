@@ -13,7 +13,10 @@ nonzero without them, or when any phase fails. Phases, in order:
      field-major and flat full-rows entries, movielens shapes for the
      sliced field-aware and hadamard entries (and field-aware at d=8,
      which takes the CUDA-core kernels in bf16 too); f32 (TF32 off) at
-     rtol=atol=1e-4 and bf16 at rtol=atol=2e-2, lin at 1e-5;
+     rtol=atol=1e-4 and bf16 at rtol=atol=2e-2, lin at 1e-5; the sliced
+     entry in bf16 at k and C1 that give the tensor-core kernel 1 to 7
+     m-tiles; the split field-major entry in bf16 at B = 1, 7, 8, 131,
+     4097 and 65536, y and lin bit-equal in two runs;
   4. parity_bwd: the same entries' backward (kernel 2, through autograd)
      against the plain backward: dE f32 rtol=atol=1e-4, bf16 2e-2; dW
      rtol=1e-4 with atol 1e-4 of max|dW|; pad lanes and diagonal blocks of
@@ -32,8 +35,10 @@ nonzero without them, or when any phase fails. Phases, in order:
      generator, 8 val batches of 4096; check finite metrics, the count,
      one kernel launch per batch, and the kernel route's logits against
      the reference route's in f32 on one batch;
-  8. time the forward kernel, its plain version and torch's conv1d on an
-     already built cross map (CUDA events) at B=4096 and B=65536, hold the
+  8. time the forward kernel, its plain version, torch's conv1d on an
+     already built cross map and build_cross_map + conv1d together (CUDA
+     events) at B=4096 and B=65536, split one call at B=4096 into the
+     kernel's device time and the wrapper's preparation (profiler), hold the
      kernel against its plain version at B=65536 (bf16, 2e-2), and time the
      forward end to end at B=65536;
   9. train criteo_kaggle at full width through cffm_tpu_torch.train.run:
@@ -56,7 +61,11 @@ nonzero without them, or when any phase fails. Phases, in order:
      in several buckets): adagrad, sgd with a clip and rowwise_adam on f32
      tables (1e-6), adagrad on bf16 tables (nearest within one ulp,
      stochastic within one ulp of nearest), NaN in every sentinel slot's
-     grads, rows outside the buckets bit-equal;
+     grads, rows outside the buckets bit-equal; first the edge cases (a
+     row in all 8 buckets and rows 0 and V-1, an all-sentinel bucket, no
+     live slot at all) on f32 tables, each against the plain version,
+     bit-equal in two runs and bit-equal to the results the replaced
+     warp-per-slot kernel gave (their sha256 in K7_F32_DIGESTS);
  14. train_sharded: criteo_kaggle with the row-sharded table at full width
      through make_sharded_train_step on an NCCL group of one, B=65536: 3
      adagrad steps (f32 table), 2 with a bf16 table (stochastic rounding),
@@ -68,7 +77,8 @@ nonzero without them, or when any phase fails. Phases, in order:
      min(cards, 4) NCCL ranks against the single-device step (two adagrad
      steps); with one card it prints that it was not run;
  16. time kernels 6 and 7 at the T=1 and T=4 rank-0 shapes (kernel, plain,
-     library yardstick, bound) and the sharded step end to end with a
+     library yardstick: index_add_ of the sgd step, beside the kernel in
+     sgd mode; bound) and the sharded step end to end with a
      torch.profiler breakdown;
  17. parity_bwd_v1: kernel 8a (ops.bwd_variants.bwd_v1) at criteo_kaggle
      shapes against its plain version and against kernel 2 (bwd_v0), and
@@ -214,7 +224,71 @@ def phase_parity() -> float:
                   f"max|y|={y_ref.abs().max().item():.3f})", flush=True)
             torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol[dtype],
                                        atol=tol[dtype])
-    return fm2_err
+    return max(fm2_err, _parity_widths(gen), _parity_batches(gen))
+
+
+# (conv width k, C1) beyond the configs' k=3: every m-tile count 1-7 of the
+# tensor-core kernel's k*C1 stacked weight rows
+PARITY_WIDTHS = ((1, 64), (5, 48), (5, 64), (7, 48), (7, 64))
+
+
+def _parity_widths(gen) -> float:
+    """The sliced field-aware bf16 entry (movielens, d=16) at PARITY_WIDTHS
+    against its plain version (rtol=atol=2e-2), B=1000."""
+    import torch
+
+    from cffm_tpu_torch.ops import interaction_conv as ic
+
+    worst = 0.0
+    for k, c1 in PARITY_WIDTHS:
+        cfg = dataclasses.replace(_movielens_model("field_aware", "bfloat16"), conv_kernel=k,
+                                  conv_channels=(c1, c1))
+        emb, w1 = _inputs(cfg, 1000, torch.bfloat16, gen)
+        y = ic.cross_conv1(emb, w1, cfg)
+        y_ref = ic.cross_conv1_reference(emb, w1, cfg)
+        err = (y.float() - y_ref.float()).abs().max().item()
+        print(f"parity movielens sliced field_aware k={k} C1={c1} bfloat16 B=1000: y "
+              f"max_abs_err={err:.3e} (rtol=atol=2e-2, max|y|={y_ref.abs().max().item():.3f})",
+              flush=True)
+        torch.testing.assert_close(y.float(), y_ref.float(), rtol=2e-2, atol=2e-2)
+        worst = max(worst, err)
+    return worst
+
+
+# batches of the split field-major bf16 entry: one example, ragged tiles
+# of the tensor-core kernel's 8-example tiles, more tiles than SMs
+PARITY_BATCHES = (1, 7, 8, 131, 4097, 65536)
+
+
+def _parity_batches(gen) -> float:
+    """The split field-major bf16 entry at PARITY_BATCHES against its plain
+    version (rtol=atol=2e-2, lin 1e-5), y and lin bit-equal in two runs.
+    Returns the largest y error."""
+    import torch
+
+    from cffm_tpu_torch.ops import interaction_conv as ic
+
+    cfg = _criteo_model("bfloat16")
+    worst = 0.0
+    for b in PARITY_BATCHES:
+        (es, eb), w1 = _inputs(cfg, b, torch.bfloat16, gen, fm_split=cfg.small_field_prefix)
+        y, lin = ic.cross_conv1_lin_fm2(es, eb, w1, cfg)
+        y2, lin2 = ic.cross_conv1_lin_fm2(es, eb, w1, cfg)
+        y_ref, lin_ref = ic._rows_reference(torch.cat([es, eb]).transpose(0, 1), w1, cfg)
+        err = (y.float() - y_ref.float()).abs().max().item()
+        lerr = (lin - lin_ref).abs().max().item()
+        same = torch.equal(y, y2) and torch.equal(lin, lin2)
+        print(f"parity criteo_kaggle fm2 bfloat16 B={b}: y max_abs_err={err:.3e} (rtol=atol="
+              f"2e-2, max|y|={y_ref.abs().max().item():.3f}) lin max_abs_err={lerr:.3e} "
+              f"(atol=1e-5), two runs bit-equal: {same}", flush=True)
+        torch.testing.assert_close(y.float(), y_ref.float(), rtol=2e-2, atol=2e-2)
+        torch.testing.assert_close(lin, lin_ref, rtol=0.0, atol=1e-5)
+        if not same:
+            fail(f"parity fm2 B={b}: two runs differ")
+        worst = max(worst, err)
+        del es, eb, y, y2, y_ref
+        torch.cuda.empty_cache()
+    return worst
 
 
 def phase_serve():
@@ -269,6 +343,33 @@ def phase_serve():
     return launches["cross_conv1_lin_fm2"], params, cfg
 
 
+def _fwd_split(es, eb, w1, mcfg, reps: int = 20) -> dict:
+    """Device time of one cross_conv1_lin_fm2 call split by the profiler
+    into the forward kernel's own time and the wrapper's preparation (the
+    weight layout and any other device op of the call), in ms per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cffm_tpu_torch.ops import interaction_conv as ic
+
+    for _ in range(2):
+        ic.cross_conv1_lin_fm2(es, eb, w1, mcfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            ic.cross_conv1_lin_fm2(es, eb, w1, mcfg)
+        torch.cuda.synchronize()
+    kernel = prep = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "cross_conv1_fwd" in e.key:
+            kernel += e.self_device_time_total
+        else:
+            prep += e.self_device_time_total
+    return {"kernel_ms": kernel / 1e3 / reps, "prep_ms": prep / 1e3 / reps}
+
+
 def phase_time(params, cfg) -> dict:
     """Kernel, plain version and library conv at B=4096 and 65536 (bf16,
     criteo_kaggle fm2 shapes), the kernel held against the plain version at
@@ -303,11 +404,15 @@ def phase_time(params, cfg) -> dict:
             torch.testing.assert_close(y.float(), y_ref.float(), rtol=2e-2, atol=2e-2)
             torch.testing.assert_close(lin, lin_ref, rtol=0.0, atol=1e-5)
             del y, y_ref
-        m = build_cross_map(rows[..., : mcfg.row_width].reshape(
-            b, mcfg.num_fields, mcfg.num_fields, mcfg.embed_dim), mcfg)
+        emb = rows[..., : mcfg.row_width].reshape(b, mcfg.num_fields, mcfg.num_fields,
+                                                   mcfg.embed_dim)
+        m = build_cross_map(emb, mcfg)
         w_b = w1.to(torch.bfloat16)
         k = mcfg.conv_kernel
         library_ms = cuda_ms(lambda: F.conv1d(m, w_b, padding=k // 2), reps)
+        # like for like: what PyTorch needs for the same function
+        pair_ms = cuda_ms(lambda: F.conv1d(build_cross_map(emb, mcfg), w_b, padding=k // 2), reps)
+        split = _fwd_split(es, eb, w1, mcfg) if b == 4096 else None
         c1 = w1.shape[0]
         nbytes = ((es.numel() + eb.numel()) * es.element_size()
                   + w1.numel() * w1.element_size()
@@ -316,14 +421,19 @@ def phase_time(params, cfg) -> dict:
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
         out[b] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                  "build_and_conv1d_ms": pair_ms, "split": split,
                   "bound_ms": max(t_bytes, t_ops),
                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                   "bytes": nbytes, "flops": ops}
         print(f"time B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"conv1d on built M (excludes M's build) {library_ms:.4f} ms, "
+              f"build_cross_map + conv1d {pair_ms:.4f} ms, "
               f"bound {max(t_bytes, t_ops):.4f} ms ({out[b]['bound_by']}: "
-              f"{nbytes / 1e9:.3f} GB, {ops / 1e9:.1f} GFLOP)", flush=True)
-        del es, eb, rows, m
+              f"{nbytes / 1e9:.3f} GB, {ops / 1e9:.1f} GFLOP)"
+              + ("" if split is None else
+                 f"; profiler per call: kernel {split['kernel_ms']:.4f} ms, wrapper's "
+                 f"preparation {split['prep_ms']:.4f} ms"), flush=True)
+        del es, eb, rows, m, emb
         torch.cuda.empty_cache()
 
     b = 65536
@@ -1163,6 +1273,136 @@ def phase_parity_segment_by_seg(ids_np) -> float:
     return err
 
 
+# sha256 of kernel 7's f32 results on the edge cases of `_bucketed_edges`
+# (touched rows of table and state after one update), captured from the
+# kernel this one replaced (warp per slot, global binary searches); the
+# redesigned kernel must reproduce them bit for bit.
+K7_F32_DIGESTS = {
+    "all_nb/adagrad":
+        "9c604ad89fbcf0d334aca466e7c05f4c973a183be54fdf6fab50fe1a9669bc03",
+    "all_nb/sgd":
+        "5584ca89549c79bcdf365fa3fe3826ec5450f9f1f6a807275d6bf4dbc6a60808",
+    "all_nb/rowwise_adam":
+        "8e44b8e03ed3d33121da0ecb4e5d953c817c720e7453cebb07f667270349346f",
+    "sentinel_bucket/adagrad":
+        "2b631f8c29617606559f198a57e692818f237defad7b2b54567d55d9e43e419a",
+    "sentinel_bucket/sgd":
+        "8cd4d27b3996554c6ce76bfb1bf8151d196a02ab60f6024b4fa239646a818dff",
+    "sentinel_bucket/rowwise_adam":
+        "fd18e37174cbec031493644db2f3466dc6e91c0af0e0e922b36b078f296fef7f",
+    "empty/adagrad":
+        "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855",
+    "empty/sgd":
+        "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855",
+    "empty/rowwise_adam":
+        "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855",
+}
+
+
+def _bucketed_edge_inputs(case: str):
+    """Numpy inputs of one kernel-7 edge case (V rows of W lanes, NB
+    buckets of C slots, sentinels >= V in the tails, NaN in sentinel
+    grads): "all_nb" puts rows 0, 7 and V-1 in every bucket of NB=8;
+    "sentinel_bucket" leaves bucket 2 of 8 all sentinel; "empty" has
+    no live slot in any of 4 buckets."""
+    import numpy as np
+
+    rng = np.random.default_rng({"all_nb": 11, "sentinel_bucket": 12, "empty": 13}[case])
+    v, w, c = 100_003, 640, 4096
+    nb = 4 if case == "empty" else 8
+    ids = np.full((nb, c), v, dtype=np.int32)
+    ids[1::2] = v + 5  # any value >= V is a sentinel
+    for o in range(nb):
+        if case == "empty" or (case == "sentinel_bucket" and o == 2):
+            continue
+        n = int(rng.integers(c // 8, c - 8))
+        rows = rng.choice(v, size=n, replace=False)
+        if case == "all_nb":
+            rows = np.union1d(rows, [0, 7, v - 1])[: c]
+        rows = np.unique(rows)
+        ids[o, : rows.size] = rows
+    g = (rng.standard_normal((nb, c, w), dtype=np.float32) * 0.01)
+    g[ids >= v] = np.nan
+    table = rng.standard_normal((v, w), dtype=np.float32) * 0.01
+    accum = rng.random((v, 1), dtype=np.float32) + 0.1
+    m = rng.standard_normal((v, w), dtype=np.float32) * 0.01
+    vv = rng.random((v, 1), dtype=np.float32) * 1e-4
+    return ids, g, table, accum, m, vv
+
+
+def _bucketed_edges() -> tuple:
+    """Kernel 7 on the edge cases of `_bucketed_edge_inputs`, f32 tables:
+    adagrad, sgd with a clip, rowwise_adam. Each against the plain version
+    (1e-6, rows outside the buckets bit-equal), bit-equal in two runs, and
+    against `K7_F32_DIGESTS`. Returns (largest error, {key: digest})."""
+    import hashlib
+
+    import torch
+
+    from cffm_tpu_torch.ops import streamed_update as su
+
+    lr, eps, b1, b2, t_step, clip = 0.05, 1e-8, 0.9, 0.999, 3, 0.05
+    worst, digests = 0.0, {}
+    for case in ("all_nb", "sentinel_bucket", "empty"):
+        ids_np, g_np, t_np, a_np, m_np, v_np = _bucketed_edge_inputs(case)
+        ids = torch.from_numpy(ids_np).cuda()
+        g = torch.from_numpy(g_np).cuda().to(torch.bfloat16)
+        base = torch.from_numpy(t_np).cuda()
+        v = base.shape[0]
+        touched = torch.zeros((v,), dtype=torch.bool, device="cuda")
+        touched[ids[ids < v].long()] = True
+        rows = touched.nonzero()[:, 0]
+        for mode, cl in (("adagrad", 0.0), ("sgd", clip), ("rowwise_adam", 0.0)):
+            runs = []
+            for _ in range(2):
+                tk = base.clone()
+                if mode == "rowwise_adam":
+                    st = {"m": torch.from_numpy(m_np).cuda(), "v": torch.from_numpy(v_np).cuda()}
+                    su.bucketed_rowwise_adam_apply(tk, st["m"], st["v"], ids, g, lr, eps, b1,
+                                                   b2, t_step, clip=cl)
+                else:
+                    st = {"accum": torch.from_numpy(a_np).cuda()} if mode == "adagrad" else {}
+                    su.bucketed_rowwise_apply(tk, st.get("accum"), ids, g, lr, eps, clip=cl)
+                runs.append((tk, st))
+            (tk, st), (tk2, st2) = runs
+            if not torch.equal(tk, tk2) or any(not torch.equal(st[n], st2[n]) for n in st):
+                fail(f"parity_bucketed edge {case} {mode}: two runs differ")
+            tr = base.clone()
+            if mode == "rowwise_adam":
+                sr = {"m": torch.from_numpy(m_np).cuda(), "v": torch.from_numpy(v_np).cuda()}
+                hyper = su._hyper(lr, eps, su._adam_extra(b1, b2, t_step))
+            else:
+                sr = {"accum": torch.from_numpy(a_np).cuda()} if mode == "adagrad" else {}
+                hyper = su._hyper(lr, eps)
+            su.bucketed_apply_reference(tr, sr, ids, g, hyper, mode, cl)
+            err = _compare_tables(tk, tr, base, touched, False, f"edge {case} {mode}",
+                                  "parity_bucketed")
+            for n in st:
+                s0 = torch.from_numpy({"accum": a_np, "m": m_np, "v": v_np}[n]).cuda()
+                err = max(err, _compare_tables(st[n], sr[n], s0, touched, False,
+                                               f"edge {case} {mode} {n}", "parity_bucketed"))
+            h = hashlib.sha256(tk[rows].cpu().numpy().tobytes())
+            for n in sorted(st):
+                h.update(st[n][rows].cpu().numpy().tobytes())
+            key = f"{case}/{mode}"
+            digests[key] = h.hexdigest()
+            want = K7_F32_DIGESTS.get(key)
+            print(f"parity_bucketed edge {case} {mode} (clip {cl}): {int(rows.numel())} rows, "
+                  f"max_abs_err={err:.3e} (atol=1e-6), two runs bit-equal, rows outside the "
+                  f"buckets bit-equal, sha256 {digests[key][:16]} "
+                  f"{'equals the replaced kernel' if want == digests[key] else 'REPLACED KERNEL: ' + str(want)[:16]}",
+                  flush=True)
+            if err > 1e-6:
+                fail(f"parity_bucketed edge {case} {mode} beyond 1e-6")
+            if K7_F32_DIGESTS and want != digests[key]:
+                fail(f"parity_bucketed edge {case} {mode}: f32 result differs from the "
+                     f"replaced kernel's")
+            worst = max(worst, err)
+        del ids, g, base, tk, tk2, tr
+        torch.cuda.empty_cache()
+    return worst, digests
+
+
 def phase_parity_bucketed(ids_np) -> float:
     """Kernel 7 against its plain version on rank 0's shard and buckets at
     T=1 (the full table), 4 and 8: adagrad, sgd with a clip, rowwise_adam on
@@ -1177,7 +1417,7 @@ def phase_parity_bucketed(ids_np) -> float:
     w = cfg.model.table_width
     gen = torch.Generator(device="cuda").manual_seed(9)
     lr, eps, b1, b2, t_step, clip = 0.05, 1e-8, 0.9, 0.999, 3, 0.05
-    worst = 0.0
+    worst = _bucketed_edges()[0]
     for t in (1, 4, 8):
         _, _, ids_bkt, vs = _rank0_stream(cfg, ids_np, t)
         nb, c = ids_bkt.shape
@@ -1937,8 +2177,10 @@ def _run_phases(phases, phase, mesh) -> int:
             "launches": served[0], "max_abs_err": max(fm2_err, times["max_abs_err_65536"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "build_and_conv1d_ms": t["build_and_conv1d_ms"], "split_4096": t["split"],
             "at_batch_65536": {k: times[65536][k] for k in
-                               ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                               ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                "build_and_conv1d_ms")},
             "forward_ms_65536": times["forward_ms_65536"],
             "train_launches": trained["adagrad_f32"]["cross_conv1_lin_fm2"],
         }
@@ -1974,6 +2216,8 @@ def _run_phases(phases, phase, mesh) -> int:
                 "replaces": rep, "launches": launches, "max_abs_err": err,
                 **{k: stimes[f"{tk}_t1"][k] for k in keys}, "batch": 65536, "shards": 1,
                 "at_t4_rank0": {k: stimes[f"{tk}_t4"][k] for k in keys}})
+        records[-1]["sgd_ms"] = stimes["k7_t1"]["sgd_ms"]
+        records[-1]["at_t4_rank0"]["sgd_ms"] = stimes["k7_t4"]["sgd_ms"]
         records[-1]["sharded_step_ms_65536"] = stimes["sharded_step_ms_65536"]
         # kernels 8a, 8b (kernel 2 in the variants' layout) and 9: launches
         # from the scripts' runs in the tools phase

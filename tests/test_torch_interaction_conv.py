@@ -167,3 +167,56 @@ def test_entries_reject_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="fused first-order"):
         ic.cross_conv1_lin_fm(torch.zeros((7, B, 112)), torch.zeros((4, 21, 3)),
                               movielens_like)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core forward's formulation: stacked weights, one GEMM, shift-add
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c1", [32, 64])
+@pytest.mark.parametrize("k", [1, 3, 5])
+def test_stacked_formulation_matches_jax_fm2(k, c1, dtype):
+    """Z = A @ M with A the stacked weights (k*C1, P), then the k row blocks
+    of Z shift-added, equals JAX's split field-major entry (f32 1e-5, bf16
+    2e-2: both round M to bf16 and sum in f32, in other orders)."""
+    jcfg, cfg = _cfgs(num_fields=15, vocab_sizes=(50,) * 15, embed_dim=16,
+                      conv_channels=(c1,), conv_kernel=k, compute_dtype=dtype)
+    emb3 = _rows_fm(cfg, seed=k)
+    w1 = _w1(cfg, c1, seed=c1) * np.float32(np.sqrt(2.0 / (cfg.num_pairs * k)))
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16"
+                else (jnp.float32, torch.float32))
+    y_want, _ = jax_ic.cross_conv1_lin_fm2_pallas(
+        jnp.asarray(emb3[:4], jdt), jnp.asarray(emb3[4:], jdt), jnp.asarray(w1), jcfg, 8, True)
+    rows = torch.from_numpy(emb3).to(tdt).transpose(0, 1)
+    f, d = cfg.num_fields, cfg.embed_dim
+    m = cross.build_cross_map(rows[..., :cfg.row_width].reshape(B, f, f, d), cfg)
+    y = ic.stacked_conv1(m, torch.from_numpy(w1))
+    assert y.dtype == tdt and y.shape == (B, c1, d)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(y_want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("k, c1, fields", [(1, 64, 39), (3, 32, 15), (3, 64, 39),
+                                           (5, 48, 10), (7, 64, 6)])
+def test_wgmma_weight_layout(k, c1, fields):
+    """Each (chunk, k-step, 8-row group, pair half) block of the kernel's
+    weight operand is one 8x8 core matrix of the zero-padded stacked
+    weights, and the blocks cover it once."""
+    p = fields * (fields - 1) // 2
+    w1 = torch.from_numpy(np.random.default_rng(k).normal(size=(c1, p, k)).astype(np.float32))
+    got = ic.wgmma_weights(w1)
+    mt, nq = -(-k * c1 // ic.WG_ROWS), -(-p // ic.WG_PAIRS)
+    assert got.shape == (nq, ic.WG_PAIRS // 16, mt * 8, 2, 8, 8) and got.is_contiguous()
+    a = torch.zeros((mt * ic.WG_ROWS, nq * ic.WG_PAIRS))
+    a[:k * c1, :p] = ic.stacked_weights(w1)
+    for t in range(k):
+        torch.testing.assert_close(a[t * c1:(t + 1) * c1, :p], w1[:, :, t], rtol=0, atol=0)
+    q, s, g, h = 1 % nq, 2, mt * 8 - 1, 1
+    torch.testing.assert_close(got[q, s, g, h],
+                               a[g * 8:g * 8 + 8, q * 64 + s * 16 + h * 8:q * 64 + s * 16 + h * 8 + 8],
+                               rtol=0, atol=0)
+    back = got.permute(2, 4, 0, 1, 3, 5).reshape(mt * ic.WG_ROWS, nq * ic.WG_PAIRS)
+    torch.testing.assert_close(back, a, rtol=0, atol=0)

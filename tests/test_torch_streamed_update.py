@@ -15,6 +15,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from cffm_tpu.ops import streamed_update as jax_su
 from cffm_tpu_torch.ops import streamed_update as su
@@ -240,3 +242,66 @@ def test_bucketed_sums_buckets_before_the_update_and_drops_nan_garbage():
     assert np.isfinite(t_got.numpy()).all()
     _untouched_equal(t_got.numpy(), table, np.array([7, 100, 101, 102, 103]))
     _untouched_equal(a_got.numpy(), acc, np.array([7, 100, 101, 102, 103]))
+
+
+# ---------------------------------------------------------------------------
+# Kernel 7's partition: every live id has one owner, its partials in bucket order
+# ---------------------------------------------------------------------------
+
+
+@st.composite
+def _bucket_sets(draw):
+    nb = draw(st.sampled_from([1, 2, 4, 8]))
+    v = draw(st.integers(1, 300))
+    c = draw(st.integers(1, 40))
+    ids = np.full((nb, c), v, np.int64)
+    for o in range(nb):
+        live = draw(st.lists(st.integers(0, v - 1), max_size=c, unique=True))
+        ids[o, :len(live)] = sorted(live)
+        ids[o, len(live):] = v + draw(st.integers(0, 3))  # any value >= v is a sentinel
+    return ids, v, draw(st.integers(1, 12)), draw(st.sampled_from([nb, 2 * nb, 16, 64]))
+
+
+@settings(max_examples=200, deadline=None)
+@given(_bucket_sets())
+def test_bucketed_owners_one_owner_per_live_id_in_bucket_order(case):
+    ids, v, groups, window = case
+    owned = su.bucketed_owners(ids, v, groups, window)
+    assert len(owned) == groups
+    seen_ids, seen_slots = [], []
+    for rows in owned:
+        assert [x for x, _ in rows] == sorted({x for x, _ in rows})  # ascending, one run each
+        for x, parts in rows:
+            buckets = [b for b, _ in parts]
+            assert buckets == sorted(set(buckets))  # bucket order, one partial per bucket
+            assert all(ids[b, j] == x for b, j in parts)
+            seen_ids.append(x)
+            seen_slots += parts
+    live = [(b, j) for b in range(ids.shape[0]) for j in range(ids.shape[1]) if ids[b, j] < v]
+    assert sorted(seen_ids) == sorted(set(ids[ids < v].tolist()))  # exactly one owner
+    assert sorted(seen_slots) == live  # every live slot read once, no sentinel
+
+
+def test_bucketed_edges_match_jax():
+    """A row in all NB=8 buckets, a row at V-1 and an all-sentinel bucket,
+    against JAX in interpret mode (garbage in the sentinel slots' grads)."""
+    v, nb = 1100, 8
+    ids, g = _buckets(v, nb, seed=40)
+    ids[:, 0] = 0  # row 0 in every bucket (the hot rows make 0 absent otherwise)
+    ids[:, :] = np.sort(np.where(ids == v, v, ids), axis=1)
+    ids[5] = v  # bucket 5: all sentinel
+    ids[2, np.argmax(ids[2] == v) - 1] = v - 1
+    ids[2] = np.sort(ids[2])
+    assert all(len(np.unique(r[r < v])) == int((r < v).sum()) for r in ids)
+    g = np.where((ids >= v)[..., None], np.float32(0.5), g.astype(np.float32))
+    g = np.asarray(jnp.asarray(g).astype(jnp.bfloat16))
+    table, _, _, _ = _inputs(v, 1, seed=41)
+    acc = np.random.default_rng(42).uniform(0.1, 1.0, size=(v, 1)).astype(np.float32)
+    want = jax_su.bucketed_rowwise_apply(jnp.asarray(table), jnp.asarray(acc), jnp.asarray(ids),
+                                         jnp.asarray(g), 0.05, 1e-8, clip=0.5)
+    got = su.bucketed_rowwise_apply(_t(table), _t(acc), _t(ids), _t(g), 0.05, 1e-8, clip=0.5)
+    touched = _touched(ids, v)
+    assert 0 in touched and v - 1 in touched
+    for got_x, want_x, before in zip(got, want, (table, acc)):
+        np.testing.assert_allclose(got_x.numpy(), np.asarray(want_x), rtol=1e-6, atol=1e-7)
+        _untouched_equal(got_x.numpy(), before, touched)
