@@ -52,9 +52,37 @@ from cffm_tpu_torch.ops.cross import (build_cross_map, conv1d_same,
 
 _SOURCE = "cross_conv1_fwd"
 _BWD_SOURCE = "cross_conv1_bwd"
-# conv widths the kernels are instantiated for (any other odd k raises on CUDA)
+# conv widths the kernels are instantiated for (`kernel_takes_width`)
 KERNEL_WIDTHS = (1, 3, 5, 7)
+# channels every backward kernel takes: cffm_cross_conv1_bwd_max_channels()
+# of csrc/cross_conv1_bwd.cu (chip_smoke.py checks that the two agree)
+BWD_MAX_CHANNELS = 64
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# Gates: which shapes the kernels take, decided from shapes before a launch
+# ---------------------------------------------------------------------------
+
+
+def kernel_takes_width(k: int) -> bool:
+    """Whether the fused kernels are built for conv width k. Any other k
+    (even, or odd outside KERNEL_WIDTHS) takes the plain conv path, in
+    `make_interaction_fn` and in the model's full-rows gates."""
+    return k in KERNEL_WIDTHS
+
+
+def bwd_kernel_takes(cfg: ModelConfig, c1: int, dtype) -> str | None:
+    """The backward kernel that takes layer 1 of C1 channels in dtype:
+    "wgmma" (the tensor-core kernel: bf16 field-aware rows with d=16, when
+    the rows are also 16-byte aligned), "cuda_cores" (f32, hadamard, other
+    d), or None for a shape no kernel takes (C1 > BWD_MAX_CHANNELS), whose
+    backward on the card is the plain one (`cross_conv1_bwd_plain`)."""
+    if c1 > BWD_MAX_CHANNELS:
+        return None
+    if dtype == torch.bfloat16 and cfg.cross == "field_aware" and cfg.embed_dim == 16:
+        return "wgmma"
+    return "cuda_cores"
 
 
 # ---------------------------------------------------------------------------
@@ -391,20 +419,35 @@ class _CrossConv1(torch.autograd.Function):
         spec = ctx.spec
         cfg, kind = spec.cfg, spec.kind
         w1, *parts = ctx.saved_tensors
-        if parts[0].device.type == "cuda":
+        glin = glin if spec.lin else None
+        if parts[0].device.type != "cuda":
+            dw, dparts = _plain_bwd(kind, parts, w1, gy, glin, cfg)
+        elif bwd_kernel_takes(cfg, w1.shape[0], parts[0].dtype):
             dparts = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in parts]
             w_phys = cfg.table_width if spec.lin else cfg.row_width
             dw = cross_conv1_bwd(_descriptors(kind, cfg, parts),
-                                 _descriptors(kind, cfg, dparts), w1, gy,
-                                 glin if spec.lin else None, cfg, w_phys)
-        elif kind == "sliced":
-            de, dw = cross_conv1_bwd_reference(parts[0], w1, gy, cfg)
-            dparts = [de]
+                                 _descriptors(kind, cfg, dparts), w1, gy, glin, cfg, w_phys)
         else:
-            drows, dw = _rows_bwd_reference(_plain_rows(kind, parts, cfg), w1, gy,
-                                            glin, cfg)
-            dparts = _split_rows(kind, parts, drows)
+            dw, dparts = cross_conv1_bwd_plain(kind, parts, w1, gy, glin, cfg)
         return (None, dw.to(w1.dtype), *dparts)
+
+
+def _plain_bwd(kind: str, parts, w1, gy, glin, cfg: ModelConfig):
+    """The plain backward of one entry: (dW1 (C1, P, k) f32, dparts)."""
+    if kind == "sliced":
+        de, dw = cross_conv1_bwd_reference(parts[0], w1, gy, cfg)
+        return dw, [de]
+    drows, dw = _rows_bwd_reference(_plain_rows(kind, parts, cfg), w1, gy, glin, cfg)
+    return dw, list(_split_rows(kind, parts, drows))
+
+
+def cross_conv1_bwd_plain(kind: str, parts, w1, gy, glin, cfg: ModelConfig):
+    """The plain backward on the card, for a shape that `bwd_kernel_takes`
+    gives to no kernel; counted in `launches` so that a run shows which
+    backward ran. Returns (dW1 (C1, P, k) f32, dparts)."""
+    out = _plain_bwd(kind, parts, w1, gy, glin, cfg)
+    cross_conv1_bwd_plain.launches += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -488,13 +531,15 @@ def cross_conv1_lin_fm2(e_small: torch.Tensor, e_big: torch.Tensor,
 
 
 ENTRIES = (cross_conv1, cross_conv1_lin, cross_conv1_lin_fm, cross_conv1_lin_fm2)
-for _fn in ENTRIES + (cross_conv1_bwd,):
+# the backward kernel's wrapper and the plain backward the gate sends the rest to
+BACKWARDS = (cross_conv1_bwd, cross_conv1_bwd_plain)
+for _fn in ENTRIES + BACKWARDS:
     _fn.launches = 0
 
 
 def reset_launches():
-    """Set every forward entry's and the backward's launch count to 0."""
-    for fn in ENTRIES + (cross_conv1_bwd,):
+    """Set every forward entry's and both backwards' launch counts to 0."""
+    for fn in ENTRIES + BACKWARDS:
         fn.launches = 0
 
 
@@ -518,8 +563,9 @@ def _conv_tail(x: torch.Tensor, conv_params, cfg: ModelConfig) -> torch.Tensor:
 def make_interaction_fn(use_kernel: bool = True):
     """Returns interaction_fn(emb, conv_params, cfg) -> flat features.
 
-    Layer 1 runs in the fused cross+conv1 entry (odd k and even d; other
-    shapes take the reference conv, as in the JAX package); bias, ReLU,
+    Layer 1 runs in the fused cross+conv1 entry (k in KERNEL_WIDTHS and
+    even d; other shapes take the reference conv, as an even k does in the
+    JAX package); bias, ReLU,
     pool and the remaining layers run in PyTorch. With use_kernel the fn
     also carries `.full_rows`, `.full_rows_fm` and `.full_rows_fm2`,
     which take raw physical table rows and return (feats, lin_sum); the
@@ -531,7 +577,7 @@ def make_interaction_fn(use_kernel: bool = True):
             m = build_cross_map(emb, cfg)
             return m.reshape(m.shape[0], -1)
         w1 = conv_params[0]["w"]
-        if use_kernel and cfg.conv_kernel % 2 == 1 and cfg.embed_dim % 2 == 0:
+        if use_kernel and kernel_takes_width(cfg.conv_kernel) and cfg.embed_dim % 2 == 0:
             x = cross_conv1(emb, w1, cfg)
         else:
             x = cross_conv1_reference(emb, w1, cfg)

@@ -79,6 +79,23 @@ def bucketed_tile(num_rows: int, width: int, nb: int, c: int) -> int:
     return 0
 
 
+# widest row kernel 7 takes: cffm_bucketed_max_width() of csrc/streamed_update.cu
+# (chip_smoke.py checks that the two agree); the plain version has no cap
+BUCKETED_MAX_WIDTH = 64 * 32
+
+
+def bucketed_kernel_takes(w: int, device=None) -> bool:
+    """Whether kernel 7 takes rows of w lanes: the gate
+    `optim.rowwise.bucketed_rowwise_update` adds to `bucketed_tile`. A
+    wider table takes the flattened `rowwise_update` route (kernels 3-4),
+    which gives the same result. On a CUDA device the cap is the
+    library's own; otherwise BUCKETED_MAX_WIDTH, its copy, so that the
+    route is the same on both."""
+    if device is not None and torch.device(device).type == "cuda":
+        return w <= _library().cffm_bucketed_max_width()
+    return w <= BUCKETED_MAX_WIDTH
+
+
 def _hyper(lr, eps, extra=()) -> torch.Tensor:
     """f32 hyperparameters (lr, eps, ...) as one CPU tensor."""
     vals = [torch.as_tensor(x, dtype=torch.float32).reshape(()).cpu()

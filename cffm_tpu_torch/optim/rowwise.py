@@ -357,13 +357,15 @@ def bucketed_rowwise_update(
     per-bucket dedup-summed grads, GARBAGE in sentinel slots.
 
     When the JAX gate passes (`bucketed_tile` and the 8% rule, or
-    streamed_update "on") the buckets feed the bucketed apply kernel
+    streamed_update "on") and kernel 7 takes the width
+    (`bucketed_kernel_takes`), the buckets feed the bucketed apply kernel
     directly; it sums a row's partials across buckets before the
     optimizer math and applies opt.clip_norm to that total. Otherwise the
     buckets flatten into `rowwise_update`, whose global dedup handles the
     cross-bucket duplicates (sentinel ids sort last and land nowhere).
     Returns (table, state), the same objects, updated."""
-    from cffm_tpu_torch.ops.streamed_update import (bucketed_rowwise_adam_apply,
+    from cffm_tpu_torch.ops.streamed_update import (bucketed_kernel_takes,
+                                                    bucketed_rowwise_adam_apply,
                                                     bucketed_rowwise_apply, bucketed_tile)
 
     v, w = table.shape
@@ -372,7 +374,7 @@ def bucketed_rowwise_update(
     if (opt.streamed_update != "off"
             and opt.sparse_optimizer in ("adagrad", "sgd", "rowwise_adam")
             and table.dtype in (torch.float32, torch.bfloat16)
-            and grads_bkt.shape[-1] == w):
+            and grads_bkt.shape[-1] == w and bucketed_kernel_takes(w, table.device)):
         r = bucketed_tile(v, w, nb, c)
     touched = min(nb * c, v)
     if r and (opt.streamed_update == "on" or (v * w >= (1 << 24) and touched >= 0.08 * v)):

@@ -21,6 +21,16 @@ nonzero without them, or when any phase fails. Phases, in order:
      against the plain backward: dE f32 rtol=atol=1e-4, bf16 2e-2; dW
      rtol=1e-4 with atol 1e-4 of max|dW|; pad lanes and diagonal blocks of
      dE exact zeros, the fused column exactly glin; dW bit-equal in two runs;
+  4b. parity_caps: the three shapes the kernels are not built for, each
+     through its gate on the card and held against the plain version, its
+     route printed from the launch counts: a bucketed adagrad update of a
+     (100000, 2560) table (flattened route, kernels 3-4, against kernel
+     7's plain version: table steps within 1% of the largest step, accum
+     within 2^-6 relative; rows outside the buckets bit-equal); C1=128
+     through the split field-major entry at B=4096 (forward kernel, plain
+     backward, phase-4 tolerances); k=9 layer 1 and conv tail, forward and
+     backward at B=4096 in f32 against float64 (1e-4 of the largest value,
+     no kernel); the gates' constants equal the libraries' caps;
   5. parity_segment: kernel 3 on the sorted big-field ids of one B=65536
      synthetic criteo_kaggle batch (zipf, hot segments) and on ids up to
      2^31-2: uids and count exact, empty slots zero, gsum within half a
@@ -830,7 +840,7 @@ def _counts():
     from cffm_tpu_torch.ops import sorted_segment as ss
     from cffm_tpu_torch.ops import streamed_update as su
 
-    out = {fn.__name__: fn.launches for fn in ic.ENTRIES + (ic.cross_conv1_bwd,)}
+    out = {fn.__name__: fn.launches for fn in ic.ENTRIES + ic.BACKWARDS}
     for fn in _counted(ss, su) + _counted_tools():
         out[fn.__name__] = fn.launches
     return out
@@ -1191,6 +1201,145 @@ def phase_time_train() -> dict:
         print(f"profile   {ms:8.3f} ms {ms / busy_ms:6.1%} x{e.count // reps} "
               f"{e.key[:90]}", flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Shapes beyond the kernels' caps: the gates' routes on the card
+# ---------------------------------------------------------------------------
+
+
+def _routes(counts: dict) -> dict:
+    return {name: n for name, n in counts.items() if n}
+
+
+def phase_parity_caps() -> dict:
+    """The three overrides the kernels are not built for, each on the card
+    through its gate and held against the plain version; prints the route
+    from the launch counters and checks the gates' constants against the
+    libraries' caps. Returns the routes."""
+    import numpy as np
+    import torch
+
+    from cffm_tpu_torch.config import OptimizerConfig
+    from cffm_tpu_torch.ops import interaction_conv as ic
+    from cffm_tpu_torch.ops import streamed_update as su
+    from cffm_tpu_torch.optim import rowwise as rw
+
+    cap = su._library().cffm_bucketed_max_width()
+    ch = ic._bwd_library().cffm_cross_conv1_bwd_max_channels()
+    print(f"parity_caps: bucketed width cap {cap} (BUCKETED_MAX_WIDTH "
+          f"{su.BUCKETED_MAX_WIDTH}), backward channel cap {ch} (BWD_MAX_CHANNELS "
+          f"{ic.BWD_MAX_CHANNELS}), kernel widths {ic.KERNEL_WIDTHS}", flush=True)
+    if cap != su.BUCKETED_MAX_WIDTH or ch != ic.BWD_MAX_CHANNELS:
+        fail("parity_caps: a gate's constant differs from its library's cap")
+    routes = {}
+
+    # 1. kernel 7's width: a (100k, 2560) table (criteo_kaggle at embed_dim=64)
+    rng = np.random.default_rng(21)
+    v, w, nb, c = 100_000, 2560, 4, 8192
+    ids = np.full((nb, c), v, np.int32)
+    for o in range(nb):
+        rows = np.unique(np.concatenate([[0, 7, v - 1], rng.choice(v, size=6000,
+                                                                  replace=False)]))
+        ids[o, :rows.size] = rows
+    ids_t = torch.from_numpy(ids).cuda()
+    g = torch.randn((nb, c, w), generator=torch.Generator(device="cuda").manual_seed(5),
+                    device="cuda") * 0.01
+    g[ids_t >= v] = float("nan")  # garbage in sentinel slots
+    table = torch.randn((v, w), generator=torch.Generator(device="cuda").manual_seed(6),
+                        device="cuda") * 0.01
+    opt = OptimizerConfig(sparse_optimizer="adagrad", sparse_lr=0.05, clip_norm=0.05)
+    state = {"accum": torch.full((v, 1), 0.1, device="cuda")}
+    base, acc0 = table.clone(), state["accum"].clone()
+    torch.cuda.synchronize()
+    _reset_counts()
+    rw.bucketed_rowwise_update(table, state, ids_t, g, opt)
+    torch.cuda.synchronize()
+    routes["bucketed_w2560"] = _routes(_counts())
+    ref_t, ref_acc = base.clone(), {"accum": acc0.clone()}
+    su.bucketed_apply_reference(ref_t, ref_acc, ids_t, g, su._hyper(0.05, opt.eps), "adagrad",
+                                clip=opt.clip_norm)
+    step, ref_step = table - base, ref_t - base
+    err = (step - ref_step).abs().max().item()
+    lim = 0.01 * ref_step.abs().max().item()
+    aerr = ((state["accum"] - ref_acc["accum"]).abs()
+            / ref_acc["accum"].abs()).max().item()
+    touched = torch.zeros(v, dtype=torch.bool, device="cuda")
+    touched[ids_t[ids_t < v].long()] = True
+    print(f"parity_caps bucketed adagrad (V={v}, W={w}, NB={nb}, C={c}, clip "
+          f"{opt.clip_norm}): route {routes['bucketed_w2560']}; table step max_abs_err="
+          f"{err:.3e} (atol 1% of max step {lim:.3e}), accum max rel err {aerr:.3e} "
+          f"(rtol 2^-6: the route rounds each row's total to bf16)", flush=True)
+    if routes["bucketed_w2560"] != {"sorted_segment_sum_compact": 1, "streamed_rowwise_apply": 1}:
+        fail(f"parity_caps: W={w} took {routes['bucketed_w2560']}, not kernels 3-4")
+    if err > lim or aerr > 2.0**-6 or not torch.isfinite(table).all():
+        fail("parity_caps: the flattened route disagrees with kernel 7's plain version")
+    if not (torch.equal(table[~touched], base[~touched])
+            and torch.equal(state["accum"][~touched], acc0[~touched])):
+        fail("parity_caps: rows outside the buckets changed")
+    del table, base, ref_t, g, state, ref_acc, step, ref_step
+    torch.cuda.empty_cache()
+
+    # 2. kernel 2's channels: C1=128 through the split field-major entry
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    cfg = dataclasses.replace(_criteo_model("bfloat16"), conv_channels=(128, 64))
+    b, fs = 4096, cfg.small_field_prefix
+    (es, eb), w1 = _inputs(cfg, b, torch.bfloat16, gen, fm_split=fs)
+    gy = torch.randn((b, 128, cfg.embed_dim), generator=gen, device="cuda").to(torch.bfloat16)
+    glin = torch.randn((b,), generator=gen, device="cuda")
+    _reset_counts()
+    y, lin = ic.cross_conv1_lin_fm2(es, eb, w1, cfg)
+    drows, dw = _grad_rows(ic, cfg, "fm2", es, eb, w1, gy, glin)
+    torch.cuda.synchronize()
+    routes["c1_128"] = _routes(_counts())
+    rows = torch.cat([es, eb]).transpose(0, 1)
+    y_ref, lin_ref = ic._rows_reference(rows, w1, cfg)
+    yerr = (y.float() - y_ref.float()).abs().max().item()
+    print(f"parity_caps C1=128 fm2 bfloat16 B={b}: route {routes['c1_128']}; y max_abs_err="
+          f"{yerr:.3e} (rtol=atol=2e-2)", flush=True)
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lin, lin_ref, rtol=0.0, atol=1e-5)
+    drows_ref, dw_ref = ic._rows_bwd_reference(rows, w1, gy, glin, cfg)
+    _check_rows_grad(drows, drows_ref, dw, dw_ref, glin, cfg, f"caps C1=128 fm2 B={b}")
+    if routes["c1_128"] != {"cross_conv1_lin_fm2": 2, "cross_conv1_bwd_plain": 1}:
+        fail(f"parity_caps: C1=128 took {routes['c1_128']}, not the forward kernel and "
+             f"the plain backward")
+    del es, eb, rows, drows, drows_ref
+    torch.cuda.empty_cache()
+
+    # 3. the conv width: k=9, layer 1 and the conv tail, forward and backward
+    cfg = dataclasses.replace(_criteo_model("float32"), conv_kernel=9)
+    emb, w1 = _inputs(cfg, b, torch.float32, gen)
+    layers = [{"w": w1, "b": torch.randn((64,), generator=gen, device="cuda")},
+              {"w": torch.randn((64, 64, 9), generator=gen, device="cuda") * 0.04,
+               "b": torch.randn((64,), generator=gen, device="cuda")}]
+    fn = ic.make_interaction_fn()
+
+    def fwd_bwd(e, lays, gout):
+        e = e.detach().requires_grad_()
+        lays = [{n: t.detach().requires_grad_() for n, t in lay.items()} for lay in lays]
+        out = fn(e, lays, cfg)
+        grads = torch.autograd.grad(out, [e] + [t for lay in lays for t in lay.values()], gout)
+        return out.detach(), grads
+
+    _reset_counts()
+    out = fn(emb, layers, cfg)
+    gout = torch.randn(out.shape, generator=gen, device="cuda")
+    out, grads = fwd_bwd(emb, layers, gout)
+    torch.cuda.synchronize()
+    routes["k9"] = _routes(_counts())
+    f64 = [{n: t.double() for n, t in lay.items()} for lay in layers]
+    out_d, grads_d = fwd_bwd(emb.double(), f64, gout.double())
+    errs = [(a.double() - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
+            for a, r in zip((out,) + grads, (out_d,) + grads_d)]
+    print(f"parity_caps k=9 sliced field_aware float32 B={b}: route {routes['k9'] or 'plain'}; "
+          f"output and grads max err / max|ref| {max(errs):.3e} against the plain version "
+          f"in float64 (1e-4)", flush=True)
+    if routes["k9"]:
+        fail(f"parity_caps: k=9 launched {routes['k9']}")
+    if max(errs) > 1e-4:
+        fail("parity_caps: k=9 on the card disagrees with the float64 plain version")
+    return routes
 
 
 # ---------------------------------------------------------------------------
@@ -2075,10 +2224,10 @@ def phase_tools() -> dict:
     return out
 
 
-PHASES = ("parity", "parity_bwd", "parity_segment", "parity_apply", "serve", "time",
-          "train", "step_vs_cpu", "time_train", "parity_segment_by_seg", "parity_bucketed",
-          "train_sharded", "sharded_multi", "time_sharded", "parity_bwd_v1",
-          "parity_dot_probe", "tools")
+PHASES = ("parity", "parity_bwd", "parity_caps", "parity_segment", "parity_apply", "serve",
+          "time", "train", "step_vs_cpu", "time_train", "parity_segment_by_seg",
+          "parity_bucketed", "train_sharded", "sharded_multi", "time_sharded",
+          "parity_bwd_v1", "parity_dot_probe", "tools")
 # the phases that run on the NCCL group of one
 GROUP_PHASES = ("train_sharded", "time_sharded")
 
@@ -2149,6 +2298,7 @@ def _run_phases(phases, phase, mesh) -> int:
 
     fm2_err = phase("parity", phase_parity)
     bwd_err = phase("parity_bwd", phase_parity_bwd)
+    phase("parity_caps", phase_parity_caps)
     seg = phase("parity_segment", phase_parity_segment)
     apply_errs = phase("parity_apply", phase_parity_apply, seg[1]) if seg else None
     seg = seg[0] if seg else None
