@@ -136,6 +136,49 @@ def wgmma_weights(w1: torch.Tensor, dtype=None, device=None) -> torch.Tensor:
     return a.reshape(mt * 8, 8, nq, WG_PAIRS // 16, 2, 8).permute(2, 3, 0, 4, 1, 5).contiguous()
 
 
+def bwd_wgmma_weights(w1: torch.Tensor, pairs_per_chunk: int, dtype=None,
+                      device=None) -> torch.Tensor:
+    """The transposed stacked weights A^T (P, k*C1) as the tensor-core
+    backward kernel copies them into shared memory, one chunk of
+    `pairs_per_chunk` pairs at a time (the library's
+    cffm_cross_conv1_bwd_pair_chunk): A^T zero-padded to (NQ*PC, MT*64)
+    pairs by rows, then ordered (chunk, 8-pair group, 8-row group, pair,
+    row), so that each chunk is one contiguous block of 8x8 core matrices,
+    K-major for the product dM^T = Gwin^T A. Shape (NQ, PC/8, MT*8, 8, 8)."""
+    a = stacked_weights(w1).to(device=device, dtype=dtype)
+    r, p = a.shape
+    pc = pairs_per_chunk
+    mt, nq = -(-r // WG_ROWS), -(-p // pc)
+    at = F.pad(a.t(), (0, mt * WG_ROWS - r, 0, nq * pc - p))
+    return at.reshape(nq, pc // 8, 8, mt * 8, 8).permute(0, 1, 3, 2, 4).contiguous()
+
+
+def tap_window(g: torch.Tensor, k: int) -> torch.Tensor:
+    """The tap window of g (B, C1, d) that the tensor-core backward builds
+    per tile: Gwin[t*C1 + c, (b, x)] = g[b, c, x - t + k//2], zero outside
+    [0, d). Shape (k*C1, B*d)."""
+    b, c1, d = g.shape
+    lo = (k - 1) // 2
+    gp = F.pad(g, (lo, k - 1 - lo))                   # gp[..., y] = g[..., y - lo]
+    taps = [gp[..., 2 * lo - t:2 * lo - t + d] for t in range(k)]
+    return torch.stack(taps).permute(0, 2, 1, 3).reshape(k * c1, b * d)
+
+
+def tap_window_bwd(m: torch.Tensor, w1: torch.Tensor, g: torch.Tensor):
+    """The tensor-core backward's formulation in plain torch: with A the
+    stacked weights and Gwin the tap window of g, dM^T = Gwin^T A and
+    dW_stack = Gwin M^T, both summed in f32 from operands in m's dtype.
+    m (B, P, d) the cross map, w1 (C1, P, k), g (B, C1, d). Returns
+    (dM (B, P, d) rounded to m's dtype, dW1 (C1, P, k) f32)."""
+    c1, p, k = w1.shape
+    b, _, d = m.shape
+    gw = tap_window(g.to(m.dtype), k).float()                     # (R, B*d)
+    a = stacked_weights(w1).to(m.dtype).float()                   # (R, P)
+    dm = (gw.t() @ a).reshape(b, d, p).permute(0, 2, 1).to(m.dtype)
+    dws = gw @ m.float().permute(0, 2, 1).reshape(b * d, p)       # (R, P)
+    return dm, dws.reshape(k, c1, p).permute(1, 2, 0)
+
+
 def _rows_reference(rows: torch.Tensor, w1: torch.Tensor, cfg: ModelConfig):
     """Plain version of the full-rows entries: rows (B, F, table_width)."""
     b = rows.shape[0]
@@ -219,11 +262,16 @@ def _bwd_library() -> ctypes.CDLL:
     fn = lib.cffm_cross_conv1_bwd
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [i, p, p, i, ll, ll, ll, ll, p, p, ll, ll, ll, ll,
+        fn.argtypes = [i, i, p, p, i, ll, ll, ll, ll, p, p, ll, ll, ll, ll,
                        p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
-        lib.cffm_cross_conv1_bwd_blocks.argtypes = [i]
+        lib.cffm_cross_conv1_bwd_blocks.argtypes = [i, i]
         lib.cffm_cross_conv1_bwd_blocks.restype = ctypes.c_int
+        lib.cffm_cross_conv1_bwd_wgmma.argtypes = [i, p, p, ll, ll, ll, ll, p, p, ll, ll, ll,
+                                                   ll, p, i, i, i, i, i]
+        lib.cffm_cross_conv1_bwd_wgmma.restype = ctypes.c_int
+        lib.cffm_cross_conv1_bwd_pair_chunk.argtypes = [i, i]
+        lib.cffm_cross_conv1_bwd_pair_chunk.restype = ctypes.c_int
         lib.cffm_cross_conv1_bwd_max_channels.argtypes = []
         lib.cffm_cross_conv1_bwd_max_channels.restype = ctypes.c_int
     return lib
@@ -308,7 +356,8 @@ def cross_conv1_bwd(parts, dparts, w1: torch.Tensor, gy: torch.Tensor,
     same field partition. gy (B, C1, d); glin (B,) or None; w_phys: the
     lanes of one field row (table_width for the full-rows entries).
     Field-aware bf16 rows with d=16, C1 <= 64 and 16-byte aligned rows run
-    on the tensor cores; every other shape, and f32, on the CUDA cores."""
+    on the tensor cores (wgmma), with the weights in `bwd_wgmma_weights`'
+    layout; every other shape, and f32, on the CUDA cores."""
     dtype, dev = _check_launch(parts, w1, cfg)
     k, f, d = cfg.conv_kernel, cfg.num_fields, cfg.embed_dim
     c1, p, _ = w1.shape
@@ -322,22 +371,32 @@ def cross_conv1_bwd(parts, dparts, w1: torch.Tensor, gy: torch.Tensor,
     for t, _, _, _ in dparts:
         if t.device != dev or t.dtype != dtype or t.stride(-1) != 1:
             raise ValueError("gradient parts must match the rows' device and dtype")
-    wt = w1.to(device=dev, dtype=dtype).permute(2, 0, 1).contiguous()   # (k, C1, P)
     g = gy.to(device=dev, dtype=dtype).contiguous()
     gl = None if glin is None else glin.to(device=dev, dtype=torch.float32).contiguous()
-    blocks = lib.cffm_cross_conv1_bwd_blocks(batch)
-    dwp = torch.empty((blocks, k, p, c1), dtype=torch.float32, device=dev)
-    dw = torch.empty((k, p, c1), dtype=torch.float32, device=dev)
     hadamard = cfg.cross == "hadamard"
-    hacc = (torch.empty((batch, f, d), dtype=torch.float32, device=dev)
-            if hadamard else None)
+    is_bf16 = int(dtype == torch.bfloat16)
     e0, nf0, fs0, bs0 = parts[0]
     e1, _, fs1, bs1 = parts[-1]
     d0, _, dfs0, dbs0 = dparts[0]
     d1, _, dfs1, dbs1 = dparts[-1]
+    wgmma = lib.cffm_cross_conv1_bwd_wgmma(
+        is_bf16, e0.data_ptr(), e1.data_ptr(), fs0, bs0, fs1, bs1, d0.data_ptr(),
+        d1.data_ptr(), dfs0, dbs0, dfs1, dbs1, g.data_ptr(), f, d, k, c1, int(hadamard))
+    if wgmma:
+        wt = bwd_wgmma_weights(w1, lib.cffm_cross_conv1_bwd_pair_chunk(k, c1), dtype, dev)
+    else:
+        wt = w1.to(device=dev, dtype=dtype).permute(2, 0, 1).contiguous()   # (k, C1, P)
+    with torch.cuda.device(dev):
+        blocks = lib.cffm_cross_conv1_bwd_blocks(batch, wgmma)
+    if blocks < 0:
+        raise RuntimeError("cross_conv1_bwd: the device's SM count could not be read")
+    dwp = torch.empty((blocks, k, p, c1), dtype=torch.float32, device=dev)
+    dw = torch.empty((k, p, c1), dtype=torch.float32, device=dev)
+    hacc = (torch.empty((batch, f, d), dtype=torch.float32, device=dev)
+            if hadamard else None)
     with torch.cuda.device(dev):
         err = lib.cffm_cross_conv1_bwd(
-            int(dtype == torch.bfloat16), e0.data_ptr(), e1.data_ptr(), nf0,
+            is_bf16, wgmma, e0.data_ptr(), e1.data_ptr(), nf0,
             fs0, bs0, fs1, bs1, d0.data_ptr(), d1.data_ptr(), dfs0, dbs0,
             dfs1, dbs1, wt.data_ptr(), g.data_ptr(),
             None if gl is None else gl.data_ptr(),

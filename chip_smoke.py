@@ -550,9 +550,67 @@ def _check_rows_grad(drows, drows_ref, dw, dw_ref, glin, cfg, what: str) -> floa
     return err
 
 
+# (conv width k, C1) of the backward's tensor-core kernel: every m-tile
+# count 1-7 of its k*C1 tap-window rows
+BWD_WIDTHS = ((1, 32), (1, 64), (3, 32), (3, 64), (5, 32), (5, 64), (7, 32), (7, 48), (7, 64))
+
+
+def _bwd_takes_wgmma(ic, cfg, es, eb, gy) -> bool:
+    """Whether the library sends these split field-major rows to the
+    tensor-core backward kernel (the wrapper's own query)."""
+    lib = ic._bwd_library()
+    (e0, _, fs0, bs0), (e1, _, fs1, bs1) = ic._descriptors("fm2", cfg, (es, eb))
+    return bool(lib.cffm_cross_conv1_bwd_wgmma(
+        1, e0.data_ptr(), e1.data_ptr(), fs0, bs0, fs1, bs1, e0.data_ptr(), e1.data_ptr(),
+        fs0, bs0, fs1, bs1, gy.data_ptr(), cfg.num_fields, cfg.embed_dim, cfg.conv_kernel,
+        gy.shape[1], 0))
+
+
+def _parity_bwd_edges(gen) -> float:
+    """Kernel 2's tensor-core path through the split field-major entry in
+    bf16 against the plain backward (the phase-4 checks, dW bit-equal in
+    two runs): criteo_kaggle (k=3, C1=64, nf0=13) at PARITY_BATCHES, at
+    BWD_WIDTHS (B=4096) and with an odd split nf0=7 (B=4097). Returns the
+    largest dE error."""
+    import torch
+
+    from cffm_tpu_torch.ops import interaction_conv as ic
+
+    base = _criteo_model("bfloat16")
+    fs = base.small_field_prefix
+    cases = ([(b, 3, 64, fs) for b in PARITY_BATCHES]
+             + [(4096, k, c1, fs) for k, c1 in BWD_WIDTHS] + [(4097, 3, 64, 7)])
+    worst = 0.0
+    for b, k, c1, nf0 in cases:
+        cfg = dataclasses.replace(base, conv_kernel=k, conv_channels=(c1, 64))
+        (es, eb), w1 = _inputs(cfg, b, torch.bfloat16, gen, fm_split=nf0)
+        gy = torch.randn((b, c1, cfg.embed_dim), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        glin = torch.randn((b,), generator=gen, device="cuda")
+        if not _bwd_takes_wgmma(ic, cfg, es, eb, gy):
+            fail(f"parity_bwd B={b} k={k} C1={c1}: not the tensor-core backward")
+        n0 = ic.cross_conv1_bwd.launches
+        drows, dw = _grad_rows(ic, cfg, "fm2", es, eb, w1, gy, glin)
+        _, dw2 = _grad_rows(ic, cfg, "fm2", es, eb, w1, gy, glin)
+        if ic.cross_conv1_bwd.launches - n0 != 2:
+            fail(f"parity_bwd B={b} k={k} C1={c1}: the backward kernel was not launched")
+        rows = torch.cat([es, eb]).transpose(0, 1)
+        drows_ref, dw_ref = ic._rows_bwd_reference(rows, w1, gy, glin, cfg)
+        err = _check_rows_grad(drows, drows_ref, dw, dw_ref, glin, cfg,
+                               f"wgmma fm2 bfloat16 B={b} k={k} C1={c1} nf0={nf0}")
+        if not torch.equal(dw, dw2):
+            fail(f"parity_bwd B={b} k={k} C1={c1}: dW differs between two runs")
+        worst = max(worst, err)
+        del es, eb, rows, drows, drows_ref, dw, dw2, dw_ref
+        torch.cuda.empty_cache()
+    print(f"parity_bwd wgmma edges: {len(cases)} cases, dW bit-equal in two runs", flush=True)
+    return worst
+
+
 def phase_parity_bwd() -> float:
-    """Kernel 2 through every entry against the plain backward; returns the
-    fm2 bf16 dE error."""
+    """Kernel 2 through every entry against the plain backward, then the
+    tensor-core kernel's edges; returns the largest bf16 dE error of the
+    split field-major entry."""
     import torch
 
     from cffm_tpu_torch.ops import interaction_conv as ic
@@ -597,7 +655,7 @@ def phase_parity_bwd() -> float:
             torch.testing.assert_close(de.float(), de_ref.float(), rtol=tol[dtype],
                                        atol=tol[dtype])
             _check_dw(dw, dw_ref, f"movielens sliced {cross} d={d} {name}")
-    return fm2_err
+    return max(fm2_err, _parity_bwd_edges(gen))
 
 
 def _real_batch(b: int):
@@ -1056,39 +1114,45 @@ def phase_time_train() -> dict:
     fs, f, w, d, k = (mcfg.small_field_prefix, mcfg.num_fields, mcfg.table_width,
                       mcfg.embed_dim, mcfg.conv_kernel)
 
-    # kernel 2: fm2 backward
-    (es, eb), w1 = _inputs(mcfg, b, torch.bfloat16, gen, fm_split=fs)
-    c1 = w1.shape[0]
-    gy = torch.randn((b, c1, d), generator=gen, device="cuda").to(torch.bfloat16)
-    glin = torch.randn((b,), generator=gen, device="cuda")
-    des, deb = torch.empty_like(es), torch.empty_like(eb)
+    def time_bwd(bb: int) -> dict:
+        """Kernel 2 through the fm2 layout at batch bb: kernel, plain,
+        library and bound, and the kernel held against its plain version."""
+        (es, eb), w1 = _inputs(mcfg, bb, torch.bfloat16, gen, fm_split=fs)
+        c1 = w1.shape[0]
+        gy = torch.randn((bb, c1, d), generator=gen, device="cuda").to(torch.bfloat16)
+        glin = torch.randn((bb,), generator=gen, device="cuda")
+        des, deb = torch.empty_like(es), torch.empty_like(eb)
 
-    def kernel2():
-        return ic.cross_conv1_bwd(ic._descriptors("fm2", mcfg, (es, eb)),
-                                  ic._descriptors("fm2", mcfg, (des, deb)), w1, gy, glin,
-                                  mcfg, w)
+        def kernel2():
+            return ic.cross_conv1_bwd(ic._descriptors("fm2", mcfg, (es, eb)),
+                                      ic._descriptors("fm2", mcfg, (des, deb)), w1, gy, glin,
+                                      mcfg, w)
 
-    ms = cuda_ms(kernel2, 5)
-    plain_ms = cuda_ms(lambda: ic._rows_bwd_reference(
-        torch.cat([es, eb]).transpose(0, 1), w1, gy, glin, mcfg), 2, warmup=1)
-    rows = torch.cat([es, eb]).transpose(0, 1)
-    dw = kernel2()
-    drows_ref, dw_ref = ic._rows_bwd_reference(rows, w1, gy, glin, mcfg)
-    bwd_err = _check_rows_grad(torch.cat([des, deb]).transpose(0, 1), drows_ref, dw, dw_ref,
-                               glin, mcfg, f"criteo_kaggle fm2 bfloat16 B={b}")
-    del drows_ref, dw_ref
-    m = build_cross_map(rows[..., : mcfg.row_width].reshape(b, f, f, d), mcfg)
-    wb = w1.to(torch.bfloat16)
-    library_ms = cuda_ms(lambda: (torch.nn.grad.conv1d_weight(m, wb.shape, gy, padding=k // 2),
-                                  F.conv_transpose1d(gy, wb, padding=k // 2)), 5)
-    del rows, m
-    nbytes = (2 * (es.numel() + eb.numel()) * 2 + gy.numel() * 2 + b * 4
-              + w1.numel() * 2 + w1.numel() * 4)
-    ops = 2 * (2 * b * d * mcfg.num_pairs * k * c1)
-    out["cross_conv1_bwd"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                              "max_abs_err": bwd_err, **_bound(nbytes, ops)}
-    del es, eb, des, deb, gy, glin
-    torch.cuda.empty_cache()
+        ms = cuda_ms(kernel2, 5 if bb > 4096 else 50)
+        rows = torch.cat([es, eb]).transpose(0, 1)
+        plain_ms = cuda_ms(lambda: ic._rows_bwd_reference(rows, w1, gy, glin, mcfg),
+                           2 if bb > 4096 else 10, warmup=1)
+        dw = kernel2()
+        drows_ref, dw_ref = ic._rows_bwd_reference(rows, w1, gy, glin, mcfg)
+        err = _check_rows_grad(torch.cat([des, deb]).transpose(0, 1), drows_ref, dw, dw_ref,
+                               glin, mcfg, f"criteo_kaggle fm2 bfloat16 B={bb}")
+        del drows_ref, dw_ref
+        m = build_cross_map(rows[..., : mcfg.row_width].reshape(bb, f, f, d), mcfg)
+        wb = w1.to(torch.bfloat16)
+        library_ms = cuda_ms(lambda: (
+            torch.nn.grad.conv1d_weight(m, wb.shape, gy, padding=k // 2),
+            F.conv_transpose1d(gy, wb, padding=k // 2)), 5 if bb > 4096 else 50)
+        nbytes = (2 * (es.numel() + eb.numel()) * 2 + gy.numel() * 2 + bb * 4
+                  + w1.numel() * 2 + w1.numel() * 4)
+        ops = 2 * (2 * bb * d * mcfg.num_pairs * k * c1)
+        del es, eb, des, deb, gy, glin, rows, m
+        torch.cuda.empty_cache()
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "max_abs_err": err, "batch": bb, **_bound(nbytes, ops)}
+
+    # kernel 2: fm2 backward, at the training batch and at the eval batch
+    out["cross_conv1_bwd"] = time_bwd(b)
+    out["cross_conv1_bwd_4096"] = time_bwd(4096)
 
     # kernel 3 on the real batch's sorted big-field ids
     cfg, batch = _real_batch(b)
@@ -1146,8 +1210,8 @@ def phase_time_train() -> dict:
     del table, accum, mom, vv, gsum, uids, uids_s, rows, sgd_delta
     torch.cuda.empty_cache()
     for name, r in out.items():
-        print(f"time {name} B={b}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms "
+        print(f"time {name} B={r.get('batch', b)}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}: {r['bytes'] / 1e9:.3f} GB, {r['ops'] / 1e9:.2f} GOP)"
               + (f", touched rows {r['touched_rows']}" if "touched_rows" in r else "")
               + (f", sgd kernel {r['sgd_ms']:.4f} ms" if "sgd_ms" in r else ""),
@@ -2354,6 +2418,8 @@ def _run_phases(phases, phase, mesh) -> int:
              **{k: ttimes[name][k] for k in keys}, "batch": 65536}
             for name, src, rep, launches, err in new]
         records[-1]["train_step_ms_65536"] = ttimes["train_step_ms_65536"]
+        records[1]["at_batch_4096"] = {k: ttimes["cross_conv1_bwd_4096"][k]
+                                       for k in keys + ("max_abs_err",)}
         # kernels 6-7 at the T=1 shapes of the sharded step, T=4 rank 0 beside
         for name, src, rep, launches, err, tk in (
                 ("sorted_segment_sum_by_seg", "sorted_segment.cu",
