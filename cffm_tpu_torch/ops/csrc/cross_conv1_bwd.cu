@@ -34,8 +34,12 @@
 // (596 GFLOP together at B=65536, ~0.6 ms at the bf16 tensor-core peak)
 // against ~102 KB of E, dE and g moved (6.7 GB, 1.99 ms at 3.35 TB/s): the
 // function is memory-bound. The wgmma kernel reads E once and g once per
-// pair chunk (6 times at P=741); its producer warpgroup's loads of E, one
-// tile in flight per SM, are what it waits on.
+// pair chunk (6 times at P=741). Its time goes to the producer's loads of E
+// and the consumers' stores of dE, each a 32-byte piece per pair and
+// example, half of them scattered over rows; the products cost little
+// (cffm_tpu_torch/scripts/ablate_bwd.py times variants with each part
+// taken out). An L2 prefetch of the next tile's rows keeps more of E in
+// flight than the producer's registers hold.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -342,10 +346,12 @@ __global__ void __launch_bounds__(kThreads) cross_conv1_bwd_kernel(Args a) {
 // mbarrier. Per tile the producer fills one stage of a two-stage ring:
 // Gwin (R x kNE*16) from g, and the cross tile M (rounded to bf16 as the
 // forward rounds it) with its two factors E[b,i,16j+x] and E[b,j,16i+x]
-// (pairs x kNE*16) from E. A consumer issues dM^T (Gwin read MN-major:
-// transpose bit set) and then dW (Gwin read K-major), waits for dM^T only,
-// rounds it to bf16 into shared memory and writes dE = bf16(dM * factor),
-// 16 bytes a lane, while its dW products run; then it releases the stage.
+// (pairs x kNE*16) from E, and prefetches the next tile's rows into L2
+// while this tile's loads are in flight. A consumer issues dM^T (Gwin read
+// MN-major: transpose bit set) and then dW (Gwin read K-major), waits for
+// dM^T only, rounds it to bf16 into shared memory and writes dE =
+// bf16(dM * factor), 16 bytes a lane, while its dW products run; then it
+// releases the stage.
 // Each dE lane is written by exactly one pair. The consumers write each
 // tile's diagonal blocks and pad lanes in the first chunk.
 // Shared memory layouts, without swizzle, in 8x8 core matrices of 128
@@ -447,6 +453,10 @@ __device__ __forceinline__ void wg_commit() {
 template <int N>
 __device__ __forceinline__ void wg_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
 // keeps the compiler from moving accumulator reads across a wgmma wait
@@ -677,6 +687,17 @@ __global__ void __launch_bounds__(kWgThreads, 1)
             gv[n][1] = __ldg(src + 1);
           } else {
             gv[n][0] = gv[n][1] = make_uint4(0u, 0u, 0u, 0u);
+          }
+        }
+        // the next tile's rows into L2 while this one's loads are in flight
+        if (tile + 1 < t_end) {
+#pragma unroll
+          for (int u = 0; u < kEU; ++u) {
+            const long long b = b0 + kNE + e0 + u * kEStep;
+            if (pv && b < b_end) {
+              prefetch_l2(in_row<bf>(a, i, b) + j * kD);
+              prefetch_l2(in_row<bf>(a, j, b) + i * kD);
+            }
           }
         }
         mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);

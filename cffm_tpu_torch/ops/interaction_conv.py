@@ -34,7 +34,10 @@ A wrapper launches the CUDA kernel for a CUDA tensor and takes the plain
 PyTorch version (`cross_conv1_reference`, `cross_conv1_bwd_reference`)
 for a CPU tensor; any other device raises. Each forward entry counts its
 kernel launches in its `launches` attribute, a plain integer, and
-`cross_conv1_bwd.launches` counts the backward kernel's.
+`cross_conv1_bwd.launches` counts the backward kernel's. Shapes no kernel
+is built for are routed by gates decided from shapes before any launch
+(`kernel_takes_width`, `bwd_kernel_takes`): on the card they take the
+plain conv, or the plain backward (`cross_conv1_bwd_plain.launches`).
 """
 
 from __future__ import annotations
@@ -75,8 +78,8 @@ def kernel_takes_width(k: int) -> bool:
 def bwd_kernel_takes(cfg: ModelConfig, c1: int, dtype) -> str | None:
     """The backward kernel that takes layer 1 of C1 channels in dtype:
     "wgmma" (the tensor-core kernel: bf16 field-aware rows with d=16, when
-    the rows are also 16-byte aligned), "cuda_cores" (f32, hadamard, other
-    d), or None for a shape no kernel takes (C1 > BWD_MAX_CHANNELS), whose
+    the rows are also 16-byte aligned and F <= 255), "cuda_cores" (f32,
+    hadamard, other d), or None for a shape no kernel takes (C1 > BWD_MAX_CHANNELS), whose
     backward on the card is the plain one (`cross_conv1_bwd_plain`)."""
     if c1 > BWD_MAX_CHANNELS:
         return None

@@ -21,6 +21,10 @@ nonzero without them, or when any phase fails. Phases, in order:
      against the plain backward: dE f32 rtol=atol=1e-4, bf16 2e-2; dW
      rtol=1e-4 with atol 1e-4 of max|dW|; pad lanes and diagonal blocks of
      dE exact zeros, the fused column exactly glin; dW bit-equal in two runs;
+     then the tensor-core (wgmma) kernel's edges through the split
+     field-major entry in bf16, each with those checks: B = 1, 7, 8, 131,
+     4097, 65536; (k, C1) giving every m-tile count 1-7 of its tap window
+     (BWD_WIDTHS) at B=4096; an odd split nf0=7 at B=4097;
   4b. parity_caps: the three shapes the kernels are not built for, each
      through its gate on the card and held against the plain version, its
      route printed from the launch counts: a bucketed adagrad update of a
@@ -59,9 +63,9 @@ nonzero without them, or when any phase fails. Phases, in order:
      and on the CPU (f32, f32 table, streamed update on, B=4096): one
      adagrad step, two rowwise-Adam steps;
  11. time kernels 2-5, their plain versions, library yardsticks and bounds
-     at the B=65536 training shapes, hold kernel 2 against its plain
-     version there (the phase-4 checks), and time the train step end to
-     end with a torch.profiler breakdown;
+     at the B=65536 training shapes (kernel 2 at B=4096 too), hold kernel
+     2 against its plain version there (the phase-4 checks), and time the
+     train step end to end with a torch.profiler breakdown;
  12. parity_segment_by_seg: kernel 6 on the segment stream of one B=65536
      batch routed at T=1 and on rank 0's at T=4: within half a bf16 ulp of
      the exact sums plus the f32 term (phase 5's limit), slots past the

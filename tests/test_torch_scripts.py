@@ -8,7 +8,9 @@ import torch
 
 from cffm_tpu_torch import config
 from cffm_tpu_torch.ops import bwd_variants as bv
-from cffm_tpu_torch.scripts import bench_bwd_variants, bench_kernel, profile_step, trace_step
+from cffm_tpu_torch.ops import _build
+from cffm_tpu_torch.scripts import (ablate_bwd, bench_bwd_variants, bench_kernel, profile_step,
+                                    trace_step)
 
 MIXED = (32, 64, 128) + (1000,) * 12          # F=15: fused column, 3 small fields
 
@@ -52,3 +54,20 @@ def test_trace_step_reports_no_device_time_on_the_cpu(tmp_path, capsys, monkeypa
     assert trace_step.report(prof, 1) == 0.0
     assert "no device time" in capsys.readouterr().out
     assert (tmp_path / "trace.json").exists()
+
+
+@pytest.mark.parametrize("name", sorted(ablate_bwd.VARIANTS))
+def test_ablate_bwd_variants_match_the_kernel_source(name):
+    """Each ablation variant's replaced text occurs once in kernel 2's source."""
+    text = (_build._CSRC / f"{ablate_bwd.SOURCE}.cu").read_text()
+    out = ablate_bwd.variant_source(text, name)
+    assert out != text and all(new in out for _, new in ablate_bwd.VARIANTS[name])
+
+
+def test_ablate_bwd_needs_a_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the script would run")
+    assert ablate_bwd.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        ablate_bwd.main(["no_such_variant"])
