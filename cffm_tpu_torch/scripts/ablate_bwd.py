@@ -10,6 +10,8 @@ in the order shipped, variants, shipped. CUDA events per call; one line
 per run, then the card. The variants (all by default):
 
   no_wgmma      neither product is issued
+  no_dm         the dM^T product (Gwin read MN-major) is not issued
+  no_dw         the dW product (Gwin read K-major) is not issued
   no_e_loads    the producer loads no E (the cross tile and factors are zeros)
   no_de_stores  the consumers write no dE
   no_prefetch   the producer does not prefetch the next tile's rows into L2
@@ -27,12 +29,14 @@ import sys
 
 SOURCE = "cross_conv1_bwd"
 
+_NO_DM = ("for (int ks = 0; ks < L::kRP / 16; ++ks)", "for (int ks = 0; ks < 0; ++ks)")
+_NO_DW = ("for (int ks = 0; ks < kCols / 16; ++ks)", "for (int ks = 0; ks < 0; ++ks)")
+
 # variant -> [(text of the shipped source, its replacement)]
 VARIANTS = {
-    "no_wgmma": [
-        ("for (int ks = 0; ks < L::kRP / 16; ++ks)", "for (int ks = 0; ks < 0; ++ks)"),
-        ("for (int ks = 0; ks < kCols / 16; ++ks)", "for (int ks = 0; ks < 0; ++ks)"),
-    ],
+    "no_wgmma": [_NO_DM, _NO_DW],
+    "no_dm": [_NO_DM],
+    "no_dw": [_NO_DW],
     "no_e_loads": [
         ("          if (pv && b < b_end) {\n            const uint4* ri",
          "          if (false) {\n            const uint4* ri"),
