@@ -22,7 +22,6 @@ import torch
 
 from cffm_tpu_torch.config import ModelConfig
 from cffm_tpu_torch.ops.cross import build_cross_map, conv_core_reference
-from cffm_tpu_torch.ops.interaction_conv import kernel_takes_width
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -110,7 +109,7 @@ def wants_field_major(params: Dict, cfg: ModelConfig, interaction_fn) -> bool:
     the layout the field-major kernel entries read."""
     return (getattr(interaction_fn, "full_rows_fm", None) is not None
             and cfg.fused_linear and cfg.cross == "field_aware"
-            and kernel_takes_width(cfg.conv_kernel) and cfg.embed_dim % 2 == 0
+            and cfg.conv_kernel % 2 == 1 and cfg.embed_dim % 2 == 0
             and bool(params["conv"]))
 
 
@@ -207,7 +206,7 @@ def forward_from_rows(params: Dict, emb_rows: torch.Tensor,
 
     full_rows = getattr(interaction_fn, "full_rows", None)
     if (full_rows is not None and cfg.fused_linear
-            and cfg.cross == "field_aware" and kernel_takes_width(cfg.conv_kernel)
+            and cfg.cross == "field_aware" and cfg.conv_kernel % 2 == 1
             and cfg.embed_dim % 2 == 0 and params["conv"]):
         emb2d = emb_rows.reshape(b, cfg.num_fields * cfg.table_width).to(cdt)
         feats, lin_sum = full_rows(emb2d, params["conv"], cfg)

@@ -20,14 +20,17 @@
 // in which blocks run (per-block partials, then a second kernel sums them
 // in block order): no atomics, bit-equal from run to run.
 //
-// Two kernels. Field-aware bf16 rows with d=16 and C1<=64 (the training
-// path of criteo_kaggle, avazu and criteo_full, and movielens field-aware)
-// take cross_conv1_bwd_wgmma_kernel (below the CUDA-core kernel): both
-// products as wgmma GEMMs around one shared tap window of g. Everything
-// else (f32, hadamard, other shapes) takes cross_conv1_bwd_kernel: a block
-// owns a range of examples and walks the pair axis in chunks, stages the
-// weight chunk, g and the cross map in shared memory as f32, and runs both
-// products as FMAs on the CUDA cores.
+// Two kernels. Field-aware bf16 rows with d=16, k in {1, 3, 5, 7} and
+// C1<=64, or k=3 and C1<=128 (the training path of criteo_kaggle, avazu
+// and criteo_full, and movielens field-aware) take
+// cross_conv1_bwd_wgmma_kernel (below the CUDA-core kernel): both products
+// as wgmma GEMMs around one shared tap window of g. Everything else (f32,
+// hadamard, k=9, other shapes) takes cross_conv1_bwd_kernel: a block owns
+// a range of examples and walks the pair axis in chunks, stages the weight
+// chunk, g and the cross map in shared memory as f32, and runs both
+// products as FMAs on the CUDA cores, a thread's dW over one pair and one
+// or two groups of 8 channels (C1 <= 128). cffm_cross_conv1_bwd_takes
+// says which shapes the two take together; the wrapper raises for others.
 //
 // Bound on the H100. At criteo_kaggle shapes (F=39, d=16, W=640, C1=64,
 // k=3, bf16) dW and dM each take 2*d*P*k*C1 = 4.55 MFLOP per example
@@ -49,7 +52,8 @@ namespace {
 
 constexpr int kPC = 32;      // pairs per chunk
 constexpr int kEB = 8;       // examples per group (kEB * kPC == kThreads)
-constexpr int kCG = 8;       // channels per dW thread
+constexpr int kCG = 8;       // channels per dW group; a thread takes NPT groups
+constexpr int kMaxNPT = 2;   // dW groups per thread: C1 <= kThreads / kPC * kCG * kMaxNPT
 constexpr int kTN = 8;       // positions per dM step
 constexpr int kThreads = 256;
 constexpr int kTargetBlocks = 264;  // two per SM on a 132-SM card
@@ -118,7 +122,7 @@ __device__ void diag_and_pads(const Args& a, long long b_begin, long long b_end)
   }
 }
 
-template <typename T, int K>
+template <typename T, int K, int NPT>
 __global__ void __launch_bounds__(kThreads) cross_conv1_bwd_kernel(Args a) {
   extern __shared__ float4 smem4[];
   float* ws = reinterpret_cast<float*>(smem4);   // (K, c1p, kPC)
@@ -126,7 +130,7 @@ __global__ void __launch_bounds__(kThreads) cross_conv1_bwd_kernel(Args a) {
   float* ms = gs + kEB * a.xp * a.c1p;           // (kEB, kPC, xp), halo k/2
   float* fa = ms + kEB * kPC * a.xp;             // (kEB, kPC, d): E side i
   float* fb = fa + kEB * kPC * a.d;              // (kEB, kPC, d): E side j
-  float* dms = fb + kEB * kPC * a.d;             // (kEB, kPC, d): dM (hadamard)
+  float* dms = fb + kEB * kPC * a.d;             // (kEB, kPC, d): dM (hadamard only)
   __shared__ int pi_s[kPC];
   __shared__ int pj_s[kPC];
 
@@ -135,10 +139,11 @@ __global__ void __launch_bounds__(kThreads) cross_conv1_bwd_kernel(Args a) {
   const int tid = threadIdx.x;
   const long long b_begin = static_cast<long long>(blockIdx.x) * a.ebl;
   const long long b_end = min(static_cast<long long>(a.batch), b_begin + a.ebl);
-  // dW role: one pair, kCG channels
+  // dW role: one pair, NPT groups of kCG channels, gst groups apart
   const int ncg = a.c1p / kCG;
-  const int wpc = tid / ncg;
-  const int wcg = tid - wpc * ncg;
+  const int gst = (ncg + NPT - 1) / NPT;
+  const int wpc = tid / gst;
+  const int wcg = tid - wpc * gst;
   // dM role: one (example, pair)
   const int me = tid / kPC;
   const int mpc = tid - me * kPC;
@@ -165,11 +170,13 @@ __global__ void __launch_bounds__(kThreads) cross_conv1_bwd_kernel(Args a) {
                   : 0.f;
     }
 
-    float acc[kCG][K];
+    float acc[NPT][kCG][K];
 #pragma unroll
-    for (int ci = 0; ci < kCG; ++ci)
+    for (int q = 0; q < NPT; ++q)
 #pragma unroll
-      for (int t = 0; t < K; ++t) acc[ci][t] = 0.f;
+      for (int ci = 0; ci < kCG; ++ci)
+#pragma unroll
+        for (int t = 0; t < K; ++t) acc[q][ci][t] = 0.f;
 
     for (long long b0 = b_begin; b0 < b_end; b0 += kEB) {
       __syncthreads();  // previous group's tiles (and the pair tables) settled
@@ -211,20 +218,26 @@ __global__ void __launch_bounds__(kThreads) cross_conv1_bwd_kernel(Args a) {
       }
       __syncthreads();
 
-      // dW: acc[ci][t] += g[e, c0+ci, x] * M[e, wpc, x+t-k/2]
+      // dW: acc[q][ci][t] += g[e, c0+ci, x] * M[e, wpc, x+t-k/2], c0 = (wcg + q*gst)*kCG
       if (wpc < npc) {
         for (int e = 0; e < kEB && b0 + e < b_end; ++e) {
           const float* mrow = ms + (e * kPC + wpc) * a.xp;
           const float* grow = gs + e * a.xp * a.c1p + wcg * kCG;
           for (int x = 0; x < a.d; ++x) {
-            const float4 g0 = *reinterpret_cast<const float4*>(grow + (x + kHalf) * a.c1p);
-            const float4 g1 = *reinterpret_cast<const float4*>(grow + (x + kHalf) * a.c1p + 4);
-            const float gv[kCG] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
 #pragma unroll
-            for (int t = 0; t < K; ++t) {
-              const float mv = mrow[x + t];
+            for (int q = 0; q < NPT; ++q) {
+              if (wcg + q * gst >= ncg) continue;
+              const float* gq = grow + (x + kHalf) * a.c1p + q * gst * kCG;
+              const float4 g0 = *reinterpret_cast<const float4*>(gq);
+              const float4 g1 = *reinterpret_cast<const float4*>(gq + 4);
+              const float gv[kCG] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
 #pragma unroll
-              for (int ci = 0; ci < kCG; ++ci) acc[ci][t] = fmaf(gv[ci], mv, acc[ci][t]);
+              for (int t = 0; t < K; ++t) {
+                const float mv = mrow[x + t];
+#pragma unroll
+                for (int ci = 0; ci < kCG; ++ci)
+                  acc[q][ci][t] = fmaf(gv[ci], mv, acc[q][ci][t]);
+              }
             }
           }
         }
@@ -307,12 +320,15 @@ __global__ void __launch_bounds__(kThreads) cross_conv1_bwd_kernel(Args a) {
     if (wpc < npc) {
       float* out = a.dwp + static_cast<long long>(blockIdx.x) * K * pairs * a.c1;
 #pragma unroll
-      for (int t = 0; t < K; ++t)
+      for (int q = 0; q < NPT; ++q)
 #pragma unroll
-        for (int ci = 0; ci < kCG; ++ci) {
-          const int c = wcg * kCG + ci;
-          if (c < a.c1) out[(static_cast<long long>(t) * pairs + p0 + wpc) * a.c1 + c] = acc[ci][t];
-        }
+        for (int t = 0; t < K; ++t)
+#pragma unroll
+          for (int ci = 0; ci < kCG; ++ci) {
+            const int c = (wcg + q * gst) * kCG + ci;
+            if (wcg + q * gst < ncg && c < a.c1)
+              out[(static_cast<long long>(t) * pairs + p0 + wpc) * a.c1 + c] = acc[q][ci][t];
+          }
     }
     __syncthreads();  // pair tables are rewritten by the next chunk
   }
@@ -321,8 +337,9 @@ __global__ void __launch_bounds__(kThreads) cross_conv1_bwd_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core path: field-aware, d == 16, C1 <= 64, 16-byte aligned
-// rows and g (wgmma).
+// bf16 tensor-core path: field-aware, d == 16, k*C1 within wg_max_mtiles
+// m-tiles of 64 (C1 <= 64, or C1 <= 128 at k=3), 16-byte aligned rows and
+// g (wgmma).
 //
 // With A = [W_0; ...; W_{k-1}] the stacked weights (R = k*C1 rows by P
 // pairs; W_t = W1[:, :, t]) and the tap window of g for a tile of examples,
@@ -377,6 +394,8 @@ constexpr int kSmemMax = 232448;       // shared memory a block may use on the H
 __host__ __device__ constexpr int wg_mtiles(int k, int c1) { return (k * c1 + 63) / 64; }
 // pairs per consumer warpgroup: dW holds MT * kPW / 2 f32 registers a thread
 __host__ __device__ constexpr int wg_pairs(int mt) { return mt <= 3 ? 64 : 32; }
+// m-tiles instantiated at width K: C1 <= 64, and C1 <= 128 at K=3
+__host__ __device__ constexpr int wg_max_mtiles(int k) { return k == 3 ? 6 : k; }
 
 template <int MT>
 struct BwdLayout {
@@ -643,7 +662,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int pt = tid - 2 * 128;
     constexpr int kEStep = 128 / kPC;  // the thread's examples: e0, e0 + kEStep, ...
     constexpr int kEU = kNE / kEStep;
-    constexpr int kGI = kNE * 64 / 128;  // (example, channel) items of g a thread takes
+    // (example, channel) items of g a thread takes: C1 <= MT * 64 / K
+    constexpr int kGI = (kNE * (MT * 64 / K) + 127) / 128;
     const int pc = pt % kPC;
     const int e0 = pt / kPC;
     const unsigned char* wsrc = static_cast<const unsigned char*>(a.w);
@@ -867,28 +887,51 @@ int examples_per_block(int batch) {
   return kEB * (per_block < 1 ? 1 : per_block);
 }
 
-template <typename T, int K>
+// Dynamic shared memory of the CUDA-core kernel, f32: the weight chunk, g
+// and the cross map with their halos, the two factors and, for hadamard, dM.
+size_t core_smem(int d, int k, int c1, int hadamard) {
+  const size_t c1p = (c1 + kCG - 1) / kCG * kCG;
+  const size_t xp = (d + kTN - 1) / kTN * kTN + k - 1;
+  return (k * c1p * kPC + kEB * xp * c1p + kEB * kPC * xp +
+          (hadamard ? 3 : 2) * static_cast<size_t>(kEB) * kPC * d) *
+         sizeof(float);
+}
+
+// The shapes the CUDA-core kernel takes, and so the backward as a whole
+// (the wgmma kernel takes a subset): an instantiated k, at most kMaxNPT
+// channel groups per thread, and shared memory within the card's limit
+// less the static pair tables.
+bool core_takes(int d, int k, int c1, int hadamard) {
+  return (k == 1 || k == 3 || k == 5 || k == 7 || k == 9) && d >= 1 && c1 >= 1 &&
+         (c1 + kCG - 1) / kCG <= kThreads / kPC * kMaxNPT &&
+         core_smem(d, k, c1, hadamard) <= static_cast<size_t>(kSmemMax - 2 * kPC * 4);
+}
+
+template <typename T, int K, int NPT>
 cudaError_t launch(const Args& a, int blocks, cudaStream_t stream) {
-  const size_t smem = (static_cast<size_t>(K) * a.c1p * kPC +
-                       static_cast<size_t>(kEB) * a.xp * a.c1p +
-                       static_cast<size_t>(kEB) * kPC * a.xp +
-                       3 * static_cast<size_t>(kEB) * kPC * a.d) *
-                      sizeof(float);
+  const size_t smem = core_smem(a.d, K, a.c1, a.hadamard);
   const cudaError_t err = cudaFuncSetAttribute(
-      cross_conv1_bwd_kernel<T, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cross_conv1_bwd_kernel<T, K, NPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  cross_conv1_bwd_kernel<T, K><<<blocks, kThreads, smem, stream>>>(a);
+  cross_conv1_bwd_kernel<T, K, NPT><<<blocks, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T, int K>
+cudaError_t launch_npt(const Args& a, int blocks, cudaStream_t stream) {
+  if (a.c1p / kCG <= kThreads / kPC) return launch<T, K, 1>(a, blocks, stream);
+  return launch<T, K, kMaxNPT>(a, blocks, stream);
 }
 
 template <typename T>
 cudaError_t launch_k(const Args& a, int k, int blocks, cudaStream_t stream) {
   switch (k) {
-    case 1: return launch<T, 1>(a, blocks, stream);
-    case 3: return launch<T, 3>(a, blocks, stream);
-    case 5: return launch<T, 5>(a, blocks, stream);
-    case 7: return launch<T, 7>(a, blocks, stream);
+    case 1: return launch_npt<T, 1>(a, blocks, stream);
+    case 3: return launch_npt<T, 3>(a, blocks, stream);
+    case 5: return launch_npt<T, 5>(a, blocks, stream);
+    case 7: return launch_npt<T, 7>(a, blocks, stream);
+    case 9: return launch_npt<T, 9>(a, blocks, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -939,14 +982,15 @@ cudaError_t launch_wgmma(const Args& a, const WgGrid& g, cudaStream_t stream) {
 
 template <int K>
 cudaError_t launch_wgmma_mt(const Args& a, const WgGrid& g, cudaStream_t stream) {
+  constexpr int kMax = wg_max_mtiles(K);
   switch (wg_mtiles(K, a.c1)) {
     case 1: return launch_wgmma<K, 1>(a, g, stream);
-    case 2: if constexpr (K >= 3) return launch_wgmma<K, 2>(a, g, stream); break;
-    case 3: if constexpr (K >= 3) return launch_wgmma<K, 3>(a, g, stream); break;
-    case 4: if constexpr (K >= 5) return launch_wgmma<K, 4>(a, g, stream); break;
-    case 5: if constexpr (K >= 5) return launch_wgmma<K, 5>(a, g, stream); break;
-    case 6: if constexpr (K >= 7) return launch_wgmma<K, 6>(a, g, stream); break;
-    case 7: if constexpr (K >= 7) return launch_wgmma<K, 7>(a, g, stream); break;
+    case 2: if constexpr (kMax >= 2) return launch_wgmma<K, 2>(a, g, stream); break;
+    case 3: if constexpr (kMax >= 3) return launch_wgmma<K, 3>(a, g, stream); break;
+    case 4: if constexpr (kMax >= 4) return launch_wgmma<K, 4>(a, g, stream); break;
+    case 5: if constexpr (kMax >= 5) return launch_wgmma<K, 5>(a, g, stream); break;
+    case 6: if constexpr (kMax >= 6) return launch_wgmma<K, 6>(a, g, stream); break;
+    case 7: if constexpr (kMax >= 7) return launch_wgmma<K, 7>(a, g, stream); break;
     default: break;
   }
   return cudaErrorInvalidValue;
@@ -970,9 +1014,10 @@ bool wgmma_path(const Args& a, int is_bf16, int k) {
   const long long strides[] = {a.fs0, a.bs0, a.fs1, a.bs1, a.dfs0, a.dbs0, a.dfs1, a.dbs1};
   for (long long st : strides)
     if (st % 8 != 0) return false;
-  return is_bf16 && !a.hadamard && a.d == kD && a.c1 <= 64 && a.fields <= kMaxWgFields &&
-         (k == 1 || k == 3 || k == 5 || k == 7) && aligned16(a.e0) && aligned16(a.e1) &&
-         aligned16(a.de0) && aligned16(a.de1) && aligned16(a.g);
+  return is_bf16 && !a.hadamard && a.d == kD && a.fields <= kMaxWgFields &&
+         (k == 1 || k == 3 || k == 5 || k == 7) && wg_mtiles(k, a.c1) <= wg_max_mtiles(k) &&
+         aligned16(a.e0) && aligned16(a.e1) && aligned16(a.de0) && aligned16(a.de1) &&
+         aligned16(a.g);
 }
 
 Args make_args(const void* e0, const void* e1, int nf0, long long fs0, long long bs0,
@@ -1037,9 +1082,11 @@ int cffm_cross_conv1_bwd_blocks(int batch, int wgmma) {
   return (batch + ebl - 1) / ebl;
 }
 
-// Largest C1 the kernels take (the CUDA-core kernel's kCG channels per
-// thread over kPC pairs; the wgmma kernel's C1 <= 64).
-int cffm_cross_conv1_bwd_max_channels() { return kThreads / kPC * kCG; }
+// 1 when the backward takes layer 1 at (d, k, c1, hadamard): the
+// CUDA-core kernel takes every shape the wgmma kernel does, and more.
+int cffm_cross_conv1_bwd_takes(int d, int k, int c1, int hadamard) {
+  return core_takes(d, k, c1, hadamard) ? 1 : 0;
+}
 
 // Returns a cudaError_t; 0 means both kernels were launched. wgmma says
 // which kernel and weight layout, and must be what cffm_cross_conv1_bwd_wgmma
@@ -1064,7 +1111,7 @@ int cffm_cross_conv1_bwd(int is_bf16, int wgmma, const void* e0, const void* e1,
   a.lin_col = lin_col;
   a.w_phys = w_phys;
   a.ebl = examples_per_block(batch);
-  if (fields < 2 || d < 1 || c1 < 1 || a.c1p / kCG * kPC > kThreads ||
+  if (fields < 2 || !core_takes(d, k, c1, hadamard) ||
       (hadamard && hacc == nullptr) || wgmma != (wgmma_path(a, is_bf16, k) ? 1 : 0) ||
       (wgmma && glin != nullptr && (lin_col % 8 != 0 || w_phys % 8 != 0)))
     return cudaErrorInvalidValue;

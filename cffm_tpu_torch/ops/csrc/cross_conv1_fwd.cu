@@ -202,6 +202,7 @@ cudaError_t launch_k(const Args& a, int k, cudaStream_t stream) {
     case 3: return launch<T, 3>(a, stream);
     case 5: return launch<T, 5>(a, stream);
     case 7: return launch<T, 7>(a, stream);
+    case 9: return launch<T, 9>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -640,14 +641,15 @@ cudaError_t launch_wgmma_mt(const Args& a, cudaStream_t stream) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-// The tensor-core path reads field rows with 16-byte loads.
+// The tensor-core path reads field rows with 16-byte loads; its m-tiles
+// are instantiated up to 7 (k=9 at C1=64 takes the CUDA-core kernel).
 bool wgmma_path(int is_bf16, const void* e0, const void* e1, long long fs0, long long bs0,
-                long long fs1, long long bs1, int fields, int d, int c1) {
+                long long fs1, long long bs1, int fields, int d, int k, int c1) {
   const long long strides[] = {fs0, bs0, fs1, bs1};
   for (long long st : strides)
     if (st % 8 != 0) return false;
-  return is_bf16 && d == kD && c1 <= 64 && fields <= kMaxFields && aligned16(e0) &&
-         aligned16(e1);
+  return is_bf16 && d == kD && c1 <= 64 && wg_mtiles(k, c1) <= 7 && fields <= kMaxFields &&
+         aligned16(e0) && aligned16(e1);
 }
 
 }  // namespace
@@ -663,8 +665,8 @@ int cffm_cross_conv1_fwd_channel_tile() { return kTM; }
 // the CUDA-core kernel.
 int cffm_cross_conv1_fwd_wgmma(int is_bf16, const void* e0, const void* e1, long long fs0,
                                long long bs0, long long fs1, long long bs1, int fields, int d,
-                               int c1) {
-  return wgmma_path(is_bf16, e0, e1, fs0, bs0, fs1, bs1, fields, d, c1) ? 1 : 0;
+                               int k, int c1) {
+  return wgmma_path(is_bf16, e0, e1, fs0, bs0, fs1, bs1, fields, d, k, c1) ? 1 : 0;
 }
 
 // Returns a cudaError_t; 0 means the kernel was launched. wgmma says which
@@ -699,7 +701,7 @@ int cffm_cross_conv1_fwd(int is_bf16, int wgmma, const void* e0, const void* e1,
   a.xp = a.ngx * kTN + k - 1;
   if (batch == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wgmma != (wgmma_path(is_bf16, e0, e1, fs0, bs0, fs1, bs1, fields, d, c1) ? 1 : 0) ||
+  if (wgmma != (wgmma_path(is_bf16, e0, e1, fs0, bs0, fs1, bs1, fields, d, k, c1) ? 1 : 0) ||
       (reinterpret_cast<uintptr_t>(y) & 3) != 0)
     return cudaErrorInvalidValue;
   if (wgmma) return launch_wgmma_mt(a, s);

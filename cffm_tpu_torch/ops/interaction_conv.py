@@ -34,10 +34,9 @@ A wrapper launches the CUDA kernel for a CUDA tensor and takes the plain
 PyTorch version (`cross_conv1_reference`, `cross_conv1_bwd_reference`)
 for a CPU tensor; any other device raises. Each forward entry counts its
 kernel launches in its `launches` attribute, a plain integer, and
-`cross_conv1_bwd.launches` counts the backward kernel's. Shapes no kernel
-is built for are routed by gates decided from shapes before any launch
-(`kernel_takes_width`, `bwd_kernel_takes`): on the card they take the
-plain conv, or the plain backward (`cross_conv1_bwd_plain.launches`).
+`cross_conv1_bwd.launches` counts the backward kernel's. On the card a
+shape the kernels are not built for raises before any launch, decided
+from shapes (`kernel_takes_width`, `bwd_kernel_takes`).
 """
 
 from __future__ import annotations
@@ -56,10 +55,12 @@ from cffm_tpu_torch.ops.cross import (build_cross_map, conv1d_same,
 _SOURCE = "cross_conv1_fwd"
 _BWD_SOURCE = "cross_conv1_bwd"
 # conv widths the kernels are instantiated for (`kernel_takes_width`)
-KERNEL_WIDTHS = (1, 3, 5, 7)
-# channels every backward kernel takes: cffm_cross_conv1_bwd_max_channels()
-# of csrc/cross_conv1_bwd.cu (chip_smoke.py checks that the two agree)
-BWD_MAX_CHANNELS = 64
+KERNEL_WIDTHS = (1, 3, 5, 7, 9)
+# The backward's CUDA-core kernel's limits (csrc/cross_conv1_bwd.cu
+# core_takes): channels (two groups of 8 per thread over 32 pairs) and
+# dynamic shared memory (the H100's 227 KB less the static pair tables)
+BWD_MAX_CHANNELS = 128
+BWD_SMEM_MAX = 232448 - 256
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -69,23 +70,29 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def kernel_takes_width(k: int) -> bool:
-    """Whether the fused kernels are built for conv width k. Any other k
-    (even, or odd outside KERNEL_WIDTHS) takes the plain conv path, in
-    `make_interaction_fn` and in the model's full-rows gates."""
+    """Whether the fused kernels are built for conv width k. The model
+    sends every odd k to them, as the JAX package sends every odd k to its
+    Pallas kernels; on the card an odd k outside KERNEL_WIDTHS raises."""
     return k in KERNEL_WIDTHS
 
 
-def bwd_kernel_takes(cfg: ModelConfig, c1: int, dtype) -> str | None:
-    """The backward kernel that takes layer 1 of C1 channels in dtype:
-    "wgmma" (the tensor-core kernel: bf16 field-aware rows with d=16, when
-    the rows are also 16-byte aligned and F <= 255), "cuda_cores" (f32,
-    hadamard, other d), or None for a shape no kernel takes (C1 > BWD_MAX_CHANNELS), whose
-    backward on the card is the plain one (`cross_conv1_bwd_plain`)."""
-    if c1 > BWD_MAX_CHANNELS:
-        return None
-    if dtype == torch.bfloat16 and cfg.cross == "field_aware" and cfg.embed_dim == 16:
-        return "wgmma"
-    return "cuda_cores"
+def bwd_kernel_takes(cfg: ModelConfig, c1: int, device=None) -> bool:
+    """Whether the backward kernels take layer 1 of C1 channels at the
+    config's k, d and cross (the dtype does not matter: the CUDA-core
+    kernel stages f32 either way, and the tensor-core kernel takes a subset
+    of its shapes). On the card `cross_conv1_bwd` raises for a shape they
+    do not take. On a CUDA device the library decides
+    (cffm_cross_conv1_bwd_takes); otherwise its rule is evaluated here,
+    so that a CPU test sees the same decision (chip_smoke.py checks that
+    the two agree)."""
+    k, d, had = cfg.conv_kernel, cfg.embed_dim, int(cfg.cross == "hadamard")
+    if device is not None and torch.device(device).type == "cuda":
+        return bool(_bwd_library().cffm_cross_conv1_bwd_takes(d, k, c1, had))
+    c1p = -(-c1 // 8) * 8
+    xp = -(-d // 8) * 8 + k - 1
+    smem = 4 * (k * c1p * 32 + 8 * xp * c1p + 8 * 32 * xp + (2 + had) * 8 * 32 * d)
+    return (kernel_takes_width(k) and d >= 1 and 1 <= c1 <= BWD_MAX_CHANNELS
+            and smem <= BWD_SMEM_MAX)
 
 
 # ---------------------------------------------------------------------------
@@ -255,7 +262,7 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.cffm_cross_conv1_fwd_channel_tile.argtypes = []
         lib.cffm_cross_conv1_fwd_channel_tile.restype = ctypes.c_int
-        lib.cffm_cross_conv1_fwd_wgmma.argtypes = [i, p, p, ll, ll, ll, ll, i, i, i]
+        lib.cffm_cross_conv1_fwd_wgmma.argtypes = [i, p, p, ll, ll, ll, ll, i, i, i, i]
         lib.cffm_cross_conv1_fwd_wgmma.restype = ctypes.c_int
     return lib
 
@@ -275,8 +282,8 @@ def _bwd_library() -> ctypes.CDLL:
         lib.cffm_cross_conv1_bwd_wgmma.restype = ctypes.c_int
         lib.cffm_cross_conv1_bwd_pair_chunk.argtypes = [i, i]
         lib.cffm_cross_conv1_bwd_pair_chunk.restype = ctypes.c_int
-        lib.cffm_cross_conv1_bwd_max_channels.argtypes = []
-        lib.cffm_cross_conv1_bwd_max_channels.restype = ctypes.c_int
+        lib.cffm_cross_conv1_bwd_takes.argtypes = [i, i, i, i]
+        lib.cffm_cross_conv1_bwd_takes.restype = ctypes.c_int
     return lib
 
 
@@ -315,9 +322,9 @@ def _launch(parts, w1: torch.Tensor, cfg: ModelConfig, batch: int, lin: bool):
 
     parts: [(tensor, num_fields, field_stride, batch_stride)], one or two
     CUDA tensors of one dtype whose field rows have contiguous lanes.
-    bf16 rows with d=16, C1 <= 64 and 16-byte aligned rows run on the
-    tensor cores (wgmma), with the weights in `wgmma_weights`' layout;
-    every other shape, and f32, on the CUDA cores.
+    bf16 rows with d=16, C1 <= 64, k*C1 <= 448 and 16-byte aligned rows
+    run on the tensor cores (wgmma), with the weights in `wgmma_weights`'
+    layout; every other shape, and f32, on the CUDA cores.
     Returns (y (B, C1, d) in the input dtype, lin (B,) f32 or None)."""
     dtype, dev = _check_launch(parts, w1, cfg)
     k = cfg.conv_kernel
@@ -327,7 +334,7 @@ def _launch(parts, w1: torch.Tensor, cfg: ModelConfig, batch: int, lin: bool):
     e1, _, fs1, bs1 = parts[-1]
     is_bf16 = int(dtype == torch.bfloat16)
     wgmma = lib.cffm_cross_conv1_fwd_wgmma(is_bf16, e0.data_ptr(), e1.data_ptr(), fs0, bs0,
-                                            fs1, bs1, cfg.num_fields, cfg.embed_dim, c1)
+                                            fs1, bs1, cfg.num_fields, cfg.embed_dim, k, c1)
     if wgmma:
         wp = wgmma_weights(w1, dtype, dev)
     else:
@@ -358,19 +365,20 @@ def cross_conv1_bwd(parts, dparts, w1: torch.Tensor, gy: torch.Tensor,
     the rows and of their gradient, one or two CUDA tensors each, with the
     same field partition. gy (B, C1, d); glin (B,) or None; w_phys: the
     lanes of one field row (table_width for the full-rows entries).
-    Field-aware bf16 rows with d=16, C1 <= 64 and 16-byte aligned rows run
-    on the tensor cores (wgmma), with the weights in `bwd_wgmma_weights`'
-    layout; every other shape, and f32, on the CUDA cores."""
+    Field-aware bf16 rows with d=16, C1 <= 64 (C1 <= 128 at k=3), k <= 7
+    and 16-byte aligned rows run on the tensor cores (wgmma), with the
+    weights in `bwd_wgmma_weights`' layout; every other shape, and f32, on
+    the CUDA cores. Raises for a shape `bwd_kernel_takes` refuses."""
     dtype, dev = _check_launch(parts, w1, cfg)
     k, f, d = cfg.conv_kernel, cfg.num_fields, cfg.embed_dim
     c1, p, _ = w1.shape
     batch = gy.shape[0]
     if tuple(gy.shape) != (batch, c1, d) or (glin is not None and tuple(glin.shape) != (batch,)):
         raise ValueError(f"gy must be (B, {c1}, {d}) and glin (B,)")
+    if not bwd_kernel_takes(cfg, c1, dev):
+        raise ValueError(f"cross_conv1 backward kernels do not take C1={c1} at k={k}, "
+                         f"d={d}, cross={cfg.cross} (see bwd_kernel_takes)")
     lib = _bwd_library()
-    if c1 > lib.cffm_cross_conv1_bwd_max_channels():
-        raise ValueError(f"cross_conv1 backward kernel takes C1 <= "
-                         f"{lib.cffm_cross_conv1_bwd_max_channels()}, got {c1}")
     for t, _, _, _ in dparts:
         if t.device != dev or t.dtype != dtype or t.stride(-1) != 1:
             raise ValueError("gradient parts must match the rows' device and dtype")
@@ -481,35 +489,20 @@ class _CrossConv1(torch.autograd.Function):
         spec = ctx.spec
         cfg, kind = spec.cfg, spec.kind
         w1, *parts = ctx.saved_tensors
-        glin = glin if spec.lin else None
-        if parts[0].device.type != "cuda":
-            dw, dparts = _plain_bwd(kind, parts, w1, gy, glin, cfg)
-        elif bwd_kernel_takes(cfg, w1.shape[0], parts[0].dtype):
+        if parts[0].device.type == "cuda":
             dparts = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in parts]
             w_phys = cfg.table_width if spec.lin else cfg.row_width
             dw = cross_conv1_bwd(_descriptors(kind, cfg, parts),
-                                 _descriptors(kind, cfg, dparts), w1, gy, glin, cfg, w_phys)
+                                 _descriptors(kind, cfg, dparts), w1, gy,
+                                 glin if spec.lin else None, cfg, w_phys)
+        elif kind == "sliced":
+            de, dw = cross_conv1_bwd_reference(parts[0], w1, gy, cfg)
+            dparts = [de]
         else:
-            dw, dparts = cross_conv1_bwd_plain(kind, parts, w1, gy, glin, cfg)
+            drows, dw = _rows_bwd_reference(_plain_rows(kind, parts, cfg), w1, gy,
+                                            glin, cfg)
+            dparts = _split_rows(kind, parts, drows)
         return (None, dw.to(w1.dtype), *dparts)
-
-
-def _plain_bwd(kind: str, parts, w1, gy, glin, cfg: ModelConfig):
-    """The plain backward of one entry: (dW1 (C1, P, k) f32, dparts)."""
-    if kind == "sliced":
-        de, dw = cross_conv1_bwd_reference(parts[0], w1, gy, cfg)
-        return dw, [de]
-    drows, dw = _rows_bwd_reference(_plain_rows(kind, parts, cfg), w1, gy, glin, cfg)
-    return dw, list(_split_rows(kind, parts, drows))
-
-
-def cross_conv1_bwd_plain(kind: str, parts, w1, gy, glin, cfg: ModelConfig):
-    """The plain backward on the card, for a shape that `bwd_kernel_takes`
-    gives to no kernel; counted in `launches` so that a run shows which
-    backward ran. Returns (dW1 (C1, P, k) f32, dparts)."""
-    out = _plain_bwd(kind, parts, w1, gy, glin, cfg)
-    cross_conv1_bwd_plain.launches += 1
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -593,15 +586,13 @@ def cross_conv1_lin_fm2(e_small: torch.Tensor, e_big: torch.Tensor,
 
 
 ENTRIES = (cross_conv1, cross_conv1_lin, cross_conv1_lin_fm, cross_conv1_lin_fm2)
-# the backward kernel's wrapper and the plain backward the gate sends the rest to
-BACKWARDS = (cross_conv1_bwd, cross_conv1_bwd_plain)
-for _fn in ENTRIES + BACKWARDS:
+for _fn in ENTRIES + (cross_conv1_bwd,):
     _fn.launches = 0
 
 
 def reset_launches():
-    """Set every forward entry's and both backwards' launch counts to 0."""
-    for fn in ENTRIES + BACKWARDS:
+    """Set every forward entry's and the backward's launch counts to 0."""
+    for fn in ENTRIES + (cross_conv1_bwd,):
         fn.launches = 0
 
 
@@ -625,9 +616,8 @@ def _conv_tail(x: torch.Tensor, conv_params, cfg: ModelConfig) -> torch.Tensor:
 def make_interaction_fn(use_kernel: bool = True):
     """Returns interaction_fn(emb, conv_params, cfg) -> flat features.
 
-    Layer 1 runs in the fused cross+conv1 entry (k in KERNEL_WIDTHS and
-    even d; other shapes take the reference conv, as an even k does in the
-    JAX package); bias, ReLU,
+    Layer 1 runs in the fused cross+conv1 entry (odd k and even d; other
+    shapes take the reference conv, as in the JAX package); bias, ReLU,
     pool and the remaining layers run in PyTorch. With use_kernel the fn
     also carries `.full_rows`, `.full_rows_fm` and `.full_rows_fm2`,
     which take raw physical table rows and return (feats, lin_sum); the
@@ -639,7 +629,7 @@ def make_interaction_fn(use_kernel: bool = True):
             m = build_cross_map(emb, cfg)
             return m.reshape(m.shape[0], -1)
         w1 = conv_params[0]["w"]
-        if use_kernel and kernel_takes_width(cfg.conv_kernel) and cfg.embed_dim % 2 == 0:
+        if use_kernel and cfg.conv_kernel % 2 == 1 and cfg.embed_dim % 2 == 0:
             x = cross_conv1(emb, w1, cfg)
         else:
             x = cross_conv1_reference(emb, w1, cfg)

@@ -24,17 +24,22 @@ nonzero without them, or when any phase fails. Phases, in order:
      then the tensor-core (wgmma) kernel's edges through the split
      field-major entry in bf16, each with those checks: B = 1, 7, 8, 131,
      4097, 65536; (k, C1) giving every m-tile count 1-7 of its tap window
-     (BWD_WIDTHS) at B=4096; an odd split nf0=7 at B=4097;
-  4b. parity_caps: the three shapes the kernels are not built for, each
-     through its gate on the card and held against the plain version, its
-     route printed from the launch counts: a bucketed adagrad update of a
-     (100000, 2560) table (flattened route, kernels 3-4, against kernel
-     7's plain version: table steps within 1% of the largest step, accum
-     within 2^-6 relative; rows outside the buckets bit-equal); C1=128
-     through the split field-major entry at B=4096 (forward kernel, plain
-     backward, phase-4 tolerances); k=9 layer 1 and conv tail, forward and
-     backward at B=4096 in f32 against float64 (1e-4 of the largest value,
-     no kernel); the gates' constants equal the libraries' caps;
+     and C1 up to 128 at k=3 (BWD_WIDTHS) at B=4096; an odd split nf0=7
+     at B=4097;
+  4b. parity_caps: the overrides past the named configs' shapes, each on
+     the card and held against the plain version, its route printed from
+     the launch counts: a bucketed adagrad update of a (100000, 2560)
+     table (kernel 7's gate sends it to kernels 3-4; against kernel 7's
+     plain version: table steps within 1% of the largest step, accum
+     within 2^-6 relative; rows outside the buckets bit-equal); through the
+     split field-major entry at B=4096 with the phase-4 tolerances, C1=128
+     in bf16 (kernel 1, kernel 2 on wgmma) and in f32 (kernel 2 on the
+     CUDA cores) and k=9 in bf16 (kernels 1 and 2 on the CUDA cores);
+     C1=128 sliced hadamard in bf16; k=9 layer 1 and conv tail, forward
+     and backward at B=4096 in f32 through kernels 1 and 2 against the
+     plain route in float64 (1e-4 of the largest value); the gates' CPU
+     rules equal the libraries' (kernel 7's width, and bwd_kernel_takes
+     over 216 (d, k, C1, cross));
   5. parity_segment: kernel 3 on the sorted big-field ids of one B=65536
      synthetic criteo_kaggle batch (zipf, hot segments) and on ids up to
      2^31-2: uids and count exact, empty slots zero, gsum within half a
@@ -555,8 +560,9 @@ def _check_rows_grad(drows, drows_ref, dw, dw_ref, glin, cfg, what: str) -> floa
 
 
 # (conv width k, C1) of the backward's tensor-core kernel: every m-tile
-# count 1-7 of its k*C1 tap-window rows
-BWD_WIDTHS = ((1, 32), (1, 64), (3, 32), (3, 64), (5, 32), (5, 64), (7, 32), (7, 48), (7, 64))
+# count 1-7 of its k*C1 tap-window rows, and C1 up to 128 at k=3
+BWD_WIDTHS = ((1, 32), (1, 64), (3, 32), (3, 64), (3, 96), (3, 128), (5, 32), (5, 64),
+              (7, 32), (7, 48), (7, 64))
 
 
 def _bwd_takes_wgmma(ic, cfg, es, eb, gy) -> bool:
@@ -902,7 +908,7 @@ def _counts():
     from cffm_tpu_torch.ops import sorted_segment as ss
     from cffm_tpu_torch.ops import streamed_update as su
 
-    out = {fn.__name__: fn.launches for fn in ic.ENTRIES + ic.BACKWARDS}
+    out = {fn.__name__: fn.launches for fn in ic.ENTRIES + (ic.cross_conv1_bwd,)}
     for fn in _counted(ss, su) + _counted_tools():
         out[fn.__name__] = fn.launches
     return out
@@ -1281,10 +1287,11 @@ def _routes(counts: dict) -> dict:
 
 
 def phase_parity_caps() -> dict:
-    """The three overrides the kernels are not built for, each on the card
-    through its gate and held against the plain version; prints the route
-    from the launch counters and checks the gates' constants against the
-    libraries' caps. Returns the routes."""
+    """The overrides past the named configs' shapes, each on the card and
+    held against the plain version: kernel 7's width (its gate sends a
+    wider table to kernels 3-4), C1=128 and k=9 (kernels 1 and 2 take
+    them). Prints each route from the launch counters; checks the gates'
+    CPU rules against the libraries. Returns the routes."""
     import numpy as np
     import torch
 
@@ -1294,12 +1301,19 @@ def phase_parity_caps() -> dict:
     from cffm_tpu_torch.optim import rowwise as rw
 
     cap = su._library().cffm_bucketed_max_width()
-    ch = ic._bwd_library().cffm_cross_conv1_bwd_max_channels()
+    grid = [(d, k, c1, cross) for d in (8, 16, 32) for k in (1, 3, 5, 7, 9, 11)
+            for c1 in (32, 64, 72, 96, 128, 136) for cross in ("field_aware", "hadamard")]
+    apart = []
+    for d, k, c1, cross in grid:
+        cfg = dataclasses.replace(_movielens_model(cross, "float32", d), conv_kernel=k)
+        if ic.bwd_kernel_takes(cfg, c1) != ic.bwd_kernel_takes(cfg, c1, "cuda"):
+            apart.append((d, k, c1, cross))
     print(f"parity_caps: bucketed width cap {cap} (BUCKETED_MAX_WIDTH "
-          f"{su.BUCKETED_MAX_WIDTH}), backward channel cap {ch} (BWD_MAX_CHANNELS "
-          f"{ic.BWD_MAX_CHANNELS}), kernel widths {ic.KERNEL_WIDTHS}", flush=True)
-    if cap != su.BUCKETED_MAX_WIDTH or ch != ic.BWD_MAX_CHANNELS:
-        fail("parity_caps: a gate's constant differs from its library's cap")
+          f"{su.BUCKETED_MAX_WIDTH}); bwd_kernel_takes' CPU rule against the library at "
+          f"{len(grid)} (d, k, C1, cross): {len(apart)} apart {apart[:4]}; kernel widths "
+          f"{ic.KERNEL_WIDTHS}", flush=True)
+    if cap != su.BUCKETED_MAX_WIDTH or apart:
+        fail("parity_caps: a gate's CPU rule differs from its library's")
     routes = {}
 
     # 1. kernel 7's width: a (100k, 2560) table (criteo_kaggle at embed_dim=64)
@@ -1348,65 +1362,96 @@ def phase_parity_caps() -> dict:
     del table, base, ref_t, g, state, ref_acc, step, ref_step
     torch.cuda.empty_cache()
 
-    # 2. kernel 2's channels: C1=128 through the split field-major entry
+    # 2. C1=128 through the split field-major entry (bf16: the tensor-core
+    # backward at 6 m-tiles; f32: the CUDA-core one, two channel groups a
+    # thread), then k=9 in bf16 (the CUDA-core forward and backward)
     gen = torch.Generator(device="cuda").manual_seed(22)
-    cfg = dataclasses.replace(_criteo_model("bfloat16"), conv_channels=(128, 64))
-    b, fs = 4096, cfg.small_field_prefix
-    (es, eb), w1 = _inputs(cfg, b, torch.bfloat16, gen, fm_split=fs)
-    gy = torch.randn((b, 128, cfg.embed_dim), generator=gen, device="cuda").to(torch.bfloat16)
-    glin = torch.randn((b,), generator=gen, device="cuda")
-    _reset_counts()
-    y, lin = ic.cross_conv1_lin_fm2(es, eb, w1, cfg)
-    drows, dw = _grad_rows(ic, cfg, "fm2", es, eb, w1, gy, glin)
-    torch.cuda.synchronize()
-    routes["c1_128"] = _routes(_counts())
-    rows = torch.cat([es, eb]).transpose(0, 1)
-    y_ref, lin_ref = ic._rows_reference(rows, w1, cfg)
-    yerr = (y.float() - y_ref.float()).abs().max().item()
-    print(f"parity_caps C1=128 fm2 bfloat16 B={b}: route {routes['c1_128']}; y max_abs_err="
-          f"{yerr:.3e} (rtol=atol=2e-2)", flush=True)
-    torch.testing.assert_close(y.float(), y_ref.float(), rtol=2e-2, atol=2e-2)
-    torch.testing.assert_close(lin, lin_ref, rtol=0.0, atol=1e-5)
-    drows_ref, dw_ref = ic._rows_bwd_reference(rows, w1, gy, glin, cfg)
-    _check_rows_grad(drows, drows_ref, dw, dw_ref, glin, cfg, f"caps C1=128 fm2 B={b}")
-    if routes["c1_128"] != {"cross_conv1_lin_fm2": 2, "cross_conv1_bwd_plain": 1}:
-        fail(f"parity_caps: C1=128 took {routes['c1_128']}, not the forward kernel and "
-             f"the plain backward")
-    del es, eb, rows, drows, drows_ref
-    torch.cuda.empty_cache()
+    b = 4096
+    for case, dtype, k, c1 in (("c1_128", "bfloat16", 3, 128), ("c1_128_f32", "float32", 3, 128),
+                               ("k9_fm2", "bfloat16", 9, 64)):
+        cfg = dataclasses.replace(_criteo_model(dtype), conv_channels=(c1, 64), conv_kernel=k)
+        dt = getattr(torch, dtype)
+        (es, eb), w1 = _inputs(cfg, b, dt, gen, fm_split=cfg.small_field_prefix)
+        gy = torch.randn((b, c1, cfg.embed_dim), generator=gen, device="cuda").to(dt)
+        glin = torch.randn((b,), generator=gen, device="cuda")
+        wgmma = dtype == "bfloat16" and _bwd_takes_wgmma(ic, cfg, es, eb, gy)
+        _reset_counts()
+        y, lin = ic.cross_conv1_lin_fm2(es, eb, w1, cfg)
+        drows, dw = _grad_rows(ic, cfg, "fm2", es, eb, w1, gy, glin)
+        torch.cuda.synchronize()
+        routes[case] = _routes(_counts())
+        rows = torch.cat([es, eb]).transpose(0, 1)
+        y_ref, lin_ref = ic._rows_reference(rows, w1, cfg)
+        tol = 2e-2 if dtype == "bfloat16" else 1e-4
+        yerr = (y.float() - y_ref.float()).abs().max().item()
+        print(f"parity_caps k={k} C1={c1} fm2 {dtype} B={b}: route {routes[case]}, backward "
+              f"{'wgmma' if wgmma else 'CUDA cores'}; y max_abs_err={yerr:.3e} "
+              f"(rtol=atol={tol})", flush=True)
+        torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol, atol=tol)
+        torch.testing.assert_close(lin, lin_ref, rtol=0.0, atol=1e-5)
+        drows_ref, dw_ref = ic._rows_bwd_reference(rows, w1, gy, glin, cfg)
+        _check_rows_grad(drows, drows_ref, dw, dw_ref, glin, cfg,
+                         f"caps k={k} C1={c1} fm2 {dtype} B={b}")
+        if routes[case] != {"cross_conv1_lin_fm2": 2, "cross_conv1_bwd": 1}:
+            fail(f"parity_caps: {case} took {routes[case]}, not kernels 1 and 2")
+        if wgmma != (case == "c1_128"):
+            fail(f"parity_caps: {case} took the {'wgmma' if wgmma else 'CUDA-core'} backward")
+        del es, eb, rows, drows, drows_ref
+        torch.cuda.empty_cache()
 
-    # 3. the conv width: k=9, layer 1 and the conv tail, forward and backward
+    # 3. C1=128 hadamard (sliced, movielens): the CUDA-core backward's dE sum
+    cfg = dataclasses.replace(_movielens_model("hadamard", "bfloat16"), conv_channels=(128, 64))
+    emb, w1 = _inputs(cfg, b, torch.bfloat16, gen)
+    gy = torch.randn((b, 128, cfg.embed_dim), generator=gen, device="cuda").to(torch.bfloat16)
+    _reset_counts()
+    e, w = emb.detach().requires_grad_(), w1.detach().requires_grad_()
+    y = ic.cross_conv1(e, w, cfg)
+    de, dw = torch.autograd.grad(y, (e, w), gy)
+    torch.cuda.synchronize()
+    routes["c1_128_hadamard"] = _routes(_counts())
+    torch.testing.assert_close(y.float(), ic.cross_conv1_reference(emb, w1, cfg).float(),
+                               rtol=2e-2, atol=2e-2)
+    de_ref, dw_ref = ic.cross_conv1_bwd_reference(emb, w1, gy, cfg)
+    err = (de.float() - de_ref.float()).abs().max().item()
+    print(f"parity_caps C1=128 sliced hadamard bfloat16 B={b}: route "
+          f"{routes['c1_128_hadamard']}; dE max_abs_err={err:.3e} (rtol=atol=2e-2)", flush=True)
+    torch.testing.assert_close(de.float(), de_ref.float(), rtol=2e-2, atol=2e-2)
+    _check_dw(dw, dw_ref, f"caps C1=128 sliced hadamard bfloat16 B={b}")
+    if routes["c1_128_hadamard"] != {"cross_conv1": 1, "cross_conv1_bwd": 1}:
+        fail(f"parity_caps: C1=128 hadamard took {routes['c1_128_hadamard']}")
+
+    # 4. k=9, layer 1 and the conv tail, forward and backward, f32 against
+    # the plain route in float64
     cfg = dataclasses.replace(_criteo_model("float32"), conv_kernel=9)
     emb, w1 = _inputs(cfg, b, torch.float32, gen)
     layers = [{"w": w1, "b": torch.randn((64,), generator=gen, device="cuda")},
               {"w": torch.randn((64, 64, 9), generator=gen, device="cuda") * 0.04,
                "b": torch.randn((64,), generator=gen, device="cuda")}]
-    fn = ic.make_interaction_fn()
 
-    def fwd_bwd(e, lays, gout):
+    def fwd_bwd(fn, e, lays, gout):
         e = e.detach().requires_grad_()
         lays = [{n: t.detach().requires_grad_() for n, t in lay.items()} for lay in lays]
         out = fn(e, lays, cfg)
         grads = torch.autograd.grad(out, [e] + [t for lay in lays for t in lay.values()], gout)
         return out.detach(), grads
 
+    plain = ic.make_interaction_fn(use_kernel=False)
+    gout = torch.randn(plain(emb, layers, cfg).shape, generator=gen, device="cuda")
     _reset_counts()
-    out = fn(emb, layers, cfg)
-    gout = torch.randn(out.shape, generator=gen, device="cuda")
-    out, grads = fwd_bwd(emb, layers, gout)
+    out, grads = fwd_bwd(ic.make_interaction_fn(), emb, layers, gout)
     torch.cuda.synchronize()
     routes["k9"] = _routes(_counts())
     f64 = [{n: t.double() for n, t in lay.items()} for lay in layers]
-    out_d, grads_d = fwd_bwd(emb.double(), f64, gout.double())
+    out_d, grads_d = fwd_bwd(plain, emb.double(), f64, gout.double())
     errs = [(a.double() - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
             for a, r in zip((out,) + grads, (out_d,) + grads_d)]
-    print(f"parity_caps k=9 sliced field_aware float32 B={b}: route {routes['k9'] or 'plain'}; "
-          f"output and grads max err / max|ref| {max(errs):.3e} against the plain version "
+    print(f"parity_caps k=9 sliced field_aware float32 B={b}: route {routes['k9']}; "
+          f"output and grads max err / max|ref| {max(errs):.3e} against the plain route "
           f"in float64 (1e-4)", flush=True)
-    if routes["k9"]:
-        fail(f"parity_caps: k=9 launched {routes['k9']}")
+    if routes["k9"] != {"cross_conv1": 1, "cross_conv1_bwd": 1}:
+        fail(f"parity_caps: k=9 took {routes['k9']}, not kernels 1 and 2")
     if max(errs) > 1e-4:
-        fail("parity_caps: k=9 on the card disagrees with the float64 plain version")
+        fail("parity_caps: k=9 on the card disagrees with the float64 plain route")
     return routes
 
 
