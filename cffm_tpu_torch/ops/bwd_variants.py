@@ -36,8 +36,6 @@ from cffm_tpu_torch.ops import _build
 from cffm_tpu_torch.ops import interaction_conv as ic
 
 _SOURCE = "cross_conv1_bwd_v1"
-# conv widths kernel 8a is instantiated for
-WIDTHS = (1, 3, 5, 7)
 
 
 def round_up(x: int, m: int) -> int:
@@ -92,8 +90,8 @@ def _check(emb3, w, g, glin, cfg: ModelConfig, v1: bool):
         raise ValueError("the backward variants need a field-aware cross with a "
                          "fused first-order column")
     k = cfg.conv_kernel
-    if k not in WIDTHS:
-        raise ValueError(f"k must be one of {WIDTHS}, got {k}")
+    if k % 2 != 1:
+        raise ValueError(f"the backward variants take odd k, got {k}")
     f, b, wp = emb3.shape
     if f != cfg.num_fields or wp != cfg.table_width:
         raise ValueError(f"emb3 must be ({cfg.num_fields}, B, {cfg.table_width}), "

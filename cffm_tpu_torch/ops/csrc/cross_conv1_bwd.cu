@@ -52,10 +52,12 @@ namespace {
 
 constexpr int kPC = 32;      // pairs per chunk
 constexpr int kEB = 8;       // examples per group (kEB * kPC == kThreads)
-constexpr int kCG = 8;       // channels per dW group; a thread takes NPT groups
-constexpr int kMaxNPT = 2;   // dW groups per thread: C1 <= kThreads / kPC * kCG * kMaxNPT
+constexpr int kCG = 8;       // channels per dW group, one group a thread
+constexpr int kMaxUnrolled = 9;  // widths k <= this take their own instantiation (KT = k)
+constexpr int kRT = 8;       // taps per slice of the run-time-k instantiation
 constexpr int kTN = 8;       // positions per dM step
 constexpr int kThreads = 256;
+constexpr int kMaxCC = kThreads / kPC * kCG;  // channels per slice of the CUDA-core kernel
 constexpr int kTargetBlocks = 264;  // two per SM on a 132-SM card
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -83,8 +85,10 @@ struct Args {
   const float* glin;       // (batch,) f32 or null
   float* hacc;             // (batch, fields, d) f32 scratch (hadamard)
   float* dwp;              // (blocks, K, P, c1) f32 partials
-  int batch, fields, d, c1, c1p, hadamard, lin_col, w_phys;
+  float* dmacc;            // (batch, kPC, d) f32 scratch: dM over slices (CUDA cores)
+  int batch, fields, d, k, c1, hadamard, lin_col, w_phys;
   int ebl, xp, ngx;        // examples per block, padded row, position groups
+  int cc, ncs, nts;        // CUDA-core slices: channels per slice, channel and tap slices
 };
 
 template <typename T>
@@ -122,31 +126,39 @@ __device__ void diag_and_pads(const Args& a, long long b_begin, long long b_end)
   }
 }
 
-template <typename T, int K, int NPT>
+// The CUDA-core kernel walks layer 1 in slices of at most kMaxCC channels
+// and KT taps (KT = k for the unrolled widths, kRT otherwise): shared
+// memory and a thread's dW registers are sized by the slice, not by C1 or
+// k. Per pair chunk it runs the block's examples once per slice; dM's f32
+// sum is carried from slice to slice in the scratch dmacc (batch, kPC, d),
+// and the last slice forms dE from it.
+template <typename T, int KT>
 __global__ void __launch_bounds__(kThreads) cross_conv1_bwd_kernel(Args a) {
   extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);   // (K, c1p, kPC)
-  float* gs = ws + K * a.c1p * kPC;              // (kEB, xp, c1p), halo k/2
-  float* ms = gs + kEB * a.xp * a.c1p;           // (kEB, kPC, xp), halo k/2
+  float* ws = reinterpret_cast<float*>(smem4);   // (KT, cc, kPC)
+  float* gs = ws + KT * a.cc * kPC;              // (kEB, xp, cc), halo k/2
+  float* ms = gs + kEB * a.xp * a.cc;            // (kEB, kPC, xp), halo k/2
   float* fa = ms + kEB * kPC * a.xp;             // (kEB, kPC, d): E side i
   float* fb = fa + kEB * kPC * a.d;              // (kEB, kPC, d): E side j
   float* dms = fb + kEB * kPC * a.d;             // (kEB, kPC, d): dM (hadamard only)
   __shared__ int pi_s[kPC];
   __shared__ int pj_s[kPC];
 
-  constexpr int kHalf = K / 2;
+  const int half = a.k / 2;
   const int pairs = a.fields * (a.fields - 1) / 2;
+  const int slices = a.ncs * a.nts;
   const int tid = threadIdx.x;
   const long long b_begin = static_cast<long long>(blockIdx.x) * a.ebl;
   const long long b_end = min(static_cast<long long>(a.batch), b_begin + a.ebl);
-  // dW role: one pair, NPT groups of kCG channels, gst groups apart
-  const int ncg = a.c1p / kCG;
-  const int gst = (ncg + NPT - 1) / NPT;
-  const int wpc = tid / gst;
-  const int wcg = tid - wpc * gst;
+  // dW role: one pair, one group of kCG channels of the slice
+  const int ncg = a.cc / kCG;
+  const int wpc = tid / ncg;
+  const int wcg = tid - wpc * ncg;
   // dM role: one (example, pair)
   const int me = tid / kPC;
   const int mpc = tid - me * kPC;
+  const T* wg = static_cast<const T*>(a.w);
+  const T* gg = static_cast<const T*>(a.g);
 
   for (int p0 = 0; p0 < pairs; p0 += kPC) {
     const int npc = min(kPC, pairs - p0);
@@ -159,176 +171,188 @@ __global__ void __launch_bounds__(kThreads) cross_conv1_bwd_kernel(Args a) {
       pi_s[tid] = i;
       pj_s[tid] = i + 1 + rem;
     }
-    const T* wg = static_cast<const T*>(a.w);
-    for (int u = tid; u < K * a.c1p * kPC; u += kThreads) {
-      const int t = u / (a.c1p * kPC);
-      const int r = u - t * a.c1p * kPC;
-      const int c = r / kPC;
-      const int pc = r - c * kPC;
-      ws[u] = (c < a.c1 && pc < npc)
-                  ? to_f(wg[(static_cast<long long>(t) * a.c1 + c) * pairs + p0 + pc])
-                  : 0.f;
-    }
+    for (int sl = 0; sl < slices; ++sl) {
+      const int c0 = (sl / a.nts) * a.cc, t0 = (sl % a.nts) * KT;
+      const int nc = min(a.cc, a.c1 - c0), nt = min(KT, a.k - t0);
+      const bool first = sl == 0, last = sl == slices - 1;
+      __syncthreads();  // the previous slice's readers of ws are done; pair tables set
+      for (int u = tid; u < KT * a.cc * kPC; u += kThreads) {
+        const int t = u / (a.cc * kPC);
+        const int r = u - t * a.cc * kPC;
+        const int c = r / kPC;
+        const int pc = r - c * kPC;
+        ws[u] = (t < nt && c < nc && pc < npc)
+                    ? to_f(wg[(static_cast<long long>(t0 + t) * a.c1 + c0 + c) * pairs + p0 + pc])
+                    : 0.f;
+      }
 
-    float acc[NPT][kCG][K];
-#pragma unroll
-    for (int q = 0; q < NPT; ++q)
+      float acc[kCG][KT];
 #pragma unroll
       for (int ci = 0; ci < kCG; ++ci)
 #pragma unroll
-        for (int t = 0; t < K; ++t) acc[q][ci][t] = 0.f;
+        for (int t = 0; t < KT; ++t) acc[ci][t] = 0.f;
 
-    for (long long b0 = b_begin; b0 < b_end; b0 += kEB) {
-      __syncthreads();  // previous group's tiles (and the pair tables) settled
-      // g, halo-padded, channels innermost
-      const T* gg = static_cast<const T*>(a.g);
-      for (int u = tid; u < kEB * a.xp * a.c1p; u += kThreads) {
-        const int e = u / (a.xp * a.c1p);
-        const int r = u - e * a.xp * a.c1p;
-        const int q = r / a.c1p;
-        const int c = r - q * a.c1p;
-        const int x = q - kHalf;
-        const long long b = b0 + e;
-        gs[u] = (b < b_end && x >= 0 && x < a.d && c < a.c1)
-                    ? to_f(gg[(b * a.c1 + c) * a.d + x])
-                    : 0.f;
-      }
-      // cross map chunk and its factors
-      for (int u = tid; u < kEB * kPC * a.xp; u += kThreads) {
-        const int e = u / (kPC * a.xp);
-        const int r = u - e * kPC * a.xp;
-        const int pc = r / a.xp;
-        const int x = r - pc * a.xp - kHalf;
-        const long long b = b0 + e;
-        float v = 0.f;
-        if (x >= 0 && x < a.d) {
-          float av = 0.f, bv = 0.f;
-          if (pc < npc && b < b_end) {
-            const int i = pi_s[pc], j = pj_s[pc];
-            const T* ri = in_row<T>(a, i, b);
-            const T* rj = in_row<T>(a, j, b);
-            av = a.hadamard ? to_f(ri[x]) : to_f(ri[j * a.d + x]);
-            bv = a.hadamard ? to_f(rj[x]) : to_f(rj[i * a.d + x]);
-            v = round_t<T>(av * bv);
-          }
-          fa[(e * kPC + pc) * a.d + x] = av;
-          fb[(e * kPC + pc) * a.d + x] = bv;
+      for (long long b0 = b_begin; b0 < b_end; b0 += kEB) {
+        __syncthreads();  // previous group's tiles settled; ws visible
+        // the slice's channels of g, halo-padded, channels innermost
+        for (int u = tid; u < kEB * a.xp * a.cc; u += kThreads) {
+          const int e = u / (a.xp * a.cc);
+          const int r = u - e * a.xp * a.cc;
+          const int q = r / a.cc;
+          const int c = r - q * a.cc;
+          const int x = q - half;
+          const long long b = b0 + e;
+          gs[u] = (b < b_end && x >= 0 && x < a.d && c < nc)
+                      ? to_f(gg[(b * a.c1 + c0 + c) * a.d + x])
+                      : 0.f;
         }
-        ms[u] = v;
-      }
-      __syncthreads();
+        // cross map chunk and its factors
+        for (int u = tid; u < kEB * kPC * a.xp; u += kThreads) {
+          const int e = u / (kPC * a.xp);
+          const int r = u - e * kPC * a.xp;
+          const int pc = r / a.xp;
+          const int x = r - pc * a.xp - half;
+          const long long b = b0 + e;
+          float v = 0.f;
+          if (x >= 0 && x < a.d) {
+            float av = 0.f, bv = 0.f;
+            if (pc < npc && b < b_end) {
+              const int i = pi_s[pc], j = pj_s[pc];
+              const T* ri = in_row<T>(a, i, b);
+              const T* rj = in_row<T>(a, j, b);
+              av = a.hadamard ? to_f(ri[x]) : to_f(ri[j * a.d + x]);
+              bv = a.hadamard ? to_f(rj[x]) : to_f(rj[i * a.d + x]);
+              v = round_t<T>(av * bv);
+            }
+            fa[(e * kPC + pc) * a.d + x] = av;
+            fb[(e * kPC + pc) * a.d + x] = bv;
+          }
+          ms[u] = v;
+        }
+        __syncthreads();
 
-      // dW: acc[q][ci][t] += g[e, c0+ci, x] * M[e, wpc, x+t-k/2], c0 = (wcg + q*gst)*kCG
-      if (wpc < npc) {
-        for (int e = 0; e < kEB && b0 + e < b_end; ++e) {
-          const float* mrow = ms + (e * kPC + wpc) * a.xp;
-          const float* grow = gs + e * a.xp * a.c1p + wcg * kCG;
-          for (int x = 0; x < a.d; ++x) {
-#pragma unroll
-            for (int q = 0; q < NPT; ++q) {
-              if (wcg + q * gst >= ncg) continue;
-              const float* gq = grow + (x + kHalf) * a.c1p + q * gst * kCG;
+        // dW: acc[ci][t] += g[e, c0 + wcg*kCG + ci, x] * M[e, wpc, x + t0 + t - k/2]
+        if (wpc < npc && wcg * kCG < nc) {
+          for (int e = 0; e < kEB && b0 + e < b_end; ++e) {
+            const float* mrow = ms + (e * kPC + wpc) * a.xp + t0;
+            const float* grow = gs + e * a.xp * a.cc + wcg * kCG;
+            for (int x = 0; x < a.d; ++x) {
+              const float* gq = grow + (x + half) * a.cc;
               const float4 g0 = *reinterpret_cast<const float4*>(gq);
               const float4 g1 = *reinterpret_cast<const float4*>(gq + 4);
               const float gv[kCG] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
 #pragma unroll
-              for (int t = 0; t < K; ++t) {
-                const float mv = mrow[x + t];
+              for (int t = 0; t < KT; ++t) {
+                if (t < nt) {
+                  const float mv = mrow[x + t];
 #pragma unroll
-                for (int ci = 0; ci < kCG; ++ci)
-                  acc[q][ci][t] = fmaf(gv[ci], mv, acc[q][ci][t]);
+                  for (int ci = 0; ci < kCG; ++ci) acc[ci][t] = fmaf(gv[ci], mv, acc[ci][t]);
+                }
               }
             }
           }
         }
-      }
 
-      // dM: dm[n] = sum_c sum_t W[t,c,mpc] * gs[me, x0+n-t+2*(k/2), c]
-      const long long mb = b0 + me;
-      const bool mactive = mpc < npc && mb < b_end;
-      for (int xg = 0; xg < a.ngx; ++xg) {
-        float dm[kTN];
+        // dM over the slice, continuing the earlier slices' sum (so that the
+        // channels are summed in the order one slice would take them):
+        // dm[n] += sum_c sum_t W[t0+t, c0+c, mpc] * g[me, c0+c, x0+n-(t0+t)+k/2];
+        // the window starts at q0 in gs's row (negative only on a short
+        // last tap slice, whose missing taps have zero weights)
+        const long long mb = b0 + me;
+        const bool mactive = mpc < npc && mb < b_end;
+        const int q0 = a.k - t0 - KT;
+        for (int xg = 0; xg < a.ngx; ++xg) {
+          float* acc_dm = a.dmacc ? a.dmacc + (mb * kPC + mpc) * a.d + xg * kTN : nullptr;
+          float dm[kTN];
 #pragma unroll
-        for (int n = 0; n < kTN; ++n) dm[n] = 0.f;
-        if (mactive) {
-          const float* gwin = gs + (me * a.xp + xg * kTN) * a.c1p;
-          for (int c = 0; c < a.c1; ++c) {
-            float wv[K];
+          for (int n = 0; n < kTN; ++n)
+            dm[n] = (!first && mactive && xg * kTN + n < a.d) ? acc_dm[n] : 0.f;
+          if (mactive) {
+            const float* gwin = gs + (me * a.xp + xg * kTN) * a.cc;
+            for (int c = 0; c < nc; ++c) {
+              float wv[KT];
 #pragma unroll
-            for (int t = 0; t < K; ++t) wv[t] = ws[(t * a.c1p + c) * kPC + mpc];
-            float gw[kTN + K - 1];
+              for (int t = 0; t < KT; ++t) wv[t] = ws[(t * a.cc + c) * kPC + mpc];
+              float gw[kTN + KT - 1];
 #pragma unroll
-            for (int q = 0; q < kTN + K - 1; ++q) gw[q] = gwin[q * a.c1p + c];
+              for (int q = 0; q < kTN + KT - 1; ++q)
+                gw[q] = q0 + q >= 0 ? gwin[(q0 + q) * a.cc + c] : 0.f;
 #pragma unroll
-            for (int t = 0; t < K; ++t)
+              for (int t = 0; t < KT; ++t)
 #pragma unroll
-              for (int n = 0; n < kTN; ++n) dm[n] = fmaf(wv[t], gw[n + K - 1 - t], dm[n]);
+                for (int n = 0; n < kTN; ++n) dm[n] = fmaf(wv[t], gw[n + KT - 1 - t], dm[n]);
+            }
+          }
+          if (!mactive) continue;
+          if (!last) {
+#pragma unroll
+            for (int n = 0; n < kTN; ++n)
+              if (xg * kTN + n < a.d) acc_dm[n] = dm[n];
+            continue;
+          }
+          const int i = pi_s[mpc], j = pj_s[mpc];
+          const float* fav = fa + (me * kPC + mpc) * a.d;
+          const float* fbv = fb + (me * kPC + mpc) * a.d;
+          if (a.hadamard) {
+#pragma unroll
+            for (int n = 0; n < kTN; ++n) {
+              const int x = xg * kTN + n;
+              if (x < a.d) dms[(me * kPC + mpc) * a.d + x] = round_t<T>(dm[n]);
+            }
+          } else {
+            T* di = out_row<T>(a, i, mb) + j * a.d;
+            T* dj = out_row<T>(a, j, mb) + i * a.d;
+#pragma unroll
+            for (int n = 0; n < kTN; ++n) {
+              const int x = xg * kTN + n;
+              if (x < a.d) {
+                const float dmt = round_t<T>(dm[n]);
+                di[x] = from_f<T>(dmt * fbv[x]);
+                dj[x] = from_f<T>(dmt * fav[x]);
+              }
+            }
           }
         }
-        if (!mactive) continue;
-        const int i = pi_s[mpc], j = pj_s[mpc];
-        const float* fav = fa + (me * kPC + mpc) * a.d;
-        const float* fbv = fb + (me * kPC + mpc) * a.d;
-        if (a.hadamard) {
-#pragma unroll
-          for (int n = 0; n < kTN; ++n) {
-            const int x = xg * kTN + n;
-            if (x < a.d) dms[(me * kPC + mpc) * a.d + x] = round_t<T>(dm[n]);
-          }
-        } else {
-          T* di = out_row<T>(a, i, mb) + j * a.d;
-          T* dj = out_row<T>(a, j, mb) + i * a.d;
-#pragma unroll
-          for (int n = 0; n < kTN; ++n) {
-            const int x = xg * kTN + n;
-            if (x < a.d) {
-              const float dmt = round_t<T>(dm[n]);
-              di[x] = from_f<T>(dmt * fbv[x]);
-              dj[x] = from_f<T>(dmt * fav[x]);
+
+        if (a.hadamard && last) {
+          __syncthreads();
+          // one thread per (example, field, position): sums in pair order
+          const bool last_chunk = p0 + kPC >= pairs;
+          for (int u = tid; u < kEB * a.fields * a.d; u += kThreads) {
+            const int e = u / (a.fields * a.d);
+            const int r = u - e * a.fields * a.d;
+            const int f = r / a.d;
+            const int x = r - f * a.d;
+            const long long b = b0 + e;
+            if (b >= b_end) continue;
+            float* h = a.hacc + (b * a.fields + f) * a.d + x;
+            float s = p0 == 0 ? 0.f : *h;
+            for (int pc = 0; pc < npc; ++pc) {
+              const int o = (e * kPC + pc) * a.d + x;
+              if (pi_s[pc] == f) s += dms[o] * fb[o];
+              if (pj_s[pc] == f) s += dms[o] * fa[o];
+            }
+            if (last_chunk) {
+              out_row<T>(a, f, b)[x] = from_f<T>(s);
+            } else {
+              *h = s;
             }
           }
         }
       }
 
-      if (a.hadamard) {
-        __syncthreads();
-        // one thread per (example, field, position): sums in pair order
-        const bool last = p0 + kPC >= pairs;
-        for (int u = tid; u < kEB * a.fields * a.d; u += kThreads) {
-          const int e = u / (a.fields * a.d);
-          const int r = u - e * a.fields * a.d;
-          const int f = r / a.d;
-          const int x = r - f * a.d;
-          const long long b = b0 + e;
-          if (b >= b_end) continue;
-          float* h = a.hacc + (b * a.fields + f) * a.d + x;
-          float s = p0 == 0 ? 0.f : *h;
-          for (int pc = 0; pc < npc; ++pc) {
-            const int o = (e * kPC + pc) * a.d + x;
-            if (pi_s[pc] == f) s += dms[o] * fb[o];
-            if (pj_s[pc] == f) s += dms[o] * fa[o];
-          }
-          if (last) {
-            out_row<T>(a, f, b)[x] = from_f<T>(s);
-          } else {
-            *h = s;
-          }
-        }
-      }
-    }
-
-    if (wpc < npc) {
-      float* out = a.dwp + static_cast<long long>(blockIdx.x) * K * pairs * a.c1;
+      if (wpc < npc) {
+        float* out = a.dwp + static_cast<long long>(blockIdx.x) * a.k * pairs * a.c1;
 #pragma unroll
-      for (int q = 0; q < NPT; ++q)
-#pragma unroll
-        for (int t = 0; t < K; ++t)
+        for (int t = 0; t < KT; ++t)
 #pragma unroll
           for (int ci = 0; ci < kCG; ++ci) {
-            const int c = (wcg + q * gst) * kCG + ci;
-            if (wcg + q * gst < ncg && c < a.c1)
-              out[(static_cast<long long>(t) * pairs + p0 + wpc) * a.c1 + c] = acc[q][ci][t];
+            const int c = wcg * kCG + ci;
+            if (t < nt && c < nc)
+              out[(static_cast<long long>(t0 + t) * pairs + p0 + wpc) * a.c1 + c0 + c] =
+                  acc[ci][t];
           }
+      }
     }
     __syncthreads();  // pair tables are rewritten by the next chunk
   }
@@ -887,51 +911,57 @@ int examples_per_block(int batch) {
   return kEB * (per_block < 1 ? 1 : per_block);
 }
 
-// Dynamic shared memory of the CUDA-core kernel, f32: the weight chunk, g
-// and the cross map with their halos, the two factors and, for hadamard, dM.
-size_t core_smem(int d, int k, int c1, int hadamard) {
-  const size_t c1p = (c1 + kCG - 1) / kCG * kCG;
+// Taps per slice of the CUDA-core kernel: all of them for an unrolled
+// width, kRT for any other odd k.
+int taps_per_slice(int k) { return k <= kMaxUnrolled ? k : kRT; }
+
+// Dynamic shared memory of the CUDA-core kernel, f32, at cc channels per
+// slice: the weight slice, g's slice and the cross map with their halos,
+// the two factors and, for hadamard, dM.
+size_t core_smem(int d, int k, int cc, int hadamard) {
   const size_t xp = (d + kTN - 1) / kTN * kTN + k - 1;
-  return (k * c1p * kPC + kEB * xp * c1p + kEB * kPC * xp +
+  return (static_cast<size_t>(taps_per_slice(k)) * cc * kPC + kEB * xp * cc + kEB * kPC * xp +
           (hadamard ? 3 : 2) * static_cast<size_t>(kEB) * kPC * d) *
          sizeof(float);
 }
 
-// The shapes the CUDA-core kernel takes, and so the backward as a whole
-// (the wgmma kernel takes a subset): an instantiated k, at most kMaxNPT
-// channel groups per thread, and shared memory within the card's limit
-// less the static pair tables.
-bool core_takes(int d, int k, int c1, int hadamard) {
-  return (k == 1 || k == 3 || k == 5 || k == 7 || k == 9) && d >= 1 && c1 >= 1 &&
-         (c1 + kCG - 1) / kCG <= kThreads / kPC * kMaxNPT &&
-         core_smem(d, k, c1, hadamard) <= static_cast<size_t>(kSmemMax - 2 * kPC * 4);
+// Channels per slice: the most, a multiple of kCG up to kMaxCC, whose
+// shared memory fits the card's limit less the static pair tables; 0 if
+// none does.
+int core_channels(int d, int k, int c1, int hadamard) {
+  const int most = (c1 + kCG - 1) / kCG * kCG;
+  for (int cc = most < kMaxCC ? most : kMaxCC; cc >= kCG; cc -= kCG)
+    if (core_smem(d, k, cc, hadamard) <= static_cast<size_t>(kSmemMax - 2 * kPC * 4)) return cc;
+  return 0;
 }
 
-template <typename T, int K, int NPT>
+// The shapes the CUDA-core kernel takes, and so the backward as a whole
+// (the wgmma kernel takes a subset): every odd k, any C1, and a slice of
+// at least kCG channels within shared memory.
+bool core_takes(int d, int k, int c1, int hadamard) {
+  return k >= 1 && k % 2 == 1 && d >= 1 && c1 >= 1 && core_channels(d, k, c1, hadamard) > 0;
+}
+
+template <typename T, int KT>
 cudaError_t launch(const Args& a, int blocks, cudaStream_t stream) {
-  const size_t smem = core_smem(a.d, K, a.c1, a.hadamard);
+  const size_t smem = core_smem(a.d, a.k, a.cc, a.hadamard);
   const cudaError_t err = cudaFuncSetAttribute(
-      cross_conv1_bwd_kernel<T, K, NPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cross_conv1_bwd_kernel<T, KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  cross_conv1_bwd_kernel<T, K, NPT><<<blocks, kThreads, smem, stream>>>(a);
+  cross_conv1_bwd_kernel<T, KT><<<blocks, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int K>
-cudaError_t launch_npt(const Args& a, int blocks, cudaStream_t stream) {
-  if (a.c1p / kCG <= kThreads / kPC) return launch<T, K, 1>(a, blocks, stream);
-  return launch<T, K, kMaxNPT>(a, blocks, stream);
-}
-
 template <typename T>
-cudaError_t launch_k(const Args& a, int k, int blocks, cudaStream_t stream) {
-  switch (k) {
-    case 1: return launch_npt<T, 1>(a, blocks, stream);
-    case 3: return launch_npt<T, 3>(a, blocks, stream);
-    case 5: return launch_npt<T, 5>(a, blocks, stream);
-    case 7: return launch_npt<T, 7>(a, blocks, stream);
-    case 9: return launch_npt<T, 9>(a, blocks, stream);
+cudaError_t launch_k(const Args& a, int blocks, cudaStream_t stream) {
+  switch (taps_per_slice(a.k)) {
+    case 1: return launch<T, 1>(a, blocks, stream);
+    case 3: return launch<T, 3>(a, blocks, stream);
+    case 5: return launch<T, 5>(a, blocks, stream);
+    case 7: return launch<T, 7>(a, blocks, stream);
+    case 9: return launch<T, 9>(a, blocks, stream);
+    case kRT: return launch<T, kRT>(a, blocks, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1041,11 +1071,14 @@ Args make_args(const void* e0, const void* e1, int nf0, long long fs0, long long
   a.g = g;
   a.fields = fields;
   a.d = d;
+  a.k = k;
   a.c1 = c1;
-  a.c1p = (c1 + kCG - 1) / kCG * kCG;
   a.hadamard = hadamard;
   a.ngx = (d + kTN - 1) / kTN;
   a.xp = a.ngx * kTN + k - 1;
+  a.cc = core_channels(d, k, c1, hadamard);
+  a.ncs = a.cc > 0 ? (c1 + a.cc - 1) / a.cc : 0;
+  a.nts = (k + taps_per_slice(k) - 1) / taps_per_slice(k);
   return a;
 }
 
@@ -1088,17 +1121,27 @@ int cffm_cross_conv1_bwd_takes(int d, int k, int c1, int hadamard) {
   return core_takes(d, k, c1, hadamard) ? 1 : 0;
 }
 
+// f32 elements of the dmacc scratch per example the CUDA-core kernel
+// needs at (d, k, c1, hadamard): 0 when it runs layer 1 in one slice.
+int cffm_cross_conv1_bwd_dm_scratch(int d, int k, int c1, int hadamard) {
+  const Args a = make_args(nullptr, nullptr, 0, 0, 0, 0, 0, nullptr, nullptr, 0, 0, 0, 0,
+                           nullptr, 2, d, k, c1, hadamard);
+  return a.ncs * a.nts > 1 ? kPC * d : 0;
+}
+
 // Returns a cudaError_t; 0 means both kernels were launched. wgmma says
 // which kernel and weight layout, and must be what cffm_cross_conv1_bwd_wgmma
 // says. w: (k, c1, P) in T for the CUDA-core kernel, bwd_wgmma_weights'
 // layout for the wgmma kernel; g: (batch, c1, d) in T; dwp: (blocks, k, P,
 // c1) f32 scratch, blocks from cffm_cross_conv1_bwd_blocks; dw: (k, P, c1)
-// f32 out; hacc: (batch, fields, d) f32 scratch for hadamard, else null.
+// f32 out; hacc: (batch, fields, d) f32 scratch for hadamard, else null;
+// dmacc: (batch, cffm_cross_conv1_bwd_dm_scratch) f32 scratch for the
+// CUDA-core kernel when that is not 0, else null.
 int cffm_cross_conv1_bwd(int is_bf16, int wgmma, const void* e0, const void* e1, int nf0,
                          long long fs0, long long bs0, long long fs1, long long bs1,
                          void* de0, void* de1, long long dfs0, long long dbs0,
                          long long dfs1, long long dbs1, const void* w, const void* g,
-                         const float* glin, float* hacc, float* dwp, float* dw,
+                         const float* glin, float* hacc, float* dmacc, float* dwp, float* dw,
                          int batch, int fields, int d, int k, int c1, int hadamard,
                          int lin_col, int w_phys, void* stream) {
   Args a = make_args(e0, e1, nf0, fs0, bs0, fs1, bs1, de0, de1, dfs0, dbs0, dfs1, dbs1, g,
@@ -1106,6 +1149,7 @@ int cffm_cross_conv1_bwd(int is_bf16, int wgmma, const void* e0, const void* e1,
   a.w = w;
   a.glin = glin;
   a.hacc = hacc;
+  a.dmacc = dmacc;
   a.dwp = dwp;
   a.batch = batch;
   a.lin_col = lin_col;
@@ -1113,6 +1157,7 @@ int cffm_cross_conv1_bwd(int is_bf16, int wgmma, const void* e0, const void* e1,
   a.ebl = examples_per_block(batch);
   if (fields < 2 || !core_takes(d, k, c1, hadamard) ||
       (hadamard && hacc == nullptr) || wgmma != (wgmma_path(a, is_bf16, k) ? 1 : 0) ||
+      (!wgmma && a.ncs * a.nts > 1 && dmacc == nullptr) ||
       (wgmma && glin != nullptr && (lin_col % 8 != 0 || w_phys % 8 != 0)))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1126,7 +1171,7 @@ int cffm_cross_conv1_bwd(int is_bf16, int wgmma, const void* e0, const void* e1,
       err = launch_wgmma_k(a, k, grid, s);
     } else {
       blocks = cffm_cross_conv1_bwd_blocks(batch, 0);
-      err = is_bf16 ? launch_k<__nv_bfloat16>(a, k, blocks, s) : launch_k<float>(a, k, blocks, s);
+      err = is_bf16 ? launch_k<__nv_bfloat16>(a, blocks, s) : launch_k<float>(a, blocks, s);
     }
     if (err != cudaSuccess) return err;
   }

@@ -62,6 +62,7 @@ constexpr int kTargetBlocks = 132; // one per SM on a 132-SM card
 constexpr int kTileMax = 64;       // examples per tile (tensor-core kernel)
 constexpr int kD = 16;             // embed dim of the tensor-core kernel
 constexpr int kRow = 24;           // bf16 row stride of the 16-wide tiles
+constexpr int kSmemMax = 232448;   // shared memory a block may use on the H100
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -83,9 +84,10 @@ struct Args {
   const void* g;           // (batch, c1, d) in T
   const float* glin;       // (batch,)
   float* dwp;              // (blocks, K, pairs, c1) f32 partials, tap order s
-  int batch, fields, d, c1, pairs, kc, lin_col, w_phys;
+  int batch, fields, d, k, c1, pairs, kc, lin_col, w_phys;
   int ebl;                 // examples per block (a multiple of kEB)
   int tb;                  // examples per tile
+  int pcs;                 // pairs per chunk (CUDA-core kernel)
 };
 
 template <typename T>
@@ -134,23 +136,26 @@ __device__ void diag_and_pads(const Args& a, long long b_begin, long long b_end)
 // CUDA-core kernel: any d and C1, f32 or bf16. Tile = kEB examples.
 // ---------------------------------------------------------------------------
 
+// K > 0: that width; K = 0: a.k at run time.
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads) bwd_v1_kernel(Args a) {
   extern __shared__ float4 smem4[];
-  const int xq = a.d + K - 1;                   // halo-padded positions
+  const int kk = K > 0 ? K : a.k;
+  const int pcs = a.pcs;                        // pairs per chunk
+  const int xq = a.d + kk - 1;                  // halo-padded positions
   float* gs = reinterpret_cast<float*>(smem4);  // [e][q][c] = g[b, c, q - K/2]
   float* ws = gs + kEB * xq * a.c1;             // [s][p][c] = wr[p0+p, s*c1+c]
-  float* ms = ws + K * kPC * a.c1;              // [e][p][x] = M
-  float* fa = ms + kEB * kPC * a.d;             // [e][p][x] = E[b, i, j*d+x]
-  float* fb = fa + kEB * kPC * a.d;             // [e][p][x] = E[b, j, i*d+x]
+  float* ms = ws + kk * pcs * a.c1;              // [e][p][x] = M
+  float* fa = ms + kEB * pcs * a.d;             // [e][p][x] = E[b, i, j*d+x]
+  float* fb = fa + kEB * pcs * a.d;             // [e][p][x] = E[b, j, i*d+x]
   __shared__ int pi_s[kPC];
   __shared__ int pj_s[kPC];
 
-  constexpr int kHalf = K / 2;
+  const int kHalf = kk / 2;
   const int tid = threadIdx.x;
   const long long b_begin = static_cast<long long>(blockIdx.x) * a.ebl;
   const long long b_end = min(static_cast<long long>(a.batch), b_begin + a.ebl);
-  float* part = a.dwp + static_cast<long long>(blockIdx.x) * K * a.pairs * a.c1;
+  float* part = a.dwp + static_cast<long long>(blockIdx.x) * kk * a.pairs * a.c1;
   const T* gg = static_cast<const T*>(a.g);
   const T* wg = static_cast<const T*>(a.wr);
 
@@ -166,21 +171,21 @@ __global__ void __launch_bounds__(kThreads) bwd_v1_kernel(Args a) {
       const int x = q - kHalf;
       gs[u] = (e < nt && x >= 0 && x < a.d) ? to_f(gg[((t0 + e) * a.c1 + c) * a.d + x]) : 0.f;
     }
-    for (int p0 = 0; p0 < a.pairs; p0 += kPC) {
-      const int npc = min(kPC, a.pairs - p0);
+    for (int p0 = 0; p0 < a.pairs; p0 += pcs) {
+      const int npc = min(pcs, a.pairs - p0);
       __syncthreads();  // the previous chunk's readers of ws, ms and the pair table are done
-      if (tid < kPC) pair_of(min(p0 + tid, a.pairs - 1), a.fields, pi_s[tid], pj_s[tid]);
-      for (int u = tid; u < K * kPC * a.c1; u += kThreads) {
+      if (tid < pcs) pair_of(min(p0 + tid, a.pairs - 1), a.fields, pi_s[tid], pj_s[tid]);
+      for (int u = tid; u < kk * pcs * a.c1; u += kThreads) {
         const int c = u % a.c1;
         const int r = u / a.c1;
-        const int p = r % kPC;
-        const int s = r / kPC;
+        const int p = r % pcs;
+        const int s = r / pcs;
         ws[u] = p < npc ? to_f(wg[static_cast<long long>(p0 + p) * a.kc + s * a.c1 + c]) : 0.f;
       }
       __syncthreads();  // the pair table is set
-      for (int u = tid; u < kEB * kPC * a.d; u += kThreads) {
-        const int e = u / (kPC * a.d);
-        const int r = u - e * kPC * a.d;
+      for (int u = tid; u < kEB * pcs * a.d; u += kThreads) {
+        const int e = u / (pcs * a.d);
+        const int r = u - e * pcs * a.d;
         const int pc = r / a.d;
         const int x = r - pc * a.d;
         float av = 0.f, bv = 0.f;
@@ -196,15 +201,15 @@ __global__ void __launch_bounds__(kThreads) bwd_v1_kernel(Args a) {
       __syncthreads();
 
       // dW partial: part[s, p0+p, c] (+)= sum_{e,x} M[e,p,x] * g[e, c, x+s-K/2]
-      for (int u = tid; u < kPC * K * a.c1; u += kThreads) {
+      for (int u = tid; u < pcs * kk * a.c1; u += kThreads) {
         const int c = u % a.c1;
         const int r = u / a.c1;
-        const int s = r % K;
-        const int p = r / K;
+        const int s = r % kk;
+        const int p = r / kk;
         if (p >= npc) continue;
         float acc = 0.f;
         for (int e = 0; e < nt; ++e) {
-          const float* mrow = ms + (e * kPC + p) * a.d;
+          const float* mrow = ms + (e * pcs + p) * a.d;
           const float* gcol = gs + (e * xq + s) * a.c1 + c;
           for (int x = 0; x < a.d; ++x) acc = fmaf(mrow[x], gcol[x * a.c1], acc);
         }
@@ -213,15 +218,15 @@ __global__ void __launch_bounds__(kThreads) bwd_v1_kernel(Args a) {
       }
 
       // dM, then dE: dM[e,p,x] = sum_{s,c} wr[p, s*c1+c] * g[e, c, x+s-K/2]
-      for (int u = tid; u < kEB * kPC * a.d; u += kThreads) {
-        const int e = u / (kPC * a.d);
-        const int r = u - e * kPC * a.d;
+      for (int u = tid; u < kEB * pcs * a.d; u += kThreads) {
+        const int e = u / (pcs * a.d);
+        const int r = u - e * pcs * a.d;
         const int pc = r / a.d;
         const int x = r - pc * a.d;
         if (e >= nt || pc >= npc) continue;
         float dm = 0.f;
-        for (int s = 0; s < K; ++s) {
-          const float* wrow = ws + (s * kPC + pc) * a.c1;
+        for (int s = 0; s < kk; ++s) {
+          const float* wrow = ws + (s * pcs + pc) * a.c1;
           const float* grow = gs + (e * xq + x + s) * a.c1;
           for (int c = 0; c < a.c1; ++c) dm = fmaf(wrow[c], grow[c], dm);
         }
@@ -474,11 +479,20 @@ int examples_per_block(int batch) {
   return kEB * (per_block < 1 ? 1 : per_block);
 }
 
+// The CUDA-core kernel's shared memory at pcs pairs per chunk, f32: the g
+// tile with its halo, the weight chunk, M and its two factors.
+size_t core_smem(const Args& a, int pcs) {
+  return (static_cast<size_t>(kEB) * (a.d + a.k - 1) * a.c1 +
+          static_cast<size_t>(a.k) * pcs * a.c1 + 3 * static_cast<size_t>(kEB) * pcs * a.d) *
+         sizeof(float);
+}
+
 template <typename T, int K>
 cudaError_t launch(Args a, int blocks, cudaStream_t stream) {
-  const size_t smem = (static_cast<size_t>(kEB) * (a.d + K - 1) * a.c1 +
-                       static_cast<size_t>(K) * kPC * a.c1 + 3 * static_cast<size_t>(kEB) * kPC * a.d) *
-                      sizeof(float);
+  // the most pairs per chunk, up to kPC, that fit the card's limit
+  a.pcs = kPC;
+  while (a.pcs > 1 && core_smem(a, a.pcs) > static_cast<size_t>(kSmemMax - 2 * kPC * 4)) --a.pcs;
+  const size_t smem = core_smem(a, a.pcs);
   const cudaError_t err = cudaFuncSetAttribute(
       bwd_v1_kernel<T, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -487,6 +501,7 @@ cudaError_t launch(Args a, int blocks, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// widths 1-9 unrolled; every other odd k at run time
 template <typename T>
 cudaError_t launch_k(const Args& a, int k, int blocks, cudaStream_t stream) {
   switch (k) {
@@ -494,7 +509,8 @@ cudaError_t launch_k(const Args& a, int k, int blocks, cudaStream_t stream) {
     case 3: return launch<T, 3>(a, blocks, stream);
     case 5: return launch<T, 5>(a, blocks, stream);
     case 7: return launch<T, 7>(a, blocks, stream);
-    default: return cudaErrorInvalidValue;
+    case 9: return launch<T, 9>(a, blocks, stream);
+    default: return k >= 1 && k % 2 == 1 ? launch<T, 0>(a, blocks, stream) : cudaErrorInvalidValue;
   }
 }
 
@@ -533,7 +549,7 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 // The tensor-core kernel reads rows and g with 16-byte loads.
 bool mma_path(const Args& a, int is_bf16) {
-  return is_bf16 && a.d == kD && a.c1 <= 64 && a.fs % 8 == 0 && a.bs % 8 == 0 &&
+  return is_bf16 && a.d == kD && a.k <= 7 && a.c1 <= 64 && a.fs % 8 == 0 && a.bs % 8 == 0 &&
          aligned16(a.e) && aligned16(a.de) && aligned16(a.g);
 }
 
@@ -567,6 +583,7 @@ int cffm_cross_conv1_bwd_v1(int is_bf16, const void* e, void* de, long long fs, 
   a.batch = batch;
   a.fields = fields;
   a.d = d;
+  a.k = k;
   a.c1 = c1;
   a.pairs = fields * (fields - 1) / 2;
   a.kc = k * c1;

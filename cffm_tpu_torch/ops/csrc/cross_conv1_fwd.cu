@@ -16,13 +16,17 @@
 //   accumulated in f32, stored in T;
 //   lin[b] = sum_f E[b,f,lin_col] in f32, when lin is requested.
 //
-// Design. A block owns `eb` examples and all (padded) C1 channels: the
-// GEMM Y[c,(b,x)] = W[c,(p,t)] * Mwin[(p,t),(b,x)] with C1 rows, eb*d
-// columns and a depth of P*k. The pair axis is walked in chunks of kPC
-// pairs: per chunk the block builds the halo-padded cross map of its
+// Design. A block owns `eb` examples and `cb` of the (padded) C1 channels
+// (all of them up to kThreads / (d/8) * kTM; a wider layer splits over the
+// grid's y axis): the GEMM Y[c,(b,x)] = W[c,(p,t)] * Mwin[(p,t),(b,x)] with
+// cb rows, eb*d columns and a depth of P*k. The pair axis is walked in
+// chunks of `pcs` pairs (kPC, or fewer where a chunk would not fit shared
+// memory): per chunk the block builds the halo-padded cross map of its
 // examples and stages the weight chunk, both in shared memory as f32, so
 // M never reaches device memory. Each thread owns kTM channels x kTN
-// positions of one example and accumulates with CUDA-core FMAs.
+// positions of one example and accumulates with CUDA-core FMAs. The
+// widths 1-9 are unrolled instantiations; every other odd k takes the
+// run-time-k one (K = 0), whose tap loop is not unrolled.
 //
 // Bound on the H100. At criteo_kaggle shapes (F=39, d=16, W=640, C1=64,
 // k=3, bf16) one example reads 39*640*2 B = 49.9 KB of E and needs
@@ -66,6 +70,7 @@ struct Args {
   float* lin;            // (batch,) f32, or null
   int batch, fields, d, k, c1, c1p, hadamard, lin_col;
   int eb, ngx, xp;       // examples per block, position groups, padded row
+  int cb, pcs;           // CUDA-core kernel: channels per block, pairs per chunk
 };
 
 template <typename T>
@@ -74,25 +79,28 @@ __device__ __forceinline__ const T* field_row(const Args& a, int f, long long b)
   return static_cast<const T*>(a.e1) + (f - a.nf0) * a.fs1 + b * a.bs1;
 }
 
+// K > 0: that width, unrolled; K = 0: a.k at run time.
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads) cross_conv1_fwd_kernel(Args a) {
   extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);   // (kPC, K, c1p)
-  float* ms = ws + kPC * K * a.c1p;              // (eb, kPC, xp)
+  const int kk = K > 0 ? K : a.k;
+  float* ws = reinterpret_cast<float*>(smem4);   // (pcs, k, cb)
+  float* ms = ws + a.pcs * kk * a.cb;            // (eb, pcs, xp)
   __shared__ int pi_s[kPC];
   __shared__ int pj_s[kPC];
 
-  constexpr int kHalf = K / 2;
+  const int half = kk / 2;
   const int pairs = a.fields * (a.fields - 1) / 2;
   const int tid = threadIdx.x;
-  const int cg = a.c1p / kTM;
+  const int cg = a.cb / kTM;
   const int cgi = tid % cg;                      // channel group
   const int col = tid / cg;                      // (example, position group)
   const int e = col / a.ngx;
   const int xg = col - e * a.ngx;
   const bool active = e < a.eb;
   const long long b0 = static_cast<long long>(blockIdx.x) * a.eb;
-  const int row_elems = kPC * a.xp;
+  const int c_base = blockIdx.y * a.cb;          // the block's channels
+  const int row_elems = a.pcs * a.xp;
 
   float acc[kTM][kTN];
 #pragma unroll
@@ -100,9 +108,9 @@ __global__ void __launch_bounds__(kThreads) cross_conv1_fwd_kernel(Args a) {
 #pragma unroll
     for (int n = 0; n < kTN; ++n) acc[c][n] = 0.f;
 
-  for (int p0 = 0; p0 < pairs; p0 += kPC) {
-    const int npc = min(kPC, pairs - p0);
-    if (tid < kPC) {
+  for (int p0 = 0; p0 < pairs; p0 += a.pcs) {
+    const int npc = min(a.pcs, pairs - p0);
+    if (tid < a.pcs) {
       // anchor field i holds fields-1-i pairs (i, i+1..fields-1)
       int i = 0, rem = p0 + tid;
       while (i < a.fields - 1 && rem >= a.fields - 1 - i) {
@@ -112,17 +120,21 @@ __global__ void __launch_bounds__(kThreads) cross_conv1_fwd_kernel(Args a) {
       pi_s[tid] = i;
       pj_s[tid] = i + 1 + rem;
     }
-    const T* wg = static_cast<const T*>(a.w) + static_cast<long long>(p0) * K * a.c1p;
-    const int wvalid = npc * K * a.c1p;
-    for (int u = tid; u < kPC * K * a.c1p; u += kThreads)
-      ws[u] = u < wvalid ? to_f(wg[u]) : 0.f;
+    const T* wg = static_cast<const T*>(a.w);
+    for (int u = tid; u < a.pcs * kk * a.cb; u += kThreads) {
+      const int c = u % a.cb;
+      const int r = u / a.cb;                    // pc * k + t
+      ws[u] = (r / kk < npc && c_base + c < a.c1p)
+                  ? to_f(wg[(static_cast<long long>(p0) * kk + r) * a.c1p + c_base + c])
+                  : 0.f;
+    }
     __syncthreads();
 
     for (int u = tid; u < a.eb * row_elems; u += kThreads) {
       const int ee = u / row_elems;
       const int r = u - ee * row_elems;
       const int pc = r / a.xp;
-      const int x = r - pc * a.xp - kHalf;
+      const int x = r - pc * a.xp - half;
       const long long b = b0 + ee;
       float v = 0.f;
       if (x >= 0 && x < a.d && pc < npc && b < a.batch) {
@@ -141,18 +153,29 @@ __global__ void __launch_bounds__(kThreads) cross_conv1_fwd_kernel(Args a) {
       const float* mbase = ms + e * row_elems + xg * kTN;
       for (int pc = 0; pc < npc; ++pc) {
         const float* mrow = mbase + pc * a.xp;
-        float mw[kTN + K - 1];
+        const float* wrow = ws + pc * kk * a.cb + cgi * kTM;
+        if constexpr (K > 0) {
+          float mw[kTN + K - 1];
 #pragma unroll
-        for (int q = 0; q < kTN + K - 1; ++q) mw[q] = mrow[q];
+          for (int q = 0; q < kTN + K - 1; ++q) mw[q] = mrow[q];
 #pragma unroll
-        for (int t = 0; t < K; ++t) {
-          const float4 w4 =
-              *reinterpret_cast<const float4*>(ws + (pc * K + t) * a.c1p + cgi * kTM);
-          const float wv[kTM] = {w4.x, w4.y, w4.z, w4.w};
+          for (int t = 0; t < K; ++t) {
+            const float4 w4 = *reinterpret_cast<const float4*>(wrow + t * a.cb);
+            const float wv[kTM] = {w4.x, w4.y, w4.z, w4.w};
 #pragma unroll
-          for (int c = 0; c < kTM; ++c)
+            for (int c = 0; c < kTM; ++c)
 #pragma unroll
-            for (int n = 0; n < kTN; ++n) acc[c][n] = fmaf(wv[c], mw[n + t], acc[c][n]);
+              for (int n = 0; n < kTN; ++n) acc[c][n] = fmaf(wv[c], mw[n + t], acc[c][n]);
+          }
+        } else {
+          for (int t = 0; t < kk; ++t) {
+            const float4 w4 = *reinterpret_cast<const float4*>(wrow + t * a.cb);
+            const float wv[kTM] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+            for (int c = 0; c < kTM; ++c)
+#pragma unroll
+              for (int n = 0; n < kTN; ++n) acc[c][n] = fmaf(wv[c], mrow[n + t], acc[c][n]);
+          }
         }
       }
     }
@@ -163,7 +186,7 @@ __global__ void __launch_bounds__(kThreads) cross_conv1_fwd_kernel(Args a) {
     T* yb = static_cast<T*>(a.y) + (b0 + e) * a.c1 * a.d;
 #pragma unroll
     for (int c = 0; c < kTM; ++c) {
-      const int ch = cgi * kTM + c;
+      const int ch = c_base + cgi * kTM + c;
 #pragma unroll
       for (int n = 0; n < kTN; ++n) {
         const int x = xg * kTN + n;
@@ -171,7 +194,7 @@ __global__ void __launch_bounds__(kThreads) cross_conv1_fwd_kernel(Args a) {
       }
     }
   }
-  if (a.lin != nullptr && tid < a.eb && b0 + tid < a.batch) {
+  if (a.lin != nullptr && blockIdx.y == 0 && tid < a.eb && b0 + tid < a.batch) {
     const long long b = b0 + tid;
     float s = 0.f;
     for (int f = 0; f < a.fields; ++f) s += to_f(field_row<T>(a, f, b)[a.lin_col]);
@@ -179,19 +202,23 @@ __global__ void __launch_bounds__(kThreads) cross_conv1_fwd_kernel(Args a) {
   }
 }
 
+size_t core_smem(const Args& a) {
+  return (static_cast<size_t>(a.pcs) * a.k * a.cb + static_cast<size_t>(a.eb) * a.pcs * a.xp) *
+         sizeof(float);
+}
+
 template <typename T, int K>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t smem =
-      (static_cast<size_t>(kPC) * K * a.c1p + static_cast<size_t>(a.eb) * kPC * a.xp) *
-      sizeof(float);
+  const size_t smem = core_smem(a);
   // opt in every time: the static pair tables count against the default
   // 48 KB too, so a dynamic size just under it can still need the opt-in
   const cudaError_t err = cudaFuncSetAttribute(
       cross_conv1_fwd_kernel<T, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const unsigned blocks = static_cast<unsigned>((a.batch + a.eb - 1) / a.eb);
-  cross_conv1_fwd_kernel<T, K><<<blocks, kThreads, smem, stream>>>(a);
+  const dim3 grid(static_cast<unsigned>((a.batch + a.eb - 1) / a.eb),
+                  static_cast<unsigned>((a.c1p + a.cb - 1) / a.cb));
+  cross_conv1_fwd_kernel<T, K><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -203,7 +230,7 @@ cudaError_t launch_k(const Args& a, int k, cudaStream_t stream) {
     case 5: return launch<T, 5>(a, stream);
     case 7: return launch<T, 7>(a, stream);
     case 9: return launch<T, 9>(a, stream);
-    default: return cudaErrorInvalidValue;
+    default: return k >= 1 && k % 2 == 1 ? launch<T, 0>(a, stream) : cudaErrorInvalidValue;
   }
 }
 
@@ -695,10 +722,19 @@ int cffm_cross_conv1_fwd(int is_bf16, int wgmma, const void* e0, const void* e1,
   a.hadamard = hadamard;
   a.lin_col = lin_col;
   a.ngx = (d + kTN - 1) / kTN;
-  const int per_example = a.ngx * (a.c1p / kTM);
-  if (fields < 2 || d < 1 || c1 < 1 || per_example > kThreads) return cudaErrorInvalidValue;
-  a.eb = kThreads / per_example;
+  if (fields < 2 || d < 1 || c1 < 1 || a.ngx > kThreads) return cudaErrorInvalidValue;
+  // channels per block: C1 split evenly over the fewest blocks whose
+  // threads cover them; then the pairs per chunk that fit shared memory
+  const int cb_max = kThreads / a.ngx * kTM;
+  const int nblk = (a.c1p + cb_max - 1) / cb_max;
+  a.cb = ((a.c1p + nblk - 1) / nblk + kTM - 1) / kTM * kTM;
+  a.eb = kThreads / (a.ngx * (a.cb / kTM));
   a.xp = a.ngx * kTN + k - 1;
+  const long long per_pair =
+      (static_cast<long long>(k) * a.cb + static_cast<long long>(a.eb) * a.xp) * sizeof(float);
+  const long long fit = (kSmemMax - 2 * kPC * static_cast<long long>(sizeof(int))) / per_pair;
+  a.pcs = fit < kPC ? static_cast<int>(fit) : kPC;
+  if (a.pcs < 1) return cudaErrorInvalidValue;
   if (batch == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wgmma != (wgmma_path(is_bf16, e0, e1, fs0, bs0, fs1, bs1, fields, d, k, c1) ? 1 : 0) ||

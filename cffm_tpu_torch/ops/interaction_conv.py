@@ -54,12 +54,15 @@ from cffm_tpu_torch.ops.cross import (build_cross_map, conv1d_same,
 
 _SOURCE = "cross_conv1_fwd"
 _BWD_SOURCE = "cross_conv1_bwd"
-# conv widths the kernels are instantiated for (`kernel_takes_width`)
+# conv widths with unrolled instantiations in the CUDA-core kernels; every
+# other odd k takes their run-time-k instantiation (`kernel_takes_width`)
 KERNEL_WIDTHS = (1, 3, 5, 7, 9)
-# The backward's CUDA-core kernel's limits (csrc/cross_conv1_bwd.cu
-# core_takes): channels (two groups of 8 per thread over 32 pairs) and
-# dynamic shared memory (the H100's 227 KB less the static pair tables)
-BWD_MAX_CHANNELS = 128
+# The backward's CUDA-core kernel (csrc/cross_conv1_bwd.cu core_takes)
+# walks layer 1 in slices of at most BWD_CHANNEL_SLICE channels and, past
+# the unrolled widths, BWD_TAP_SLICE taps; a slice's dynamic shared memory
+# must fit the H100's 227 KB less the static pair tables
+BWD_CHANNEL_SLICE = 64
+BWD_TAP_SLICE = 8
 BWD_SMEM_MAX = 232448 - 256
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -70,10 +73,24 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def kernel_takes_width(k: int) -> bool:
-    """Whether the fused kernels are built for conv width k. The model
-    sends every odd k to them, as the JAX package sends every odd k to its
-    Pallas kernels; on the card an odd k outside KERNEL_WIDTHS raises."""
-    return k in KERNEL_WIDTHS
+    """Whether the fused kernels take conv width k: every odd k, as the JAX
+    package sends every odd k to its Pallas kernels (KERNEL_WIDTHS have
+    unrolled instantiations, the others a run-time-k one). An even k
+    raises, as JAX asserts."""
+    return k >= 1 and k % 2 == 1
+
+
+def bwd_core_channels(d: int, k: int, c1: int, hadamard: bool) -> int:
+    """Channels per slice of the backward's CUDA-core kernel (the library's
+    core_channels): the most, a multiple of 8 up to BWD_CHANNEL_SLICE,
+    whose shared memory fits BWD_SMEM_MAX; 0 if none does."""
+    kt = k if k in KERNEL_WIDTHS else BWD_TAP_SLICE
+    xp = -(-d // 8) * 8 + k - 1
+    for cc in range(min(BWD_CHANNEL_SLICE, -(-c1 // 8) * 8), 0, -8):
+        smem = 4 * (kt * cc * 32 + 8 * xp * cc + 8 * 32 * xp + (2 + hadamard) * 8 * 32 * d)
+        if smem <= BWD_SMEM_MAX:
+            return cc
+    return 0
 
 
 def bwd_kernel_takes(cfg: ModelConfig, c1: int, device=None) -> bool:
@@ -88,11 +105,8 @@ def bwd_kernel_takes(cfg: ModelConfig, c1: int, device=None) -> bool:
     k, d, had = cfg.conv_kernel, cfg.embed_dim, int(cfg.cross == "hadamard")
     if device is not None and torch.device(device).type == "cuda":
         return bool(_bwd_library().cffm_cross_conv1_bwd_takes(d, k, c1, had))
-    c1p = -(-c1 // 8) * 8
-    xp = -(-d // 8) * 8 + k - 1
-    smem = 4 * (k * c1p * 32 + 8 * xp * c1p + 8 * 32 * xp + (2 + had) * 8 * 32 * d)
-    return (kernel_takes_width(k) and d >= 1 and 1 <= c1 <= BWD_MAX_CHANNELS
-            and smem <= BWD_SMEM_MAX)
+    return (kernel_takes_width(k) and d >= 1 and c1 >= 1
+            and bwd_core_channels(d, k, c1, had) > 0)
 
 
 # ---------------------------------------------------------------------------
@@ -273,7 +287,7 @@ def _bwd_library() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [i, i, p, p, i, ll, ll, ll, ll, p, p, ll, ll, ll, ll,
-                       p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+                       p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         lib.cffm_cross_conv1_bwd_blocks.argtypes = [i, i]
         lib.cffm_cross_conv1_bwd_blocks.restype = ctypes.c_int
@@ -282,8 +296,9 @@ def _bwd_library() -> ctypes.CDLL:
         lib.cffm_cross_conv1_bwd_wgmma.restype = ctypes.c_int
         lib.cffm_cross_conv1_bwd_pair_chunk.argtypes = [i, i]
         lib.cffm_cross_conv1_bwd_pair_chunk.restype = ctypes.c_int
-        lib.cffm_cross_conv1_bwd_takes.argtypes = [i, i, i, i]
-        lib.cffm_cross_conv1_bwd_takes.restype = ctypes.c_int
+        for name in ("cffm_cross_conv1_bwd_takes", "cffm_cross_conv1_bwd_dm_scratch"):
+            getattr(lib, name).argtypes = [i, i, i, i]
+            getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -309,8 +324,8 @@ def _check_launch(parts, w1: torch.Tensor, cfg: ModelConfig):
         if t.stride(-1) != 1:
             raise ValueError("field rows must have contiguous lanes")
     k = cfg.conv_kernel
-    if k not in KERNEL_WIDTHS:
-        raise ValueError(f"cross_conv1 kernels are built for k in {KERNEL_WIDTHS}, got {k}")
+    if not kernel_takes_width(k):
+        raise ValueError(f"cross_conv1 kernels take odd k, got {k}")
     c1, p, kw = w1.shape
     if p != cfg.num_pairs or kw != k:
         raise ValueError(f"w1 must be (C1, {cfg.num_pairs}, {k}), got {tuple(w1.shape)}")
@@ -368,7 +383,8 @@ def cross_conv1_bwd(parts, dparts, w1: torch.Tensor, gy: torch.Tensor,
     Field-aware bf16 rows with d=16, C1 <= 64 (C1 <= 128 at k=3), k <= 7
     and 16-byte aligned rows run on the tensor cores (wgmma), with the
     weights in `bwd_wgmma_weights`' layout; every other shape, and f32, on
-    the CUDA cores. Raises for a shape `bwd_kernel_takes` refuses."""
+    the CUDA cores, in slices of channels and taps past one slice's shared
+    memory. Raises for a shape `bwd_kernel_takes` refuses."""
     dtype, dev = _check_launch(parts, w1, cfg)
     k, f, d = cfg.conv_kernel, cfg.num_fields, cfg.embed_dim
     c1, p, _ = w1.shape
@@ -405,13 +421,16 @@ def cross_conv1_bwd(parts, dparts, w1: torch.Tensor, gy: torch.Tensor,
     dw = torch.empty((k, p, c1), dtype=torch.float32, device=dev)
     hacc = (torch.empty((batch, f, d), dtype=torch.float32, device=dev)
             if hadamard else None)
+    per = 0 if wgmma else lib.cffm_cross_conv1_bwd_dm_scratch(d, k, c1, int(hadamard))
+    dmacc = torch.empty((batch, per), dtype=torch.float32, device=dev) if per else None
     with torch.cuda.device(dev):
         err = lib.cffm_cross_conv1_bwd(
             is_bf16, wgmma, e0.data_ptr(), e1.data_ptr(), nf0,
             fs0, bs0, fs1, bs1, d0.data_ptr(), d1.data_ptr(), dfs0, dbs0,
             dfs1, dbs1, wt.data_ptr(), g.data_ptr(),
             None if gl is None else gl.data_ptr(),
-            None if hacc is None else hacc.data_ptr(), dwp.data_ptr(),
+            None if hacc is None else hacc.data_ptr(),
+            None if dmacc is None else dmacc.data_ptr(), dwp.data_ptr(),
             dw.data_ptr(), batch, f, d, k, c1, int(hadamard), cfg.row_width,
             w_phys, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

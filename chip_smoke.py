@@ -32,14 +32,17 @@ nonzero without them, or when any phase fails. Phases, in order:
      table (kernel 7's gate sends it to kernels 3-4; against kernel 7's
      plain version: table steps within 1% of the largest step, accum
      within 2^-6 relative; rows outside the buckets bit-equal); through the
-     split field-major entry at B=4096 with the phase-4 tolerances, C1=128
-     in bf16 (kernel 1, kernel 2 on wgmma) and in f32 (kernel 2 on the
-     CUDA cores) and k=9 in bf16 (kernels 1 and 2 on the CUDA cores);
-     C1=128 sliced hadamard in bf16; k=9 layer 1 and conv tail, forward
+     split field-major entry at B=4096 with the phase-4 tolerances, each
+     timed forward and forward + backward: C1=128 in bf16 (kernel 1,
+     kernel 2 on wgmma) and in f32 (kernel 2 on the CUDA cores), C1=136
+     in bf16 and f32 (the CUDA-core backward in two channel slices), k=9
+     in bf16 and k=11 in bf16 and f32 (kernels 1 and 2 on the CUDA cores,
+     k=11 on their run-time-k instantiations); C1=128 sliced hadamard in
+     bf16 at k=3 and k=7; k=9 and k=11 layer 1 and conv tail, forward
      and backward at B=4096 in f32 through kernels 1 and 2 against the
      plain route in float64 (1e-4 of the largest value); the gates' CPU
      rules equal the libraries' (kernel 7's width, and bwd_kernel_takes
-     over 216 (d, k, C1, cross));
+     over 294 (d, k, C1, cross), k up to 13 and C1 up to 256);
   5. parity_segment: kernel 3 on the sorted big-field ids of one B=65536
      synthetic criteo_kaggle batch (zipf, hot segments) and on ids up to
      2^31-2: uids and count exact, empty slots zero, gsum within half a
@@ -1301,8 +1304,8 @@ def phase_parity_caps() -> dict:
     from cffm_tpu_torch.optim import rowwise as rw
 
     cap = su._library().cffm_bucketed_max_width()
-    grid = [(d, k, c1, cross) for d in (8, 16, 32) for k in (1, 3, 5, 7, 9, 11)
-            for c1 in (32, 64, 72, 96, 128, 136) for cross in ("field_aware", "hadamard")]
+    grid = [(d, k, c1, cross) for d in (8, 16, 32) for k in (1, 3, 4, 5, 7, 9, 11, 13)
+            for c1 in (32, 64, 72, 96, 128, 136, 256) for cross in ("field_aware", "hadamard")]
     apart = []
     for d, k, c1, cross in grid:
         cfg = dataclasses.replace(_movielens_model(cross, "float32", d), conv_kernel=k)
@@ -1363,17 +1366,24 @@ def phase_parity_caps() -> dict:
     torch.cuda.empty_cache()
 
     # 2. C1=128 through the split field-major entry (bf16: the tensor-core
-    # backward at 6 m-tiles; f32: the CUDA-core one, two channel groups a
-    # thread), then k=9 in bf16 (the CUDA-core forward and backward)
+    # backward at 6 m-tiles; f32: the CUDA-core one), C1=136 (the CUDA-core
+    # backward in two channel slices), then k=9 in bf16 and k=11 (the
+    # CUDA-core forward's run-time-k instantiation; the backward in two tap
+    # slices). The cases added after PR 7 draw from their own generator, so
+    # that the earlier cases keep their inputs.
     gen = torch.Generator(device="cuda").manual_seed(22)
+    gen_new = torch.Generator(device="cuda").manual_seed(23)
     b = 4096
     for case, dtype, k, c1 in (("c1_128", "bfloat16", 3, 128), ("c1_128_f32", "float32", 3, 128),
-                               ("k9_fm2", "bfloat16", 9, 64)):
+                               ("c1_136", "bfloat16", 3, 136), ("c1_136_f32", "float32", 3, 136),
+                               ("k9_fm2", "bfloat16", 9, 64), ("k11_fm2", "bfloat16", 11, 64),
+                               ("k11_fm2_f32", "float32", 11, 64)):
         cfg = dataclasses.replace(_criteo_model(dtype), conv_channels=(c1, 64), conv_kernel=k)
         dt = getattr(torch, dtype)
-        (es, eb), w1 = _inputs(cfg, b, dt, gen, fm_split=cfg.small_field_prefix)
-        gy = torch.randn((b, c1, cfg.embed_dim), generator=gen, device="cuda").to(dt)
-        glin = torch.randn((b,), generator=gen, device="cuda")
+        g = gen if case in ("c1_128", "c1_128_f32", "k9_fm2") else gen_new
+        (es, eb), w1 = _inputs(cfg, b, dt, g, fm_split=cfg.small_field_prefix)
+        gy = torch.randn((b, c1, cfg.embed_dim), generator=g, device="cuda").to(dt)
+        glin = torch.randn((b,), generator=g, device="cuda")
         wgmma = dtype == "bfloat16" and _bwd_takes_wgmma(ic, cfg, es, eb, gy)
         _reset_counts()
         y, lin = ic.cross_conv1_lin_fm2(es, eb, w1, cfg)
@@ -1396,62 +1406,109 @@ def phase_parity_caps() -> dict:
             fail(f"parity_caps: {case} took {routes[case]}, not kernels 1 and 2")
         if wgmma != (case == "c1_128"):
             fail(f"parity_caps: {case} took the {'wgmma' if wgmma else 'CUDA-core'} backward")
+        fwd_ms = cuda_ms(lambda: ic.cross_conv1_lin_fm2(es, eb, w1, cfg), 5)
+        both_ms = cuda_ms(lambda: _grad_rows(ic, cfg, "fm2", es, eb, w1, gy, glin), 3)
+        routes[f"{case}_ms"] = {"forward": fwd_ms, "forward_backward": both_ms}
+        print(f"time caps {case} B={b}: forward {fwd_ms:.4f} ms, forward and backward "
+              f"{both_ms:.4f} ms", flush=True)
         del es, eb, rows, drows, drows_ref
         torch.cuda.empty_cache()
 
-    # 3. C1=128 hadamard (sliced, movielens): the CUDA-core backward's dE sum
-    cfg = dataclasses.replace(_movielens_model("hadamard", "bfloat16"), conv_channels=(128, 64))
-    emb, w1 = _inputs(cfg, b, torch.bfloat16, gen)
-    gy = torch.randn((b, 128, cfg.embed_dim), generator=gen, device="cuda").to(torch.bfloat16)
-    _reset_counts()
-    e, w = emb.detach().requires_grad_(), w1.detach().requires_grad_()
-    y = ic.cross_conv1(e, w, cfg)
-    de, dw = torch.autograd.grad(y, (e, w), gy)
-    torch.cuda.synchronize()
-    routes["c1_128_hadamard"] = _routes(_counts())
-    torch.testing.assert_close(y.float(), ic.cross_conv1_reference(emb, w1, cfg).float(),
-                               rtol=2e-2, atol=2e-2)
-    de_ref, dw_ref = ic.cross_conv1_bwd_reference(emb, w1, gy, cfg)
-    err = (de.float() - de_ref.float()).abs().max().item()
-    print(f"parity_caps C1=128 sliced hadamard bfloat16 B={b}: route "
-          f"{routes['c1_128_hadamard']}; dE max_abs_err={err:.3e} (rtol=atol=2e-2)", flush=True)
-    torch.testing.assert_close(de.float(), de_ref.float(), rtol=2e-2, atol=2e-2)
-    _check_dw(dw, dw_ref, f"caps C1=128 sliced hadamard bfloat16 B={b}")
-    if routes["c1_128_hadamard"] != {"cross_conv1": 1, "cross_conv1_bwd": 1}:
-        fail(f"parity_caps: C1=128 hadamard took {routes['c1_128_hadamard']}")
+    # 3. C1=128 hadamard (sliced, movielens) at k=3 and k=7: the CUDA-core
+    # backward's dE sum, in two channel slices at k=7
+    for k in (3, 7):
+        case = f"c1_128_hadamard_k{k}"
+        cfg = dataclasses.replace(_movielens_model("hadamard", "bfloat16"),
+                                  conv_channels=(128, 64), conv_kernel=k)
+        g = gen if k == 3 else gen_new
+        emb, w1 = _inputs(cfg, b, torch.bfloat16, g)
+        gy = torch.randn((b, 128, cfg.embed_dim), generator=g, device="cuda").to(torch.bfloat16)
+        _reset_counts()
+        e, w = emb.detach().requires_grad_(), w1.detach().requires_grad_()
+        y = ic.cross_conv1(e, w, cfg)
+        de, dw = torch.autograd.grad(y, (e, w), gy)
+        torch.cuda.synchronize()
+        routes[case] = _routes(_counts())
+        torch.testing.assert_close(y.float(), ic.cross_conv1_reference(emb, w1, cfg).float(),
+                                   rtol=2e-2, atol=2e-2)
+        de_ref, dw_ref = ic.cross_conv1_bwd_reference(emb, w1, gy, cfg)
+        err = (de.float() - de_ref.float()).abs().max().item()
+        print(f"parity_caps k={k} C1=128 sliced hadamard bfloat16 B={b}: route {routes[case]}; "
+              f"dE max_abs_err={err:.3e} (rtol=atol=2e-2)", flush=True)
+        torch.testing.assert_close(de.float(), de_ref.float(), rtol=2e-2, atol=2e-2)
+        _check_dw(dw, dw_ref, f"caps k={k} C1=128 sliced hadamard bfloat16 B={b}")
+        if routes[case] != {"cross_conv1": 1, "cross_conv1_bwd": 1}:
+            fail(f"parity_caps: {case} took {routes[case]}")
 
-    # 4. k=9, layer 1 and the conv tail, forward and backward, f32 against
-    # the plain route in float64
-    cfg = dataclasses.replace(_criteo_model("float32"), conv_kernel=9)
-    emb, w1 = _inputs(cfg, b, torch.float32, gen)
-    layers = [{"w": w1, "b": torch.randn((64,), generator=gen, device="cuda")},
-              {"w": torch.randn((64, 64, 9), generator=gen, device="cuda") * 0.04,
-               "b": torch.randn((64,), generator=gen, device="cuda")}]
+    # 4. k=9 and k=11, layer 1 and the conv tail, forward and backward, f32
+    # against the plain route in float64. The float64 route takes the f32
+    # route's ReLU masks and max-pool picks: where two values of a pool
+    # window (or a value and 0) sit within f32 rounding of each other, the
+    # two routes would otherwise send the gradient to different elements.
+    from cffm_tpu_torch.ops.cross import build_cross_map, conv1d_same
 
-    def fwd_bwd(fn, e, lays, gout):
-        e = e.detach().requires_grad_()
-        lays = [{n: t.detach().requires_grad_() for n, t in lay.items()} for lay in lays]
-        out = fn(e, lays, cfg)
-        grads = torch.autograd.grad(out, [e] + [t for lay in lays for t in lay.values()], gout)
-        return out.detach(), grads
+    def tail(x, lays, decided=None):
+        """Bias, ReLU and max pool of layer 1, then layer 2 (conv1d SAME,
+        bias, ReLU, pool), as _conv_tail; with the ReLU masks and pool picks
+        given (decided) or recorded."""
+        picks = []
+        for i, lay in enumerate(lays):
+            if i:
+                x = conv1d_same(x, lay["w"])
+            x = x + lay["b"][None, :, None]
+            mask = x > 0 if decided is None else decided[i][0]
+            x = x * mask
+            n = x.shape[-1] // cfg.conv_pool
+            xr = x[..., :n * cfg.conv_pool].reshape(*x.shape[:-1], n, cfg.conv_pool)
+            idx = xr.argmax(-1, keepdim=True) if decided is None else decided[i][1]
+            x = xr.gather(-1, idx).squeeze(-1)
+            picks.append((mask, idx))
+        return x.reshape(x.shape[0], -1), picks
 
-    plain = ic.make_interaction_fn(use_kernel=False)
-    gout = torch.randn(plain(emb, layers, cfg).shape, generator=gen, device="cuda")
-    _reset_counts()
-    out, grads = fwd_bwd(ic.make_interaction_fn(), emb, layers, gout)
-    torch.cuda.synchronize()
-    routes["k9"] = _routes(_counts())
-    f64 = [{n: t.double() for n, t in lay.items()} for lay in layers]
-    out_d, grads_d = fwd_bwd(plain, emb.double(), f64, gout.double())
-    errs = [(a.double() - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
-            for a, r in zip((out,) + grads, (out_d,) + grads_d)]
-    print(f"parity_caps k=9 sliced field_aware float32 B={b}: route {routes['k9']}; "
-          f"output and grads max err / max|ref| {max(errs):.3e} against the plain route "
-          f"in float64 (1e-4)", flush=True)
-    if routes["k9"] != {"cross_conv1": 1, "cross_conv1_bwd": 1}:
-        fail(f"parity_caps: k=9 took {routes['k9']}, not kernels 1 and 2")
-    if max(errs) > 1e-4:
-        fail("parity_caps: k=9 on the card disagrees with the float64 plain route")
+    for k in (9, 11):
+        cfg = dataclasses.replace(_criteo_model("float32"), conv_kernel=k)
+        g = gen if k == 9 else gen_new
+        emb, w1 = _inputs(cfg, b, torch.float32, g)
+        layers = [{"w": w1, "b": torch.randn((64,), generator=g, device="cuda")},
+                  {"w": torch.randn((64, 64, k), generator=g, device="cuda") * 0.04,
+                   "b": torch.randn((64,), generator=g, device="cuda")}]
+
+        def fwd_bwd(first, e, lays, gout, decided=None):
+            e = e.detach().requires_grad_()
+            lays = [{n: t.detach().requires_grad_() for n, t in lay.items()} for lay in lays]
+            out, picks = tail(first(e, lays[0]["w"]), lays, decided)
+            grads = torch.autograd.grad(out, [e] + [t for lay in lays for t in lay.values()],
+                                        gout)
+            return out.detach(), grads, picks
+
+        def plain_first(e, w):
+            return conv1d_same(build_cross_map(e, cfg), w.to(e.dtype))
+
+        gout = torch.randn((b, 64 * cfg.embed_dim // cfg.conv_pool ** 2), generator=g,
+                           device="cuda")
+        _reset_counts()
+        out, grads, picks = fwd_bwd(lambda e, w: ic.cross_conv1(e, w, cfg), emb, layers, gout)
+        torch.cuda.synchronize()
+        routes[f"k{k}"] = _routes(_counts())
+        f64 = [{n: t.double() for n, t in lay.items()} for lay in layers]
+        out_d, grads_d, _ = fwd_bwd(plain_first, emb.double(), f64, gout.double(), picks)
+        errs = [(a.double() - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
+                for a, r in zip((out,) + grads, (out_d,) + grads_d)]
+        # the same against the float64 route's own picks, for the record
+        out_o, grads_o, picks_o = fwd_bwd(plain_first, emb.double(), f64, gout.double())
+        own = [(a.double() - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
+               for a, r in zip((out,) + grads, (out_o,) + grads_o)]
+        flips = sum(int((p[1] != q[1]).sum() + (p[0] != q[0]).sum())
+                    for p, q in zip(picks, picks_o))
+        print(f"parity_caps k={k} sliced field_aware float32 B={b}: route {routes[f'k{k}']}; "
+              f"output and grads (out, dE, dW1, db1, dW2, db2) max err / max|ref| {max(errs):.3e} "
+              f"against the plain route in float64 with the same ReLU masks and pool picks "
+              f"(1e-4; each {', '.join(f'{e:.1e}' for e in errs)}); with its own picks "
+              f"{max(own):.3e}, {flips} masks or picks apart", flush=True)
+        if routes[f"k{k}"] != {"cross_conv1": 1, "cross_conv1_bwd": 1}:
+            fail(f"parity_caps: k={k} took {routes[f'k{k}']}, not kernels 1 and 2")
+        if max(errs) > 1e-4:
+            fail(f"parity_caps: k={k} on the card disagrees with the float64 plain route")
     return routes
 
 

@@ -2,7 +2,7 @@
 CPU) against the TPU micro-bench's kernels `bwd_v1` and `bwd_v2`
 (scripts/bench_bwd_variants.py) and the shipped `_bwd_pallas(fm=True,
 glin=...)`, all three in Pallas interpret mode (bt=8), at F=15, d=16,
-C1=8, k=3, B=16.
+C1=8, k=3 (and k=9 for the variants), B=16.
 
 The script module is imported from scripts/ and handed a `pl` whose
 pallas_call runs in interpret mode (the script passes no interpret flag and
@@ -60,9 +60,9 @@ def _interpret(monkeypatch):
     assert ic.cross_conv1_bwd.launches == 0
 
 
-def _cfgs(dtype):
+def _cfgs(dtype, k=3):
     kw = dict(num_fields=15, vocab_sizes=(50,) * 15, embed_dim=16, conv_channels=(8,),
-              conv_kernel=3, compute_dtype=dtype)
+              conv_kernel=k, compute_dtype=dtype)
     return JaxModelConfig(**kw), ModelConfig(**kw)
 
 
@@ -92,10 +92,11 @@ def _np(x):
     return np.asarray(jnp.asarray(x).astype(jnp.float32))
 
 
+@pytest.mark.parametrize("k", [3, 9])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("variant", ["v0", "v1", "v2"])
-def test_variant_matches_jax(variant, dtype):
-    jcfg, cfg = _cfgs(dtype)
+def test_variant_matches_jax(variant, dtype, k):
+    jcfg, cfg = _cfgs(dtype, k)
     e3, w1, g, glin = _inputs(cfg, seed=3)
     wrs_j, want = _jax_all(jcfg, e3, w1, g, glin, dtype)
     tdt = getattr(torch, dtype)

@@ -5,10 +5,12 @@ Three gates, each a function of shapes decided before any launch:
 `streamed_update.bucketed_kernel_takes` (kernel 7's row width; a wider
 table takes kernels 3-4), `interaction_conv.bwd_kernel_takes` (the shapes
 the backward kernels take; on the card the backward raises for others)
-and `interaction_conv.kernel_takes_width` (the conv widths the fused
-kernels are built for; on the card another odd k raises). The model sends
-every odd k to the fused entries, as JAX sends every odd k to its Pallas
-kernels; on the CPU the entries take their plain versions. The JAX side
+and `interaction_conv.kernel_takes_width` (every odd k; an even k raises,
+as JAX asserts). The backward's CUDA-core kernel walks layer 1 in slices
+of channels and taps, so it takes any C1 and every odd k whose smallest
+slice fits shared memory. The model sends every odd k to the fused
+entries, as JAX sends every odd k to its Pallas kernels; on the CPU the
+entries take their plain versions. The JAX side
 runs its Pallas kernels in interpret mode (bt=8). f32 compute: rtol 2e-4, atol 2e-5 (sum orders); dW atol 1e-4.
 The bucketed update at W > 2048 is held as the streamed route is
 (tests/test_torch_rowwise.py): table steps at atol 1% of the largest
@@ -45,18 +47,22 @@ def _cfg(**kw):
     return ModelConfig(**{"num_fields": 15, "vocab_sizes": (40,) * 15, "embed_dim": 16, **kw})
 
 
-# bwd: (k, C1, d, cross). The CUDA-core kernel's shared memory is the limit
-# past C1 = 64 (d=16: 174 KB at k=3, C1=128; 212 KB at k=5; 254 KB at k=7)
+# bwd: (k, C1, d, cross). Channel and tap slices keep the CUDA-core kernel's
+# shared memory within the card's (d=16: 196 KB at k=9, 64 channels; 201 KB
+# at k=13, 8 taps); only a d whose smallest slice does not fit is refused
 GATE_CASES = [
     ("bucketed", 640, True), ("bucketed", 2048, True), ("bucketed", 2560, False),
     ("bwd", (3, 32, 16, "field_aware"), True), ("bwd", (3, 64, 16, "field_aware"), True),
     ("bwd", (3, 128, 16, "field_aware"), True), ("bwd", (3, 128, 16, "hadamard"), True),
-    ("bwd", (5, 128, 16, "field_aware"), True), ("bwd", (5, 128, 16, "hadamard"), False),
-    ("bwd", (7, 128, 16, "field_aware"), False), ("bwd", (3, 136, 16, "field_aware"), False),
+    ("bwd", (5, 128, 16, "field_aware"), True), ("bwd", (5, 128, 16, "hadamard"), True),
+    ("bwd", (7, 128, 16, "field_aware"), True), ("bwd", (3, 136, 16, "field_aware"), True),
     ("bwd", (9, 64, 16, "field_aware"), True), ("bwd", (9, 64, 16, "hadamard"), True),
-    ("bwd", (7, 64, 32, "field_aware"), False), ("bwd", (11, 8, 16, "field_aware"), False),
+    ("bwd", (7, 64, 32, "field_aware"), True), ("bwd", (11, 8, 16, "field_aware"), True),
+    ("bwd", (7, 128, 16, "hadamard"), True), ("bwd", (9, 128, 16, "field_aware"), True),
+    ("bwd", (13, 64, 16, "field_aware"), True), ("bwd", (3, 64, 512, "field_aware"), False),
+    ("bwd", (4, 64, 16, "field_aware"), False),
     ("width", 1, True), ("width", 3, True), ("width", 7, True), ("width", 9, True),
-    ("width", 11, False),
+    ("width", 11, True), ("width", 13, True), ("width", 4, False),
 ]
 
 
@@ -76,18 +82,25 @@ def test_gate_decisions(gate, arg, want):
 
 def test_gate_constants_match_the_kernels_caps():
     assert su.BUCKETED_MAX_WIDTH == 64 * 32 == 2048
-    assert ic.BWD_MAX_CHANNELS == 128 and ic.BWD_SMEM_MAX == 227 * 1024 - 2 * 32 * 4
+    assert ic.BWD_CHANNEL_SLICE == 256 // 32 * 8 and ic.BWD_TAP_SLICE == 8
+    assert ic.BWD_SMEM_MAX == 227 * 1024 - 2 * 32 * 4
     assert ic.KERNEL_WIDTHS == (1, 3, 5, 7, 9)
+    # slices: the most channels that fit, a multiple of 8
+    assert ic.bwd_core_channels(16, 3, 136, False) == 64
+    assert ic.bwd_core_channels(16, 13, 64, True) == 64
+    assert ic.bwd_core_channels(32, 7, 64, False) == 56
+    assert ic.bwd_core_channels(512, 3, 64, False) == 0
 
 
 def test_backward_refuses_a_shape_its_kernels_do_not_take():
-    """The wrapper raises from the gate, before the library is asked."""
-    cfg = _cfg(conv_kernel=3)
-    emb = torch.zeros((B, 15, 15, 16))
-    w1 = torch.zeros((136, cfg.num_pairs, 3))
-    parts = [(emb, 15, emb.stride(1), emb.stride(0))]
-    with pytest.raises(ValueError, match="do not take C1=136"):
-        ic.cross_conv1_bwd(parts, parts, w1, torch.zeros((B, 136, 16)), None, cfg,
+    """The wrapper raises from the gate, before the library is asked: at
+    d=512 not even an 8-channel slice fits shared memory."""
+    cfg = _cfg(num_fields=4, vocab_sizes=(40,) * 4, conv_kernel=3, embed_dim=512)
+    emb = torch.zeros((2, 4, 4, 512))
+    w1 = torch.zeros((8, cfg.num_pairs, 3))
+    parts = [(emb, 4, emb.stride(1), emb.stride(0))]
+    with pytest.raises(ValueError, match="do not take C1=8 at k=3, d=512"):
+        ic.cross_conv1_bwd(parts, parts, w1, torch.zeros((2, 8, 512)), None, cfg,
                            cfg.row_width)
 
 
@@ -155,15 +168,18 @@ def _interaction_vs_jax(cross_kind, k, c1, monkeypatch):
                                        rtol=RTOL, atol=1e-4)
 
 
+@pytest.mark.parametrize("k", [9, 11])
 @pytest.mark.parametrize("cross_kind", ["field_aware", "hadamard"])
-def test_k9_interaction_and_grads_match_jax_kernel_entry(cross_kind, monkeypatch):
-    _interaction_vs_jax(cross_kind, 9, 8, monkeypatch)
+def test_k9_interaction_and_grads_match_jax_kernel_entry(cross_kind, k, monkeypatch):
+    assert ic.kernel_takes_width(k) and ic.bwd_kernel_takes(_cfg(conv_kernel=k), 8)
+    _interaction_vs_jax(cross_kind, k, 8, monkeypatch)
 
 
+@pytest.mark.parametrize("c1", [128, 136])
 @pytest.mark.parametrize("cross_kind", ["field_aware", "hadamard"])
-def test_c1_128_interaction_and_grads_match_jax_kernel_entry(cross_kind, monkeypatch):
-    assert ic.bwd_kernel_takes(_cfg(cross=cross_kind), 128)
-    _interaction_vs_jax(cross_kind, 3, 128, monkeypatch)
+def test_c1_128_interaction_and_grads_match_jax_kernel_entry(cross_kind, c1, monkeypatch):
+    assert ic.bwd_kernel_takes(_cfg(cross=cross_kind), c1)
+    _interaction_vs_jax(cross_kind, 3, c1, monkeypatch)
 
 
 def test_k9_model_forward_matches_jax_through_the_kernel_route(monkeypatch):
