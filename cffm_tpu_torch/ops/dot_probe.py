@@ -3,11 +3,15 @@
 The port's counterpart of the Pallas kernel in `scripts/probe_dot_orient.py`.
 Per step the kernel sums D bf16 products into f32 and writes the last
 step's sum: out = sum over D of L . R, with the operands in the script's
-layouts (`csrc/dot_orient_probe.cu` says which loads each mode takes):
+layouts, each read by wgmma from shared memory in its stored orientation
+(`csrc/dot_orient_probe.cu`):
 
-  lane  a (P, BT), b (KC, BT) -> a @ b.T   (P, KC)
-  sub   a (BT, P), b (BT, KC) -> a.T @ b   (P, KC)
-  rhs   a (KC, P), b (BT, KC) -> b @ a     (BT, P)
+  lane  a (P, BT), b (KC, BT) -> a @ b.T   (P, KC)   L K-major, R K-major
+  sub   a (BT, P), b (BT, KC) -> a.T @ b   (P, KC)   L MN-major, R MN-major
+  rhs   a (KC, P), b (BT, KC) -> b @ a     (BT, P)   L K-major, R MN-major
+
+The kernel's grid is (m64 x N output tile, range of steps): `schedule`
+is the library's rule in plain Python, so that a CPU test sees it.
 
 `dot_probe` launches the kernel for CUDA tensors and takes the plain
 version (`dot_probe_reference`: the D products looped in f32) for CPU
@@ -25,6 +29,11 @@ from cffm_tpu_torch.ops import _build
 
 _SOURCE = "dot_orient_probe"
 MODES = ("lane", "sub", "rhs")
+# the kernel's output tiles: 64 rows by a mode's N-tile width
+TILE_M = 64
+TILE_N = {"lane": 192, "sub": 192, "rhs": 248}
+BLOCKS_PER_SM = 2                  # blocks per SM the step split aims at
+SMEM_MAX = 232448                  # shared memory a block may use on the H100
 
 
 def operand_shapes(mode: str, bt: int, p: int, kc: int):
@@ -47,6 +56,36 @@ def operands(mode: str, a: torch.Tensor, b: torch.Tensor):
     if mode == "rhs":
         return b, a
     raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+
+
+def gemm_dims(mode: str, bt: int, p: int, kc: int):
+    """(M, N, K) of a mode's product."""
+    return (bt, p, kc) if mode == "rhs" else (p, kc, bt)
+
+
+def schedule(mode: str, bt: int, p: int, kc: int, steps: int, sms: int) -> dict:
+    """The kernel's launch at these shapes on a card of `sms` SMs (the
+    library's probe_grid): the N-tile width, m- and n-tiles, the number of
+    step splits (about BLOCKS_PER_SM blocks per SM, at most one step
+    each), each split's step range [s*steps//splits, (s+1)*steps//splits),
+    and the dynamic shared memory of one block (its L and R tiles)."""
+    m, n, k = gemm_dims(mode, bt, p, kc)
+    nw = TILE_N[mode]
+    mtiles, ntiles = -(-m // TILE_M), -(-n // nw)
+    splits = max(1, min(steps, -(-(BLOCKS_PER_SM * sms) // (mtiles * ntiles))))
+    ranges = [(s * steps // splits, (s + 1) * steps // splits) for s in range(splits)]
+    return {"nw": nw, "mtiles": mtiles, "ntiles": ntiles, "splits": splits,
+            "ranges": ranges, "smem": (TILE_M + nw) * k * 2}
+
+
+def writer(ranges, steps: int):
+    """(split, warpgroup) that writes a tile: the split that owns step
+    steps-1, and of its two warpgroups (alternate steps of its range) the
+    one that takes that step."""
+    for s, (lo, hi) in enumerate(ranges):
+        if lo <= steps - 1 < hi:
+            return s, (steps - 1 - lo) % 2
+    raise ValueError("no split owns the last step")
 
 
 def macs(mode: str, a: torch.Tensor, b: torch.Tensor, steps: int, d: int) -> int:
@@ -93,7 +132,18 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [i, p, p, p, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
+        lib.cffm_dot_orient_probe_grid.argtypes = [i, i, i, i, i, i, p]
+        lib.cffm_dot_orient_probe_grid.restype = ctypes.c_longlong
     return lib
+
+
+def library_schedule(mode: str, bt: int, p: int, kc: int, steps: int, sms: int):
+    """The library's (N-tile width, m-tiles, n-tiles, splits) and shared
+    memory at these shapes, for holding `schedule` against it."""
+    grid = (ctypes.c_int * 4)()
+    smem = _library().cffm_dot_orient_probe_grid(MODES.index(mode), bt, p, kc, steps, sms,
+                                                 grid)
+    return tuple(grid), smem
 
 
 def dot_probe(a: torch.Tensor, b: torch.Tensor, mode: str, steps: int, d: int
@@ -116,6 +166,9 @@ def dot_probe(a: torch.Tensor, b: torch.Tensor, mode: str, steps: int, d: int
                          f"{a.device} and {b.device}")
     if (kc if mode == "rhs" else bt) % 16:
         raise ValueError("the kernel needs a contraction that is a multiple of 16")
+    if schedule(mode, bt, p, kc, steps, 1)["smem"] > SMEM_MAX:
+        raise ValueError(f"mode {mode}: the contraction is too deep for one block's "
+                         f"shared memory")
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty(operand_shapes(mode, bt, p, kc)[2], dtype=torch.float32,
                       device=a.device)

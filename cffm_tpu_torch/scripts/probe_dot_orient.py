@@ -6,11 +6,13 @@ The port's counterpart of `scripts/probe_dot_orient.py`: per mode, D=16
 accumulated bf16 products per step over 512 steps (kernel 9,
 `ops.dot_probe`), at the TPU probe's shapes BT=128, P=744, KC=192:
 
-  lane  (P, BT) . (KC, BT)^T   both operands K-contiguous
-  sub   (BT, P)^T . (BT, KC)   both M/N-contiguous (ldmatrix.trans)
-  rhs   (BT, KC) . (KC, P)     A K-contiguous, B N-contiguous
+  lane  (P, BT) . (KC, BT)^T   both operands K-major
+  sub   (BT, P)^T . (BT, KC)   both MN-major (wgmma's transpose bits)
+  rhs   (BT, KC) . (KC, P)     A K-major, B MN-major
 
-Prints ms per call (CUDA events) and TMAC/s for each mode.
+Prints ms per call (CUDA events) and TMAC/s for each mode, then the
+MN-major modes' time against lane's: what reading an operand MN-major
+costs wgmma.
 """
 
 from __future__ import annotations
@@ -50,10 +52,14 @@ def main(argv=None) -> int:
     from cffm_tpu_torch.ops.dot_probe import MODES
 
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
+    secs = {}
     for mode in MODES:
         r = run(mode)
+        secs[mode] = r["s"]
         print(f"{mode}: {r['s'] * 1e3:.3f} ms  {r['macs'] / r['s'] / 1e12:.1f} TMAC/s",
               flush=True)
+    print(f"sub/lane {secs['sub'] / secs['lane']:.4f}  rhs/lane {secs['rhs'] / secs['lane']:.4f}",
+          flush=True)
     return 0
 
 

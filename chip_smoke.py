@@ -114,9 +114,11 @@ nonzero without them, or when any phase fails. Phases, in order:
      max|dW|, pad lanes, diagonal blocks and dW's pad rows exact zeros, the
      fused column exactly glin, dW bit-equal in two runs; then kernel 8a
      and kernel 2 in the variants' layout (row 8b) timed at B=65536;
- 18. parity_dot_probe: kernel 9's three modes against the plain version at
-     the probe's shapes (rtol 1e-5, atol 1e-5 of max|out|), timed with
-     TMAC/s, torch.matmul as the yardstick;
+ 18. parity_dot_probe: kernel 9's three modes (wgmma, K-major and MN-major
+     operands) against the plain version at the probe's shapes and at a
+     ragged shape (rtol 1e-5, atol 1e-5 of max|out|), its grid against the
+     CPU rule, timed with TMAC/s and the MN-major modes' time against
+     lane's, torch.matmul as the yardstick;
  19. tools: main(argv) of `python -m cffm_tpu_torch.bench` (--feed=staged,
      score, sharded), of the scripts bench_kernel, bench_bwd_variants
      --check, probe_dot_orient, profile_step full and trace_step, in
@@ -2292,26 +2294,49 @@ def phase_parity_bwd_v1() -> dict:
     return out
 
 
+# ragged shapes of the probe, (bt, p, kc, steps, d): M and N not multiples
+# of the kernel's tiles
+PROBE_RAGGED = {"lane": (64, 700, 200, 7, 3), "sub": (64, 700, 200, 7, 3),
+                "rhs": (100, 300, 48, 5, 2)}
+
+
 def phase_parity_dot_probe() -> dict:
     """Kernel 9's three modes against the plain version at the probe's
-    shapes (BT=128, P=744, KC=192, D=16, 512 steps); kernel, plain version,
-    torch.matmul yardstick (one product, scaled to the call's MACs), bound."""
+    shapes (BT=128, P=744, KC=192, D=16, 512 steps) and at a ragged shape;
+    its grid against the CPU rule (dot_probe.schedule); kernel, plain
+    version, torch.matmul yardstick (one product, scaled to the call's
+    MACs), bound, TMAC/s and the MN-major modes' time against lane's."""
     import torch
 
     from cffm_tpu_torch.ops import dot_probe as dp
-    from cffm_tpu_torch.scripts.probe_dot_orient import D, STEPS, make_operands
+    from cffm_tpu_torch.scripts.probe_dot_orient import BT, D, KC, P, STEPS, make_operands
 
     out = {"max_abs_err": 0.0}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(31)
     for mode in dp.MODES:
+        for bt, p, kc, steps, d in ((BT, P, KC, STEPS, D), PROBE_RAGGED[mode]):
+            want = dp.schedule(mode, bt, p, kc, steps, sms)
+            lib = dp.library_schedule(mode, bt, p, kc, steps, sms)
+            if lib != ((want["nw"], want["mtiles"], want["ntiles"], want["splits"]), want["smem"]):
+                fail(f"parity_dot_probe {mode}: the library's grid {lib} is not the CPU rule's")
+            if (bt, p, kc) == (BT, P, KC):
+                a, b = make_operands(mode, "cuda")
+            else:
+                a_shape, b_shape, _ = dp.operand_shapes(mode, bt, p, kc)
+                a = torch.randn(a_shape, generator=gen, device="cuda").to(torch.bfloat16)
+                b = torch.randn(b_shape, generator=gen, device="cuda").to(torch.bfloat16)
+            got = dp.dot_probe(a, b, mode, steps, d)
+            ref = dp.dot_probe_reference(a, b, mode, steps, d)
+            scale = ref.abs().max().item()
+            err = (got - ref).abs().max().item()
+            print(f"parity_dot_probe {mode} BT={bt} P={p} KC={kc} steps={steps} D={d}: grid "
+                  f"{want['mtiles']}x{want['ntiles']} tiles of 64x{want['nw']} x "
+                  f"{want['splits']} step splits; max_abs_err={err:.3e} (rtol=1e-5, "
+                  f"atol=1e-5*max|out|={1e-5 * scale:.3e})", flush=True)
+            torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * scale)
+            out["max_abs_err"] = max(out["max_abs_err"], err)
         a, b = make_operands(mode, "cuda")
-        got = dp.dot_probe(a, b, mode, STEPS, D)
-        ref = dp.dot_probe_reference(a, b, mode, STEPS, D)
-        scale = ref.abs().max().item()
-        err = (got - ref).abs().max().item()
-        print(f"parity_dot_probe {mode}: max_abs_err={err:.3e} (rtol=1e-5, atol=1e-5*max|out|="
-              f"{1e-5 * scale:.3e})", flush=True)
-        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * scale)
-        out["max_abs_err"] = max(out["max_abs_err"], err)
         macs = dp.macs(mode, a, b, STEPS, D)
         ms = cuda_ms(lambda: dp.dot_probe(a, b, mode, STEPS, D), 20)
         plain_ms = cuda_ms(lambda: dp.dot_probe_reference(a, b, mode, STEPS, D), 2, warmup=1)
@@ -2324,6 +2349,10 @@ def phase_parity_dot_probe() -> dict:
               f"plain {plain_ms:.4f} ms, torch.matmul x{STEPS * D} {library_ms:.4f} ms, bound "
               f"{out[mode]['bound_ms']:.4f} ms ({out[mode]['bound_by']}: {macs:.4e} MAC)",
               flush=True)
+    lane = out["lane"]["ms"]
+    print(f"parity_dot_probe MN-major against K-major (time / lane's): sub (both operands "
+          f"MN-major) {out['sub']['ms'] / lane:.4f}, rhs (B MN-major, N-tile 248) "
+          f"{out['rhs']['ms'] / lane:.4f}", flush=True)
     dp.dot_probe.launches = 0
     return out
 
