@@ -14,7 +14,9 @@ last rows are zeros).
   bwd_v0  weights wrs (k*C1, P_pad) from `prep_w_bwd`; launches kernel 2
           (`csrc/cross_conv1_bwd.cu` through `interaction_conv.cross_conv1_bwd`)
   bwd_v1  weights wr (P_pad, k*C1) = wrs.T; launches kernel 8a
-          (`csrc/cross_conv1_bwd_v1.cu`): g staged once per example tile
+          (`csrc/cross_conv1_bwd_v1.cu`): per position x, the products
+          over one tap window of g (`bwd_v1_tiles` spells out its
+          tensor-core formulation)
   bwd_v2  weights wrs; the TPU's v2 equals the shipped kernel bit for bit
           (tests/test_torch_bwd_variants.py), so it launches kernel 2 too
 
@@ -34,8 +36,12 @@ import torch.nn.functional as F
 from cffm_tpu_torch.config import ModelConfig
 from cffm_tpu_torch.ops import _build
 from cffm_tpu_torch.ops import interaction_conv as ic
+from cffm_tpu_torch.ops.cross import pair_indices
 
 _SOURCE = "cross_conv1_bwd_v1"
+# kernel 8a's tensor-core tiles: examples per tile, pairs per chunk
+V1_TILE = 16
+V1_PAIRS = 64
 
 
 def round_up(x: int, m: int) -> int:
@@ -84,6 +90,91 @@ def bwd_v2_reference(emb3, wrs, g, glin, cfg: ModelConfig):
     return bwd_reference(emb3, w1_from_wrs(wrs, cfg), g, glin, cfg, wrs.shape[1])
 
 
+def v1_window_tiles(g: torch.Tensor, k: int, d: int) -> torch.Tensor:
+    """g (B, C1*d) as kernel 8a's tensor-core kernel reads it: per tile of
+    V1_TILE examples, the tap window gp[q*C1 + c, b] = g[b, c, q - k//2]
+    (zero outside [0, d) and past B), R = (d+k-1)*C1 rows by V1_TILE
+    examples in 8x8 core matrices, core (r/8, b/8) at (r/8 * 2 + b/8) * 64
+    elements. Shape (ntiles, R/8, 2, 8, 8)."""
+    b = g.shape[0]
+    c1 = g.shape[1] // d
+    lo = k // 2
+    nt = -(-b // V1_TILE)
+    gp = F.pad(g.reshape(b, c1, d), (lo, k - 1 - lo, 0, 0, 0, nt * V1_TILE - b))
+    q = d + k - 1
+    gp = gp.reshape(nt, V1_TILE, c1, q).permute(0, 3, 2, 1).reshape(nt, q * c1 // 8, 8, 2, 8)
+    return gp.permute(0, 1, 3, 2, 4).contiguous()
+
+
+def v1_weight_chunks(wr: torch.Tensor) -> torch.Tensor:
+    """wr (P_pad, k*C1) as kernel 8a's tensor-core kernel copies it, one
+    chunk of V1_PAIRS pairs at a time: K-major 8x8 core matrices, ordered
+    (chunk, pair/8, r/8, pair%8, r%8), pairs past P_pad zero."""
+    p_pad, r = wr.shape
+    nq = -(-p_pad // V1_PAIRS)
+    w = F.pad(wr, (0, 0, 0, nq * V1_PAIRS - p_pad))
+    return w.reshape(nq, V1_PAIRS // 8, 8, r // 8, 8).permute(0, 1, 3, 2, 4).contiguous()
+
+
+def v1_grid(batch: int, sms: int):
+    """Kernel 8a's tensor-core grid (the library's wg_grid): (blocks, tiles
+    per block, tiles); a block's two warpgroups take alternate tiles."""
+    nt = -(-batch // V1_TILE)
+    first = min(nt, sms)
+    tpb = -(-nt // first) if first else 1
+    return (-(-nt // tpb) if nt else 0), tpb, nt
+
+
+def bwd_v1_tiles(emb3, wr, g, glin, cfg: ModelConfig, sms: int = 132):
+    """Kernel 8a's tensor-core formulation in plain torch, its index
+    arithmetic spelled out (for tests): each tile's tap window unpacked
+    from v1_window_tiles and each chunk's weights from v1_weight_chunks;
+    per chunk of V1_PAIRS pairs, tile of V1_TILE examples and position x,
+    with Gw_x = window rows [x*C1, (x+k)*C1),
+      dW_all (pairs, k*C1) += M_x Gw_x^T  and  dM_x = wr_chunk Gw_x,
+    sums in f32 of operands in the rows' dtype; dM_x rounded, dE = dM times
+    the partner factor; dW_all kept per (block, warpgroup) over v1_grid's
+    tiles (warpgroups alternate) and the partials summed in that order; dW
+    in v1's tap order t = k-1-s. Same signature and outputs as bwd_v1."""
+    dt = emb3.dtype
+    f, b, wp = emb3.shape
+    k, d = cfg.conv_kernel, cfg.embed_dim
+    p_pad, kc = wr.shape
+    c1, pairs = kc // k, cfg.num_pairs
+    win = v1_window_tiles(g.to(dt), k, d)
+    win = win.permute(0, 1, 3, 2, 4).reshape(win.shape[0], -1, V1_TILE).float()  # (nt, R, 16)
+    chunks = v1_weight_chunks(wr.to(dt))
+    wrc = chunks.permute(0, 1, 3, 2, 4).reshape(chunks.shape[0], V1_PAIRS, kc).float()
+    blocks, tpb, nt = v1_grid(b, sms)
+    pi, pj = (torch.from_numpy(a).long() for a in pair_indices(f))
+    de = torch.zeros_like(emb3)
+    partials = torch.zeros((2 * blocks, pairs, kc), dtype=torch.float32)
+    for q in range(-(-pairs // V1_PAIRS)):
+        p = torch.arange(q * V1_PAIRS, min(pairs, (q + 1) * V1_PAIRS))
+        i, j = pi[p], pj[p]
+        for tile in range(nt):
+            row = 2 * (tile // tpb) + (tile - tile // tpb * tpb) % 2
+            ex = torch.arange(tile * V1_TILE, min(b, (tile + 1) * V1_TILE))
+            n = ex.numel()
+            for x in range(d):
+                fa = emb3[i[:, None], ex[None], (d * j + x)[:, None]].float()
+                fb = emb3[j[:, None], ex[None], (d * i + x)[:, None]].float()
+                m = (fa * fb).to(dt).float()                        # (pairs, n)
+                gw = win[tile, x * c1:(x + k) * c1, :n]             # (k*C1, n)
+                partials[row, p] += m @ gw.t()
+                dm = (wrc[q, :p.numel()] @ gw).to(dt).float()
+                de[i[:, None], ex[None], (d * j + x)[:, None]] = (dm * fb).to(dt)
+                de[j[:, None], ex[None], (d * i + x)[:, None]] = (dm * fa).to(dt)
+    dw_all = partials[0].clone()
+    for r in range(1, 2 * blocks):
+        dw_all += partials[r]
+    dw = torch.zeros((k, p_pad, c1), dtype=torch.float32)
+    for t in range(k):
+        dw[t, :pairs] = dw_all[:, (k - 1 - t) * c1:(k - t) * c1]
+    de[..., cfg.row_width] = glin.to(dt)[None, :]
+    return de, dw
+
+
 def _check(emb3, w, g, glin, cfg: ModelConfig, v1: bool):
     """The variants' preconditions, raised. Returns (device kind, C1)."""
     if not (cfg.cross == "field_aware" and cfg.fused_linear):
@@ -119,10 +210,12 @@ def _library() -> ctypes.CDLL:
     fn = lib.cffm_cross_conv1_bwd_v1
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [i, p, p, ll, ll, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [i, i, p, p, ll, ll, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
-        lib.cffm_cross_conv1_bwd_v1_blocks.argtypes = [i]
+        lib.cffm_cross_conv1_bwd_v1_blocks.argtypes = [i, i]
         lib.cffm_cross_conv1_bwd_v1_blocks.restype = ctypes.c_int
+        lib.cffm_cross_conv1_bwd_v1_wgmma.argtypes = [i, p, p, ll, ll, i, i, i, i, i, i]
+        lib.cffm_cross_conv1_bwd_v1_wgmma.restype = ctypes.c_int
     return lib
 
 
@@ -130,8 +223,10 @@ def bwd_v1(emb3: torch.Tensor, wr: torch.Tensor, g: torch.Tensor, glin: torch.Te
            cfg: ModelConfig):
     """The v1 backward from wr (P_pad, k*C1): kernel 8a on CUDA tensors.
 
-    Field-aware bf16 rows with d=16, C1 <= 64 and 16-byte aligned rows run on
-    the tensor cores; f32 and every other shape on the CUDA cores."""
+    bf16 rows with d=16, C1 of 32 or 64, k*C1 <= 224 and 16-byte aligned
+    rows run on the tensor cores (wgmma), with the weights and g in
+    v1_weight_chunks' and v1_window_tiles' layouts; f32 and every other
+    shape on the CUDA cores."""
     kind, c1 = _check(emb3, wr, g, glin, cfg, v1=True)
     if kind == "cpu":
         return bwd_v1_reference(emb3, wr, g, glin, cfg)
@@ -144,12 +239,21 @@ def bwd_v1(emb3: torch.Tensor, wr: torch.Tensor, g: torch.Tensor, glin: torch.Te
     gl = glin.to(device=dev, dtype=torch.float32).contiguous()
     de = torch.empty_like(e)
     lib = _library()
-    blocks = lib.cffm_cross_conv1_bwd_v1_blocks(b)
-    dwp = torch.empty((blocks, k, cfg.num_pairs, c1), dtype=torch.float32, device=dev)
+    is_bf16 = int(dt == torch.bfloat16)
+    wgmma = lib.cffm_cross_conv1_bwd_v1_wgmma(is_bf16, e.data_ptr(), de.data_ptr(), e.stride(0),
+                                              e.stride(1), f, cfg.embed_dim, k, c1,
+                                              cfg.row_width, wp)
+    if wgmma:
+        w, gg = v1_weight_chunks(w), v1_window_tiles(gg, k, cfg.embed_dim)
+    with torch.cuda.device(dev):
+        rows = lib.cffm_cross_conv1_bwd_v1_blocks(b, wgmma)
+    if rows < 0:
+        raise RuntimeError("cross_conv1_bwd_v1: the device's SM count could not be read")
+    dwp = torch.empty((rows, k, cfg.num_pairs, c1), dtype=torch.float32, device=dev)
     dw = torch.empty((k, p_pad, c1), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.cffm_cross_conv1_bwd_v1(
-            int(dt == torch.bfloat16), e.data_ptr(), de.data_ptr(), e.stride(0), e.stride(1),
+            is_bf16, wgmma, e.data_ptr(), de.data_ptr(), e.stride(0), e.stride(1),
             w.data_ptr(), gg.data_ptr(), gl.data_ptr(), dwp.data_ptr(), dw.data_ptr(), b, f,
             cfg.embed_dim, k, c1, p_pad, cfg.row_width, wp,
             torch.cuda.current_stream(dev).cuda_stream)

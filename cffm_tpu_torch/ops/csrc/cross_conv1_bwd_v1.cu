@@ -19,35 +19,25 @@
 //   dM[b,p,x] = T(sum_{s,c} wr[p, s*C1+c] * g[b,c,x+s-K/2])   (f32 sum).
 //
 // Design. v1 merged the dW and dM loops on the TPU so that one staged g
-// window served both products per position x. The GPU counterpart is the
-// change kernel 2's header leaves on the table: a block owns a range of
-// examples and walks it in example tiles; g is staged ONCE per tile (kernel 2
-// stages it once per pair chunk, 24 times per example at criteo_kaggle
-// shapes). Per tile the block walks the pair chunks; per chunk and group of
-// kEB examples it rebuilds the chunk's cross map and its two factors in
-// shared memory from E, then both products read the one staged g tile:
-//   dW: per example and tap, M (16 pairs x 16 positions) times the g window
-//       at shift s (16 positions x 8 channels, loaded with ldmatrix.trans),
-//       summed in registers over the tile;
-//   dM: per example, wr (16 pairs x 16 channels) times the g window
-//       (16 channels x 8 positions); then dE straight from registers.
-// The price of staging g once: a block's dW, (K, P, C1) f32 = 571 KB at
-// criteo_kaggle shapes, cannot stay in registers or shared memory across
-// tiles, so each (tile, chunk) adds its registers into the block's own f32
-// partial in device memory (read-modify-write, one owner per element), and a
-// second kernel sums the partials in block order: deterministic, no atomics.
-// Field-aware bf16 rows with d=16, C1<=64 and 16-byte aligned rows take the
-// tensor-core kernel (mma.sync.m16n8k16, bf16 in, f32 sums); f32 and every
-// other shape take bwd_v1_kernel, the same walk with FMAs on the CUDA cores
-// and a tile of kEB examples.
+// window served both products per position x. Two kernels keep that.
+// Field-aware bf16 rows with d=16, C1 of 32 or 64 and k*C1 <= 224 take
+// bwd_v1_wgmma_kernel (below): both products as wgmma GEMMs over one tap
+// window of g per (pair chunk, example tile) in shared memory, read at x's
+// offset, dW in registers over a block's tile range. f32 and every other
+// shape take bwd_v1_kernel: a block walks its examples in tiles of kEB,
+// stages g once per tile and, per pair chunk, the weight chunk and the
+// cross map, and runs both products as FMAs on the CUDA cores, adding each
+// (tile, chunk)'s dW into the block's f32 partial in device memory. Both
+// sum the partials in a second kernel, in order: deterministic, no
+// atomics. k is an unrolled template value for 1-9 and a run-time value
+// for any other odd k.
 //
 // Bound on the H100 at criteo_kaggle shapes (F=39, d=16, W=640, C1=64, k=3,
 // bf16, B=65536): like kernel 2, 2 x 298 GFLOP against ~6.7 GB of E, dE and g
-// moved, so memory-bound on paper at 2.0 ms. What bounds this design: the
-// partial's read-modify-write (K*P*C1*8 bytes per tile and block: 1.1 GB at
-// B=65536 with 64-example tiles, partly in L2), one block per SM (the g tile
-// takes 166 KB of shared memory), and the same per-chunk staging of M and
-// the factors as kernel 2.
+// moved, so memory-bound on paper at 2.0 ms. The wgmma kernel moves more:
+// it reads the tap window once per pair chunk (12 chunks of 64 pairs, ~1.8
+// GB at B=65536) besides E and dE, and stores dE in 32-byte pieces as
+// kernel 2 does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,9 +49,7 @@ constexpr int kPC = 32;            // pairs per chunk
 constexpr int kEB = 8;             // examples per group: one per warp in dM
 constexpr int kThreads = 256;
 constexpr int kTargetBlocks = 132; // one per SM on a 132-SM card
-constexpr int kTileMax = 64;       // examples per tile (tensor-core kernel)
 constexpr int kD = 16;             // embed dim of the tensor-core kernel
-constexpr int kRow = 24;           // bf16 row stride of the 16-wide tiles
 constexpr int kSmemMax = 232448;   // shared memory a block may use on the H100
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -80,8 +68,8 @@ struct Args {
   const void* e;           // (fields, batch, w_phys) rows in T
   void* de;                // same layout as e
   long long fs, bs;        // field and batch strides of e and de (elements)
-  const void* wr;          // (p_pad, K*c1) in T
-  const void* g;           // (batch, c1, d) in T
+  const void* wr;          // (p_pad, K*c1) in T (CUDA-core kernel)
+  const void* g;           // (batch, c1, d) in T (CUDA-core kernel)
   const float* glin;       // (batch,)
   float* dwp;              // (blocks, K, pairs, c1) f32 partials, tap order s
   int batch, fields, d, k, c1, pairs, kc, lin_col, w_phys;
@@ -241,216 +229,379 @@ __global__ void __launch_bounds__(kThreads) bwd_v1_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core kernel: d == 16, C1 <= 64, 16-byte aligned rows.
+// bf16 tensor-core kernel (wgmma): d == 16, C1 in {32, 64}, k*C1 <= 224,
+// at most 255 fields, 16-byte aligned rows and pad columns.
+//
+// v1 contracts over a tile of kTE examples for each position x, reading
+// one tap window of g: with Gw_x (k*C1 x kTE) = rows x*C1 .. (x+k)*C1 of
+// the window gp[q*C1 + c, b] = g[b, c, q - k/2] (zero outside [0, 16)),
+//   dW_all (pairs x k*C1) += M_x (pairs x kTE) . Gw_x^T   (dW's K = examples)
+//   dM_x   (pairs x kTE)   = wr (pairs x k*C1) . Gw_x     (dM's K = k*C1)
+// Both GEMMs read the one shared-memory window at x's offset (x*C1 rows,
+// x*C1*kTE*2 bytes, whole core matrices for C1 a multiple of 8): dW reads
+// it K-major (rows r, examples contiguous), dM MN-major (its transpose
+// bit). The window comes from the wrapper in this layout, one contiguous
+// block per tile (bwd_variants.v1_window_tiles), and the weights one block
+// per pair chunk (v1_weight_chunks).
+//
+// Loop order. One block per SM walks a contiguous range of tiles; its two
+// warpgroups take alternate tiles, so one loads while the other computes.
+// The pair axis goes in chunks of kWgPairs (wgmma's M) in the outer loop:
+// a warpgroup keeps the chunk's dW (k accumulators of 64 x C1) in
+// registers over all its tiles and writes one f32 partial per (block,
+// warpgroup, chunk); sum_partials_kernel sums them in order. Per tile a
+// warpgroup loads the pairs' 32-byte pieces of E, E[b, i, 16j + x] and
+// E[b, j, 16i + x], and stores them transposed into position planes
+// [x][pair][example], two examples per 32-bit word; then for each x it
+// forms M_x = bf16(E_i * E_j) straight into the register fragment of
+// wgmma's A operand (a thread's fragment positions are those of its dM
+// accumulator), issues dM_x (wgmma, A = wr from shared memory) and dW
+// (wgmma, A from registers), rounds dM_x to bf16 and overwrites the two
+// factors at x in place with dE = bf16(dM * partner). Last it gathers each
+// (pair, example)'s 16 positions back into 32-byte pieces and stores dE.
+// The tile's diagonal blocks and pad lanes are written in the first chunk.
+//
+// Shared memory (k=3, C1=64): the weight chunk 24 KB; per warpgroup the
+// two factors' planes 2 x 32 KB and the tap window (16 + k - 1) * C1 * kTE
+// * 2 = 36 KB; 229.4 KB in all, so one block per SM and no ring: the
+// overlap of loads and products comes from the two warpgroups.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+constexpr int kWgPairs = 64;                  // pairs per chunk: wgmma's M
+constexpr int kTE = 16;                       // examples per tile: dW's K, dM's N
+constexpr int kWgThreads = 256;               // two warpgroups, alternate tiles
+constexpr int kPlane = kWgPairs * kTE * 2;    // bytes of one position's plane
+constexpr int kFactorBytes = kD * kPlane;     // one factor of a tile, all positions
+constexpr int kMaxWgFields = 255;             // pair tables hold i and j in a byte each
+
+__host__ __device__ constexpr int v1_gp_bytes(int k, int c1) { return (kD + k - 1) * c1 * kTE * 2; }
+__host__ __device__ constexpr int v1_wr_bytes(int k, int c1) { return kWgPairs * k * c1 * 2; }
+__host__ __device__ constexpr int v1_smem(int k, int c1) {
+  return v1_wr_bytes(k, c1) + 2 * (2 * kFactorBytes + v1_gp_bytes(k, c1)) + kWgPairs * 2;
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// shared-memory matrix descriptor, no swizzle: lbo is the byte stride
+// between core matrices along K, sbo along M (or N)
+__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving register reads or writes across a wgmma wait
+template <int N>
+__device__ __forceinline__ void wg_pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void wg_pin(uint32_t (&r)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// d (64 x 64, f32, this thread's 32) += A (64 x 16, bf16 in registers: this
+// thread's fragment a) * B (16 x 64, K-major descriptor)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// Two 8x8 b16 matrices, transposed on the way: lanes 0-7 give the row
-// addresses of matrix 0 (-> b0), lanes 8-15 those of matrix 1 (-> b1).
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
-                                                  const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
-               : "r"(addr));
+// d (64 x 32, f32, this thread's 16) += A (64 x 16, bf16 in registers: this
+// thread's fragment a) * B (16 x 32, K-major descriptor)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-__host__ __device__ constexpr int mma_c16(int c1) { return (c1 + 15) / 16 * 16; }
-
-// bf16 elements of shared memory the tensor-core kernel needs for a tile
-__host__ __device__ constexpr long long mma_smem_elems(int k, int c1, int tb) {
-  return static_cast<long long>(tb) * (kD + k - 1) * (mma_c16(c1) + 8) +  // g tile
-         static_cast<long long>(k) * kPC * (mma_c16(c1) + 8) +           // wr chunk
-         3LL * kEB * kPC * kRow;                                          // M, factors
+// d (64 x 16, f32, this thread's 8) = scale_d * d + A (64 x 16, K-major
+// descriptor) * B (16 x 16, MN-major descriptor: the transpose bit)
+__device__ __forceinline__ void wgmma_ss_n16_bmn(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
-template <int K>
-__global__ void __launch_bounds__(kThreads, 1) bwd_v1_mma_kernel(Args a) {
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, b);
+  else wgmma_rs_n32(d, a, b);
+}
+
+// two bf16 products, each rounded once: bf16(x * y), lane by lane
+__device__ __forceinline__ uint32_t mul2(uint32_t x, uint32_t y) {
+  const __nv_bfloat162 z = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&x),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&y));
+  return *reinterpret_cast<const uint32_t*>(&z);
+}
+
+__device__ __forceinline__ uint32_t& word(unsigned char* base, int off) {
+  return *reinterpret_cast<uint32_t*>(base + off);
+}
+
+// diagonal blocks and pad lanes of examples [b_begin, b_end), 16 bytes a
+// store, by threads t0, t0 + nt, ...: d == 16, lin_col and w_phys are
+// multiples of 8 (checked at the launch)
+__device__ void diag_and_pads16(const Args& a, long long b_begin, long long b_end, int t0,
+                                int nt) {
   using bf = __nv_bfloat16;
-  constexpr int kHalf = K / 2;
-  constexpr int kQ = kD + K - 1;           // halo-padded positions
-  extern __shared__ float4 smem4[];
-  const int c16 = mma_c16(a.c1);
-  const int wrow = c16 + 8;                // row stride of gm and ws
-  bf* gm = reinterpret_cast<bf*>(smem4);   // [e][q][c] = g[b, c, q - K/2], whole tile
-  bf* ws = gm + a.tb * kQ * wrow;          // [s][p][c] = wr[p0+p, s*c1 + c]
-  bf* ms = ws + K * kPC * wrow;            // [e][p][x] = M[b, p0+p, x], one group
-  bf* fa = ms + kEB * kPC * kRow;          // [e][p][x] = E[b, i, j*d + x]
-  bf* fb = fa + kEB * kPC * kRow;          // [e][p][x] = E[b, j, i*d + x]
-  __shared__ int pi_s[kPC];
-  __shared__ int pj_s[kPC];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const long long b_begin = static_cast<long long>(blockIdx.x) * a.ebl;
-  const long long b_end = min(static_cast<long long>(a.batch), b_begin + a.ebl);
-  const int wpt = warp >> 2;               // dW: pair tile of this warp
-  const int wct = (warp & 3) * 2;          // dW: first of its two channel tiles
-  const bf zero = __float2bfloat16_rn(0.f);
-  const bf* gg = static_cast<const bf*>(a.g);
-  const bf* wg = static_cast<const bf*>(a.wr);
-  float* part = a.dwp + static_cast<long long>(blockIdx.x) * K * a.pairs * a.c1;
-
-  // halos and pads stay zero: the staging below writes interiors only
-  {
-    const long long n16 = mma_smem_elems(K, a.c1, a.tb) / 8;
-    for (long long u = tid; u < n16; u += kThreads) smem4[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int per_field = 2 + (a.w_phys - a.lin_col) / 8;
+  const int per_example = a.fields * per_field;
+  const int n = static_cast<int>(b_end - b_begin) * per_example;
+  for (int u = t0; u < n; u += nt) {
+    const int bl = u / per_example;
+    const int r = u - bl * per_example;
+    const int f = r / per_field, l = r - f * per_field;
+    const long long b = b_begin + bl;
+    bf* row = out_row<bf>(a, f, b);
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (l == 2) v.x = __bfloat16_as_ushort(__float2bfloat16_rn(a.glin[b]));
+    *reinterpret_cast<uint4*>(l < 2 ? row + f * kD + l * 8 : row + a.lin_col + (l - 2) * 8) = v;
   }
+}
 
-  for (long long t0 = b_begin; t0 < b_end; t0 += a.tb) {
-    const int nt = static_cast<int>(min(static_cast<long long>(a.tb), b_end - t0));
-    const bool first = t0 == b_begin;
-    __syncthreads();  // the previous tile's readers of gm are done
-    for (int u = tid; u < a.tb * c16 * 2; u += kThreads) {
-      const int e = u / (c16 * 2);
-      const int r = u - e * c16 * 2;
-      const int c = r >> 1, hf = r & 1;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (e < nt && c < a.c1)
-        v = *reinterpret_cast<const uint4*>(gg + ((t0 + e) * a.c1 + c) * kD + hf * 8);
-      const bf* vv = reinterpret_cast<const bf*>(&v);
+template <int K, int C1>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    bwd_v1_wgmma_kernel(Args a, const __nv_bfloat16* gpt, const __nv_bfloat16* wrc, int tpb,
+                        int ntiles) {
+  using bf = __nv_bfloat16;
+  constexpr int kR = K * C1;                   // dM's depth: the window rows of one x
+  constexpr int kGp = v1_gp_bytes(K, C1);
+  constexpr int kWr = v1_wr_bytes(K, C1);
+  constexpr int kStage = 2 * kFactorBytes + kGp;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* wrs = smem;                                   // [pair/8][r/8][pair%8][8 r]
+  uint16_t* pij = reinterpret_cast<uint16_t*>(smem + kWr + 2 * kStage);  // i << 8 | j
+  const int tid = threadIdx.x, wg = tid / 128, ct = tid % 128;
+  const int warp = ct / 32, lane = tid % 32, gq = lane / 4, tq = lane % 4;
+  unsigned char* fa = smem + kWr + wg * kStage;   // planes [x][pair][example]: E[b, i, 16j + x]
+  unsigned char* fb = fa + kFactorBytes;          // E[b, j, 16i + x]
+  unsigned char* gw = fb + kFactorBytes;          // window: core matrix (r/8, b/8) at (r/8*2 + b/8)*128
+  const int pairs = a.pairs;
+  const int nq = (pairs + kWgPairs - 1) / kWgPairs;
+  const int t_begin = blockIdx.x * tpb;
+  const int t_end = min(ntiles, t_begin + tpb);
+  float* part = a.dwp + static_cast<long long>(2 * blockIdx.x + wg) * K * pairs * C1;
+  const int pr = 16 * warp + gq;   // this thread's pairs pr, pr + 8 and examples 2tq, +1, +8, +9
+
+  for (int q = 0; q < nq; ++q) {
+    __syncthreads();  // the previous chunk's readers of the weights and pair table are done
+    const uint4* wsrc = reinterpret_cast<const uint4*>(wrc) + static_cast<long long>(q) * (kWr / 16);
+    for (int u = tid; u < kWr / 16; u += kWgThreads) reinterpret_cast<uint4*>(wrs)[u] = __ldg(wsrc + u);
+    if (tid < kWgPairs) {
+      const int p = q * kWgPairs + tid;
+      int i = 0, j = 0;
+      if (p < pairs) pair_of(p, a.fields, i, j);
+      pij[tid] = p < pairs ? static_cast<uint16_t>((i << 8) | j) : 0xFFFFu;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    float acc_w[K][C1 / 2];
 #pragma unroll
-      for (int n = 0; n < 8; ++n) gm[(e * kQ + kHalf + hf * 8 + n) * wrow + c] = vv[n];
+    for (int s = 0; s < K; ++s) {
+#pragma unroll
+      for (int r = 0; r < C1 / 2; ++r) acc_w[s][r] = 0.f;
+      wg_pin<C1 / 2>(acc_w[s]);
     }
 
-    for (int p0 = 0; p0 < a.pairs; p0 += kPC) {
-      const int npc = min(kPC, a.pairs - p0);
-      __syncthreads();  // the previous chunk's readers of ws and the pair table are done
-      if (tid < kPC) pair_of(min(p0 + tid, a.pairs - 1), a.fields, pi_s[tid], pj_s[tid]);
-      for (int u = tid; u < K * kPC * c16; u += kThreads) {
-        const int c = u % c16;
-        const int r = u / c16;
-        const int p = r % kPC;
-        const int s = r / kPC;
-        ws[(s * kPC + p) * wrow + c] =
-            (c < a.c1 && p < npc) ? wg[static_cast<long long>(p0 + p) * a.kc + s * a.c1 + c]
-                                  : zero;
-      }
-
-      float acc[2][K][4];
+    for (int tile = t_begin + wg; tile < t_end; tile += 2) {
+      const long long b0 = static_cast<long long>(tile) * kTE;
+      named_sync(1 + wg, 128);  // the previous tile's dE stores have read the planes
+      // E pieces of two examples, stored transposed: plane x, word (pair,
+      // example pair) = (example 2e2 at x, example 2e2 + 1 at x)
+      for (int u = ct; u < kWgPairs * kTE / 2; u += 128) {
+        const int p = u / (kTE / 2), e2 = u - p * (kTE / 2);
+        const uint16_t ij = pij[p];
+        uint4 va[2][2], vb[2][2];
 #pragma unroll
-      for (int ct = 0; ct < 2; ++ct)
-#pragma unroll
-        for (int s = 0; s < K; ++s)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[ct][s][r] = 0.f;
-
-      for (int g0 = 0; g0 < nt; g0 += kEB) {
-        __syncthreads();  // the previous group's M and factors are consumed; the
-                          // pair table, ws and gm are visible
-        for (int u = tid; u < kEB * kPC * 2; u += kThreads) {
-          const int e = u / (kPC * 2);
-          const int r = u - e * kPC * 2;
-          const int pc = r >> 1, x0 = (r & 1) * 8;
-          uint4 ua = make_uint4(0u, 0u, 0u, 0u), ub = ua;
-          if (pc < npc && g0 + e < nt) {
-            const int i = pi_s[pc], j = pj_s[pc];
-            const long long b = t0 + g0 + e;
-            ua = *reinterpret_cast<const uint4*>(in_row<bf>(a, i, b) + j * kD + x0);
-            ub = *reinterpret_cast<const uint4*>(in_row<bf>(a, j, b) + i * kD + x0);
-          }
-          const int o = (e * kPC + pc) * kRow + x0;
-          *reinterpret_cast<uint4*>(fa + o) = ua;
-          *reinterpret_cast<uint4*>(fb + o) = ub;
-          const bf* av = reinterpret_cast<const bf*>(&ua);
-          const bf* bv = reinterpret_cast<const bf*>(&ub);
-          uint4 um;
-          bf* mv = reinterpret_cast<bf*>(&um);
-#pragma unroll
-          for (int n = 0; n < 8; ++n)
-            mv[n] = __float2bfloat16_rn(__bfloat162float(av[n]) * __bfloat162float(bv[n]));
-          *reinterpret_cast<uint4*>(ms + o) = um;
-        }
-        __syncthreads();
-
-        // dW: per example and tap, M tile (pairs x positions) times the g
-        // window at shift s (positions x channels)
-        for (int e = 0; e < kEB && g0 + e < nt; ++e) {
-          const bf* m = ms + (e * kPC + wpt * 16) * kRow + 2 * tig;
-          const uint32_t a0 = ld32(m + gid * kRow), a1 = ld32(m + (gid + 8) * kRow);
-          const uint32_t a2 = ld32(m + gid * kRow + 8), a3 = ld32(m + (gid + 8) * kRow + 8);
-          const bf* gwin = gm + ((g0 + e) * kQ + (lane & 15)) * wrow;
-#pragma unroll
-          for (int s = 0; s < K; ++s) {
-#pragma unroll
-            for (int ct = 0; ct < 2; ++ct) {
-              if ((wct + ct) * 8 >= c16) continue;
-              uint32_t b0, b1;
-              ldmatrix_x2_trans(b0, b1, gwin + s * wrow + (wct + ct) * 8);
-              mma_bf16(acc[ct][s], a0, a1, a2, a3, b0, b1);
-            }
+        for (int e = 0; e < 2; ++e) {
+          const long long b = b0 + 2 * e2 + e;
+          if (ij != 0xFFFFu && b < a.batch) {
+            const int i = ij >> 8, j = ij & 0xFF;
+            const uint4* ri = reinterpret_cast<const uint4*>(in_row<bf>(a, i, b) + j * kD);
+            const uint4* rj = reinterpret_cast<const uint4*>(in_row<bf>(a, j, b) + i * kD);
+            va[e][0] = __ldg(ri);
+            va[e][1] = __ldg(ri + 1);
+            vb[e][0] = __ldg(rj);
+            vb[e][1] = __ldg(rj + 1);
+          } else {
+            va[e][0] = va[e][1] = vb[e][0] = vb[e][1] = make_uint4(0u, 0u, 0u, 0u);
           }
         }
-
-        // dM for example `warp` of the group, then its dE products
-        if (g0 + warp < nt) {
-          const long long b = t0 + g0 + warp;
-          const bf* gme = gm + (g0 + warp) * kQ * wrow;
-          for (int mt = 0; mt < 2 && mt * 16 < npc; ++mt) {
+        const uint32_t* a0 = reinterpret_cast<const uint32_t*>(va[0]);  // 8 words: x = 2w, 2w+1
+        const uint32_t* a1 = reinterpret_cast<const uint32_t*>(va[1]);
+        const uint32_t* b0w = reinterpret_cast<const uint32_t*>(vb[0]);
+        const uint32_t* b1w = reinterpret_cast<const uint32_t*>(vb[1]);
+        const int off = (p * kTE + 2 * e2) * 2;
 #pragma unroll
-            for (int nt2 = 0; nt2 < 2; ++nt2) {
-              float d4[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-              for (int s = 0; s < K; ++s) {
-                const bf* wt = ws + (s * kPC + mt * 16) * wrow + 2 * tig;
-                const bf* gq = gme + (nt2 * 8 + gid + s) * wrow + 2 * tig;
-                for (int cc = 0; cc < c16; cc += 16) {
-                  mma_bf16(d4, ld32(wt + gid * wrow + cc), ld32(wt + (gid + 8) * wrow + cc),
-                           ld32(wt + gid * wrow + cc + 8), ld32(wt + (gid + 8) * wrow + cc + 8),
-                           ld32(gq + cc), ld32(gq + cc + 8));
-                }
-              }
-#pragma unroll
-              for (int rr = 0; rr < 2; ++rr) {
-                const int p = mt * 16 + gid + rr * 8;
-                if (p >= npc) continue;
-                const int x = nt2 * 8 + 2 * tig;
-                const int i = pi_s[p], j = pj_s[p];
-                const float dm0 = round_t<bf>(d4[rr * 2]), dm1 = round_t<bf>(d4[rr * 2 + 1]);
-                const bf* fav = fa + (warp * kPC + p) * kRow + x;
-                const bf* fbv = fb + (warp * kPC + p) * kRow + x;
-                *reinterpret_cast<__nv_bfloat162*>(out_row<bf>(a, i, b) + j * kD + x) =
-                    __floats2bfloat162_rn(dm0 * __bfloat162float(fbv[0]),
-                                          dm1 * __bfloat162float(fbv[1]));
-                *reinterpret_cast<__nv_bfloat162*>(out_row<bf>(a, j, b) + i * kD + x) =
-                    __floats2bfloat162_rn(dm0 * __bfloat162float(fav[0]),
-                                          dm1 * __bfloat162float(fav[1]));
-              }
-            }
-          }
+        for (int w = 0; w < 8; ++w) {
+          word(fa, (2 * w) * kPlane + off) = __byte_perm(a0[w], a1[w], 0x5410);
+          word(fa, (2 * w + 1) * kPlane + off) = __byte_perm(a0[w], a1[w], 0x7632);
+          word(fb, (2 * w) * kPlane + off) = __byte_perm(b0w[w], b1w[w], 0x5410);
+          word(fb, (2 * w + 1) * kPlane + off) = __byte_perm(b0w[w], b1w[w], 0x7632);
         }
       }
+      // the tile's tap window, one contiguous block
+      const uint4* gsrc = reinterpret_cast<const uint4*>(gpt) + static_cast<long long>(tile) * (kGp / 16);
+      for (int u = ct; u < kGp / 16; u += 128) reinterpret_cast<uint4*>(gw)[u] = __ldg(gsrc + u);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      named_sync(1 + wg, 128);
 
-      // add this tile's registers into the block's partial (one owner each)
+      for (int x = 0; x < kD; ++x) {
+        unsigned char* pa = fa + x * kPlane;
+        unsigned char* pb = fb + x * kPlane;
+        // M_x's A fragment: (pair pr + 8h, examples 8j + 2tq, +1) in af[h + 2j]
+        uint32_t af[4];
 #pragma unroll
-      for (int ct = 0; ct < 2; ++ct)
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int o = ((pr + 8 * h) * kTE + 8 * j + 2 * tq) * 2;
+            af[h + 2 * j] = mul2(word(pa, o), word(pb, o));
+          }
+        float acc_m[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) acc_m[r] = 0.f;
+        wg_fence();
+        // dM_x = wr (64 x R, K-major) . Gw_x (R x 16, MN-major)
+#pragma unroll
+        for (int kr = 0; kr < kR / 16; ++kr)
+          wgmma_ss_n16_bmn(acc_m, wg_desc(wrs + 2 * kr * 128, 128, (kR / 8) * 128),
+                           wg_desc(gw + (x * C1 + 16 * kr) * kTE * 2, 2 * 128, 128), kr);
+        wg_commit();
+        // dW_s += M_x (64 x 16, registers) . Gw_x rows s*C1.. (16 x C1, K-major)
 #pragma unroll
         for (int s = 0; s < K; ++s)
+          wgmma_rs<C1>(acc_w[s], af, wg_desc(gw + (x + s) * C1 * kTE * 2, 128, 2 * 128));
+        wg_commit();
+        wg_wait<1>();
+        wg_pin<8>(acc_m);
+        // dE at x, in place: the i side's factor slot takes dM * E_j (row
+        // i's lanes 16j + x), the j side's takes dM * E_i
 #pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int p = wpt * 16 + gid + (r >> 1) * 8;
-            const int c = (wct + ct) * 8 + 2 * tig + (r & 1);
-            if (p < npc && c < a.c1) {
-              float* o = part + (static_cast<long long>(s) * a.pairs + p0 + p) * a.c1 + c;
-              *o = first ? acc[ct][s][r] : *o + acc[ct][s][r];
-            }
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int o = ((pr + 8 * h) * kTE + 8 * j + 2 * tq) * 2;
+            const __nv_bfloat162 dm2 =
+                __floats2bfloat162_rn(acc_m[4 * j + 2 * h], acc_m[4 * j + 2 * h + 1]);
+            const uint32_t dm = *reinterpret_cast<const uint32_t*>(&dm2);
+            const uint32_t ea = word(pa, o), eb = word(pb, o);
+            word(pa, o) = mul2(dm, eb);
+            word(pb, o) = mul2(dm, ea);
           }
+        wg_wait<0>();
+        wg_pin(af);
+#pragma unroll
+        for (int s = 0; s < K; ++s) wg_pin<C1 / 2>(acc_w[s]);
+      }
+
+      named_sync(1 + wg, 128);  // every position's dE is in the planes
+      // gather (pair, example pair, side) items back into 32-byte pieces
+      for (int u = ct; u < kWgPairs * kTE; u += 128) {
+        const int side = u & 1, r2 = u >> 1;
+        const int p = r2 / (kTE / 2), e2 = r2 - p * (kTE / 2);
+        const uint16_t ij = pij[p];
+        if (ij == 0xFFFFu) continue;
+        const int i = ij >> 8, j = ij & 0xFF;
+        const unsigned char* buf = side ? fb : fa;
+        const int off = (p * kTE + 2 * e2) * 2;
+        uint32_t w[kD];
+#pragma unroll
+        for (int x = 0; x < kD; ++x) w[x] = *reinterpret_cast<const uint32_t*>(buf + x * kPlane + off);
+        uint32_t lo[8], hi[8];
+#pragma unroll
+        for (int k2 = 0; k2 < 8; ++k2) {
+          lo[k2] = __byte_perm(w[2 * k2], w[2 * k2 + 1], 0x5410);
+          hi[k2] = __byte_perm(w[2 * k2], w[2 * k2 + 1], 0x7632);
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const long long b = b0 + 2 * e2 + e;
+          if (b >= a.batch) continue;
+          const uint32_t* v = e ? hi : lo;
+          bf* row = side ? out_row<bf>(a, j, b) + i * kD : out_row<bf>(a, i, b) + j * kD;
+          reinterpret_cast<uint4*>(row)[0] = make_uint4(v[0], v[1], v[2], v[3]);
+          reinterpret_cast<uint4*>(row)[1] = make_uint4(v[4], v[5], v[6], v[7]);
+        }
+      }
+      if (q == 0)
+        diag_and_pads16(a, b0, min(static_cast<long long>(a.batch), b0 + kTE), ct, 128);
     }
+
+    // this warpgroup's dW partial for the chunk, tap order s: pair pr + 8h,
+    // channel 8j + 2tq + e in acc_w[s][4j + 2h + e]
+#pragma unroll
+    for (int s = 0; s < K; ++s)
+#pragma unroll
+      for (int j = 0; j < C1 / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int p = q * kWgPairs + pr + 8 * h;
+            if (p < pairs)
+              part[(static_cast<long long>(s) * pairs + p) * C1 + 8 * j + 2 * tq + e] =
+                  acc_w[s][4 * j + 2 * h + e];
+          }
   }
-  diag_and_pads<bf>(a, b_begin, b_end);
 }
 
 // dw[t, p, c] = sum over blocks of dwp[blk, K-1-t, p, c] in block order for
@@ -514,72 +665,77 @@ cudaError_t launch_k(const Args& a, int k, int blocks, cudaStream_t stream) {
   }
 }
 
-// The largest tile (a multiple of kEB, at most kTileMax and the block's
-// range) whose shared memory fits the card's opt-in limit.
-template <int K>
-cudaError_t launch_mma(Args a, int blocks, cudaStream_t stream) {
-  int dev = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+// SMs of the current device
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// The wgmma kernel's persistent grid: at most one block per SM, each a
+// contiguous range of tpb tiles, none empty.
+struct WgGrid {
+  int blocks, tpb, ntiles;
+};
+
+cudaError_t wg_grid(int batch, WgGrid* g) {
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
-  const long long budget = limit - 2 * kPC * static_cast<long long>(sizeof(int));
-  int tb = a.ebl < kTileMax ? a.ebl : kTileMax;
-  while (tb > kEB && mma_smem_elems(K, a.c1, tb) * 2 > budget) tb -= kEB;
-  a.tb = tb;
-  const size_t smem = static_cast<size_t>(mma_smem_elems(K, a.c1, tb)) * sizeof(__nv_bfloat16);
-  err = cudaFuncSetAttribute(bwd_v1_mma_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  g->ntiles = (batch + kTE - 1) / kTE;
+  const int first = g->ntiles < sms ? g->ntiles : sms;
+  g->tpb = first > 0 ? (g->ntiles + first - 1) / first : 1;
+  g->blocks = g->ntiles > 0 ? (g->ntiles + g->tpb - 1) / g->tpb : 0;
+  return cudaSuccess;
+}
+
+template <int K, int C1>
+cudaError_t launch_wgmma(const Args& a, const void* gpt, const void* wrc, const WgGrid& g,
+                         cudaStream_t stream) {
+  constexpr int smem = v1_smem(K, C1);
+  static_assert(smem <= kSmemMax, "shared memory");
+  const cudaError_t err = cudaFuncSetAttribute(
+      bwd_v1_wgmma_kernel<K, C1>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  bwd_v1_mma_kernel<K><<<blocks, kThreads, smem, stream>>>(a);
+  bwd_v1_wgmma_kernel<K, C1><<<g.blocks, kWgThreads, smem, stream>>>(
+      a, static_cast<const __nv_bfloat16*>(gpt), static_cast<const __nv_bfloat16*>(wrc), g.tpb,
+      g.ntiles);
   return cudaGetLastError();
 }
 
-cudaError_t launch_mma_k(const Args& a, int k, int blocks, cudaStream_t stream) {
-  switch (k) {
-    case 1: return launch_mma<1>(a, blocks, stream);
-    case 3: return launch_mma<3>(a, blocks, stream);
-    case 5: return launch_mma<5>(a, blocks, stream);
-    case 7: return launch_mma<7>(a, blocks, stream);
+cudaError_t launch_wgmma_k(const Args& a, const void* gpt, const void* wrc, const WgGrid& g,
+                           cudaStream_t stream) {
+  const int key = a.k * 1000 + a.c1;
+  switch (key) {
+    case 1032: return launch_wgmma<1, 32>(a, gpt, wrc, g, stream);
+    case 3032: return launch_wgmma<3, 32>(a, gpt, wrc, g, stream);
+    case 5032: return launch_wgmma<5, 32>(a, gpt, wrc, g, stream);
+    case 7032: return launch_wgmma<7, 32>(a, gpt, wrc, g, stream);
+    case 1064: return launch_wgmma<1, 64>(a, gpt, wrc, g, stream);
+    case 3064: return launch_wgmma<3, 64>(a, gpt, wrc, g, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-// The tensor-core kernel reads rows and g with 16-byte loads.
-bool mma_path(const Args& a, int is_bf16) {
-  return is_bf16 && a.d == kD && a.k <= 7 && a.c1 <= 64 && a.fs % 8 == 0 && a.bs % 8 == 0 &&
-         aligned16(a.e) && aligned16(a.de) && aligned16(a.g);
+// The tensor-core kernel's shapes (one instantiation each): bf16 rows with
+// d=16, C1 of 32 or 64, k*C1 <= 224 (its dW registers), 16-byte aligned
+// rows and pad columns.
+bool wgmma_path(const Args& a, int is_bf16) {
+  return is_bf16 && a.d == kD && (a.c1 == 32 || a.c1 == 64) && a.k % 2 == 1 &&
+         a.k * a.c1 <= 224 && a.fields <= kMaxWgFields && a.fs % 8 == 0 && a.bs % 8 == 0 &&
+         a.lin_col % 8 == 0 && a.w_phys % 8 == 0 && aligned16(a.e) && aligned16(a.de);
 }
 
-}  // namespace
-
-extern "C" {
-
-// Number of blocks (rows of the dW partial buffer) for a batch.
-int cffm_cross_conv1_bwd_v1_blocks(int batch) {
-  const int ebl = examples_per_block(batch);
-  return (batch + ebl - 1) / ebl;
-}
-
-// Returns a cudaError_t; 0 means both kernels were launched. e, de:
-// (fields, batch, w_phys) with field stride fs and batch stride bs; wr:
-// (p_pad, k*c1) in T; g: (batch, c1, d) in T; glin: (batch,) f32; dwp:
-// (blocks, k, pairs, c1) f32 scratch; dw: (k, p_pad, c1) f32 out.
-int cffm_cross_conv1_bwd_v1(int is_bf16, const void* e, void* de, long long fs, long long bs,
-                            const void* wr, const void* g, const float* glin, float* dwp,
-                            float* dw, int batch, int fields, int d, int k, int c1, int p_pad,
-                            int lin_col, int w_phys, void* stream) {
-  Args a;
+Args make_args(const void* e, void* de, long long fs, long long bs, int batch, int fields,
+               int d, int k, int c1, int lin_col, int w_phys) {
+  Args a = {};
   a.e = e;
   a.de = de;
   a.fs = fs;
   a.bs = bs;
-  a.wr = wr;
-  a.g = g;
-  a.glin = glin;
-  a.dwp = dwp;
   a.batch = batch;
   a.fields = fields;
   a.d = d;
@@ -591,19 +747,73 @@ int cffm_cross_conv1_bwd_v1(int is_bf16, const void* e, void* de, long long fs, 
   a.w_phys = w_phys;
   a.ebl = examples_per_block(batch);
   a.tb = kEB;
-  if (fields < 2 || d < 1 || c1 < 1 || p_pad < a.pairs || lin_col != fields * d ||
-      w_phys <= lin_col)
+  return a;
+}
+
+}  // namespace
+
+extern "C" {
+
+// 1 when these rows take the tensor-core (wgmma) kernel, whose weights and
+// g come in bwd_variants' v1_weight_chunks and v1_window_tiles layouts;
+// 0 for the CUDA-core kernel (wr (p_pad, k*c1) and g (batch, c1, d)).
+int cffm_cross_conv1_bwd_v1_wgmma(int is_bf16, const void* e, const void* de, long long fs,
+                                  long long bs, int fields, int d, int k, int c1, int lin_col,
+                                  int w_phys) {
+  const Args a = make_args(e, const_cast<void*>(de), fs, bs, 0, fields, d, k, c1, lin_col,
+                           w_phys);
+  return wgmma_path(a, is_bf16) ? 1 : 0;
+}
+
+// Rows of the dW partial buffer for a batch on a route (two per block on
+// the wgmma route, one per warpgroup), or -1 on a CUDA error.
+int cffm_cross_conv1_bwd_v1_blocks(int batch, int wgmma) {
+  if (wgmma) {
+    WgGrid g;
+    return wg_grid(batch, &g) == cudaSuccess ? 2 * g.blocks : -1;
+  }
+  const int ebl = examples_per_block(batch);
+  return (batch + ebl - 1) / ebl;
+}
+
+// Returns a cudaError_t; 0 means both kernels were launched. wgmma says
+// which kernel and operand layouts, and must be what
+// cffm_cross_conv1_bwd_v1_wgmma says. e, de: (fields, batch, w_phys) with
+// field stride fs and batch stride bs; wr: (p_pad, k*c1) in T, or the
+// chunks of v1_weight_chunks; g: (batch, c1, d) in T, or the tiles of
+// v1_window_tiles; glin: (batch,) f32; dwp: (rows of
+// cffm_cross_conv1_bwd_v1_blocks, k, pairs, c1) f32 scratch; dw: (k,
+// p_pad, c1) f32 out.
+int cffm_cross_conv1_bwd_v1(int is_bf16, int wgmma, const void* e, void* de, long long fs,
+                            long long bs, const void* wr, const void* g, const float* glin,
+                            float* dwp, float* dw, int batch, int fields, int d, int k, int c1,
+                            int p_pad, int lin_col, int w_phys, void* stream) {
+  Args a = make_args(e, de, fs, bs, batch, fields, d, k, c1, lin_col, w_phys);
+  a.wr = wr;
+  a.g = g;
+  a.glin = glin;
+  a.dwp = dwp;
+  if (fields < 2 || d < 1 || c1 < 1 || k < 1 || k % 2 == 0 || p_pad < a.pairs ||
+      lin_col != fields * d || w_phys <= lin_col || wgmma != (wgmma_path(a, is_bf16) ? 1 : 0))
     return cudaErrorInvalidValue;
-  if (batch == 0) return cudaSuccess;
-  const int blocks = cffm_cross_conv1_bwd_v1_blocks(batch);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = mma_path(a, is_bf16) ? launch_mma_k(a, k, blocks, s)
-                    : is_bf16           ? launch_k<__nv_bfloat16>(a, k, blocks, s)
-                                        : launch_k<float>(a, k, blocks, s);
-  if (err != cudaSuccess) return err;
+  int rows = 0;
+  if (batch > 0) {
+    cudaError_t err;
+    if (wgmma) {
+      WgGrid grid;
+      if ((err = wg_grid(batch, &grid)) != cudaSuccess) return err;
+      rows = 2 * grid.blocks;
+      err = launch_wgmma_k(a, g, wr, grid, s);
+    } else {
+      rows = cffm_cross_conv1_bwd_v1_blocks(batch, 0);
+      err = is_bf16 ? launch_k<__nv_bfloat16>(a, k, rows, s) : launch_k<float>(a, k, rows, s);
+    }
+    if (err != cudaSuccess) return err;
+  }
   const long long n = static_cast<long long>(k) * p_pad * c1;
   sum_partials_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
-      dwp, dw, blocks, k, a.pairs, p_pad, c1);
+      dwp, dw, rows, k, a.pairs, p_pad, c1);
   return cudaGetLastError();
 }
 

@@ -105,9 +105,11 @@ nonzero without them, or when any phase fails. Phases, in order:
  17. parity_bwd_v1: kernel 8a (ops.bwd_variants.bwd_v1) at criteo_kaggle
      shapes against its plain version and against kernel 2 (bwd_v0), and
      row 8b (bwd_v2, kernel 2 from the variants' weights) against the
-     plain version: B=512 in f32 (the CUDA-core kernels), B=4096 and 65536
-     in bf16 (tensor cores), and kernel 8a alone at C1=72 in bf16, B=512
-     (its bf16 CUDA-core kernel, at the phase-4 tolerances); bf16 dE
+     plain version, each case's route checked (V1_CASES): k=3 at B=512
+     in f32 (the CUDA-core kernels) and at B=1, 7, 131, 4096 and 65536 in
+     bf16 (kernel 8a on wgmma), k=9 at B=512 in f32 and bf16 (CUDA cores),
+     and kernel 8a alone at C1=72 in bf16, B=512 (its bf16 CUDA-core
+     kernel, at the phase-4 tolerances); bf16 dE
      within one bf16 ulp of the product plus two ulps of the product
      taken from |E|, |W|, |g| (and at the phase-4 tolerances; f32 at
      rtol=atol=1e-4 against kernel 2), dW at 1e-4 of
@@ -2198,11 +2200,19 @@ def _de_limit_ratio(got, ref, de_abs) -> float:
     return worst
 
 
+# kernel 8a's cases after the C1=72 one: (batch, dtype, k, route); the
+# last is the timed one
+V1_CASES = ((512, "float32", 3, "CUDA cores"), (1, "bfloat16", 3, "wgmma"),
+            (7, "bfloat16", 3, "wgmma"), (131, "bfloat16", 3, "wgmma"),
+            (4096, "bfloat16", 3, "wgmma"), (512, "float32", 9, "CUDA cores"),
+            (512, "bfloat16", 9, "CUDA cores"), (65536, "bfloat16", 3, "wgmma"))
+
+
 def phase_parity_bwd_v1() -> dict:
     """Kernel 8a (bwd_v1) against its plain version and against kernel 2
-    (bwd_v0) at B=4096 and 65536 in bf16 and at B=512 in f32, criteo_kaggle
-    shapes; then kernel 8a, row 8b (bwd_v2, kernel 2 in the variants'
-    layout), their plain versions, library yardstick and bound at B=65536."""
+    (bwd_v0) at V1_CASES, criteo_kaggle shapes, each on the route it names;
+    then kernel 8a, row 8b (bwd_v2, kernel 2 in the variants' layout),
+    their plain versions, library yardstick and bound at B=65536."""
     import torch
     import torch.nn.functional as F
 
@@ -2221,15 +2231,25 @@ def phase_parity_bwd_v1() -> dict:
         de1, de_ref.transpose(0, 1), dw1, dw_ref[:, :cfg.num_pairs].permute(2, 1, 0),
         x["glin"], cfg, "v1 (kernel 8a, CUDA cores) vs plain criteo_kaggle C1=72 bfloat16 B=512")
     del x, de1, dw1, de_ref, dw_ref
-    for b, dtype in ((512, torch.float32), (4096, torch.bfloat16), (65536, torch.bfloat16)):
-        name = str(dtype).removeprefix("torch.")
-        cfg = _criteo_model(name)
+    lib = bv._library()
+    for b, name, k, route in V1_CASES:
+        dtype = getattr(torch, name)
+        cfg = dataclasses.replace(_criteo_model(name), conv_kernel=k)
         x = make_inputs(cfg, b, "cuda", dtype)
         glin = x["glin"]
+        e = x["emb3"]
+        wgmma = lib.cffm_cross_conv1_bwd_v1_wgmma(
+            int(dtype == torch.bfloat16), e.data_ptr(), e.data_ptr(), e.stride(0), e.stride(1),
+            cfg.num_fields, cfg.embed_dim, k, cfg.conv_channels[0], cfg.row_width,
+            cfg.table_width)
+        print(f"parity_bwd_v1 criteo_kaggle {name} k={k} B={b}: kernel 8a on "
+              f"{'wgmma' if wgmma else 'CUDA cores'}", flush=True)
+        if (route == "wgmma") != bool(wgmma):
+            fail(f"parity_bwd_v1 k={k} {name} B={b}: kernel 8a not on {route}")
         de1, dw1 = _variant_grads(bv, cfg, x, "v1")
         de_ref, dw_ref = bv.bwd_v1_reference(x["emb3"], x["wr"], x["g"], glin, cfg)
         de_ref, dw_ref = de_ref.transpose(0, 1), dw_ref[:, :cfg.num_pairs].permute(2, 1, 0)
-        what = f"criteo_kaggle {name} B={b}"
+        what = f"criteo_kaggle {name} k={k} B={b}"
         err = _check_rows_grad(de1, de_ref, dw1, dw_ref, glin, cfg,
                                f"v1 (kernel 8a) vs plain {what}")
         out["max_abs_err"] = max(out["max_abs_err"], err)

@@ -149,3 +149,79 @@ def test_variants_reject_bad_inputs():
         bv.bwd_v2(e3, wrs, g[:, :64], glin, cfg)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         bv.bwd_v0(e3.to("meta"), wrs, g, glin, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 8a's tensor-core formulation (csrc/cross_conv1_bwd_v1.cu) on the
+# CPU: bwd_v1_tiles spells out its tap-window tiles, weight chunks, per-x
+# products, grid and partial order
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("k, c1", [(3, 64), (5, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_v1_tiles_formulation_matches_jax(dtype, k, c1, sms):
+    """The per-position products over slices gp[x:x+k] of each tile's tap
+    window, dW kept per (block, warpgroup) and summed in order, v1's tap
+    order: against the TPU script's bwd_v1 (interpret, bt=8) at B=40, so
+    that the last 16-example tile is ragged."""
+    kw = dict(num_fields=15, vocab_sizes=(50,) * 15, embed_dim=16, conv_channels=(c1,),
+              conv_kernel=k, compute_dtype=dtype)
+    jcfg, cfg = JaxModelConfig(**kw), ModelConfig(**kw)
+    rng = np.random.default_rng(k + c1)
+    b = 40
+    e3 = rng.normal(size=(15, b, cfg.table_width)).astype(np.float32)
+    w1 = (0.3 * rng.normal(size=(c1, cfg.num_pairs, k))).astype(np.float32)
+    g = rng.normal(size=(b, c1 * 16)).astype(np.float32)
+    glin = rng.normal(size=(b,)).astype(np.float32)
+    jdt = jnp.dtype(dtype)
+    p_pad = jax_ic._round_up(jcfg.num_pairs, 8)
+    wrs = jax_ic._prep_w_bwd(jnp.asarray(w1), jcfg, p_pad, jdt)
+    de_want, dw_want = jbv.bwd_v1(jnp.asarray(e3).astype(jdt), jnp.asarray(wrs.T),
+                                  jnp.asarray(g).astype(jdt), jnp.asarray(glin), jcfg, BT)
+    tdt = getattr(torch, dtype)
+    wr = bv.prep_w_bwd(torch.from_numpy(w1), cfg, p_pad, tdt).t().contiguous()
+    de, dw = bv.bwd_v1_tiles(torch.from_numpy(e3).to(tdt), wr, torch.from_numpy(g).to(tdt),
+                             torch.from_numpy(glin), cfg, sms)
+    assert de.dtype == tdt and dw.dtype == torch.float32
+    rtol, atol = TOL[dtype]["de"]
+    np.testing.assert_allclose(de.float().numpy(), _np(de_want), rtol=rtol, atol=atol)
+    rtol, atol = TOL[dtype]["dw"]
+    np.testing.assert_allclose(dw.numpy(), _np(dw_want), rtol=rtol, atol=atol)
+    assert (dw[:, cfg.num_pairs:] == 0).all()
+
+
+def test_v1_window_tiles_and_weight_chunks_layouts():
+    """Element (tile, r = q*C1 + c, example) of the window sits in core
+    matrix (r/8, example/8) at (r/8 * 2 + example/8) * 64 elements; weight
+    (pair, r) of chunk pair/64 in core matrix (pair%64/8, r/8)."""
+    b, c1, d, k = 21, 8, 16, 3
+    g = torch.arange(b * c1 * d, dtype=torch.float32).reshape(b, c1 * d) + 1
+    tiles = bv.v1_window_tiles(g, k, d)
+    q = d + k - 1
+    assert tuple(tiles.shape) == (2, q * c1 // 8, 2, 8, 8)
+    flat = tiles.reshape(2, -1)
+    for tile, qq, c, e in [(0, 0, 0, 0), (0, 1, 3, 5), (1, 9, 7, 4), (1, 17, 2, 9), (0, 16, 5, 15)]:
+        r, ex = qq * c1 + c, tile * 16 + e
+        x = qq - k // 2
+        want = g[ex].reshape(c1, d)[c, x] if 0 <= x < d and ex < b else 0
+        assert flat[tile, ((r // 8) * 2 + e // 8) * 64 + (r % 8) * 8 + e % 8] == want
+    wr = torch.arange(112 * 24, dtype=torch.float32).reshape(112, 24) + 1
+    chunks = bv.v1_weight_chunks(wr)
+    assert tuple(chunks.shape) == (2, 8, 3, 8, 8)
+    flat = chunks.reshape(2, -1)
+    for p, r in [(0, 0), (63, 23), (64, 5), (100, 17), (111, 8)]:
+        pl_ = p % 64
+        assert flat[p // 64, ((pl_ // 8) * 3 + r // 8) * 64 + (pl_ % 8) * 8 + r % 8] == wr[p, r]
+    assert (flat[1, :].reshape(8, 3, 8, 8).permute(0, 2, 1, 3).reshape(64, 24)[48:] == 0).all()
+
+
+@pytest.mark.parametrize("batch", [1, 16, 17, 4096, 65536])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_v1_grid_gives_every_tile_one_warpgroup(batch, sms):
+    blocks, tpb, nt = bv.v1_grid(batch, sms)
+    assert nt == -(-batch // bv.V1_TILE) and 1 <= blocks <= sms
+    owners = [(t // tpb, (t - t // tpb * tpb) % 2) for t in range(nt)]
+    assert all(blk < blocks for blk, _ in owners)
+    assert blocks == -(-nt // tpb)  # no block without a tile
