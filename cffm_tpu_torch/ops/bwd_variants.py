@@ -100,10 +100,14 @@ def v1_window_tiles(g: torch.Tensor, k: int, d: int) -> torch.Tensor:
     c1 = g.shape[1] // d
     lo = k // 2
     nt = -(-b // V1_TILE)
-    gp = F.pad(g.reshape(b, c1, d), (lo, k - 1 - lo, 0, 0, 0, nt * V1_TILE - b))
-    q = d + k - 1
-    gp = gp.reshape(nt, V1_TILE, c1, q).permute(0, 3, 2, 1).reshape(nt, q * c1 // 8, 8, 2, 8)
-    return gp.permute(0, 1, 3, 2, 4).contiguous()
+    if nt * V1_TILE != b:
+        g = F.pad(g, (0, 0, 0, nt * V1_TILE - b))
+    # (tile, q, c/8, b/8, c%8, b%8); the halo rows q < lo and q >= lo + d are zeros
+    out = g.new_empty((nt, d + k - 1, c1 // 8, 2, 8, 8))
+    out[:, :lo] = 0
+    out[:, lo + d:] = 0
+    out[:, lo:lo + d] = g.reshape(nt, 2, 8, c1 // 8, 8, d).permute(0, 5, 3, 1, 4, 2)
+    return out.reshape(nt, (d + k - 1) * c1 // 8, 2, 8, 8)
 
 
 def v1_weight_chunks(wr: torch.Tensor) -> torch.Tensor:

@@ -317,6 +317,10 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // d (64 x 64, f32, this thread's 32) += A (64 x 16, bf16 in registers: this
 // thread's fragment a) * B (16 x 64, K-major descriptor)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
@@ -391,6 +395,15 @@ __device__ __forceinline__ uint32_t mul2(uint32_t x, uint32_t y) {
   return *reinterpret_cast<const uint32_t*>(&z);
 }
 
+// Byte offset in a position plane of the word (pair p, examples 2*e2 and
+// 2*e2 + 1): pair-major, the example pair's slot XOR-ed with (p/4) % 8, so
+// that the fragment loads (8 pairs x 4 example pairs a warp), the
+// transposing stores and the gather (32 consecutive pairs a warp) each hit
+// 32 distinct banks.
+__device__ __forceinline__ int plane_off(int p, int e2) {
+  return (p * (kTE / 2) + (e2 ^ ((p >> 2) & 7))) * 4;
+}
+
 __device__ __forceinline__ uint32_t& word(unsigned char* base, int off) {
   return *reinterpret_cast<uint32_t*>(base + off);
 }
@@ -416,19 +429,76 @@ __device__ void diag_and_pads16(const Args& a, long long b_begin, long long b_en
   }
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+// M_x's A fragment from the factor planes at x: (pair pr + 8h, examples
+// 8j + 2tq, +1) in af[h + 2j], each bf16(E_i * E_j)
+__device__ __forceinline__ void m_fragment(uint32_t (&af)[4], unsigned char* fa,
+                                           unsigned char* fb, int x, int pr, int tq) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int o = x * kPlane + plane_off(pr + 8 * h, 4 * j + tq);
+      af[h + 2 * j] = mul2(word(fa, o), word(fb, o));
+    }
+}
+
+// dE at x, in place: the i side's factor slot takes bf16(dM) * E_j (row
+// i's lanes 16j + x), the j side's takes bf16(dM) * E_i; this thread's
+// (pair, example) positions are those of its dM accumulator
+__device__ __forceinline__ void de_at(unsigned char* fa, unsigned char* fb, int x,
+                                      const float (&am)[8], int pr, int tq) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int o = x * kPlane + plane_off(pr + 8 * h, 4 * j + tq);
+      const __nv_bfloat162 dm2 = __floats2bfloat162_rn(am[4 * j + 2 * h], am[4 * j + 2 * h + 1]);
+      const uint32_t dm = *reinterpret_cast<const uint32_t*>(&dm2);
+      const uint32_t ea = word(fa, o), eb = word(fb, o);
+      word(fa, o) = mul2(dm, eb);
+      word(fb, o) = mul2(dm, ea);
+    }
+}
+
+// Issue position x's products, one commit group each:
+//   dM_x = wr (64 x k*C1, K-major) . Gw_x (k*C1 x 16, MN-major),
+//   dW_s += M_x (64 x 16, registers) . Gw_x rows s*C1.. (16 x C1, K-major).
+template <int K, int C1>
+__device__ __forceinline__ void issue_x(float (&acc_m)[8], float (&acc_w)[K][C1 / 2],
+                                        const uint32_t (&af)[4], const unsigned char* wrs,
+                                        const unsigned char* gw, int x) {
+  constexpr int kR = K * C1;
+  wg_fence();
+#pragma unroll
+  for (int kr = 0; kr < kR / 16; ++kr)
+    wgmma_ss_n16_bmn(acc_m, wg_desc(wrs + 2 * kr * 128, 128, (kR / 8) * 128),
+                     wg_desc(gw + (x * C1 + 16 * kr) * kTE * 2, 2 * 128, 128), kr);
+  wg_commit();
+#pragma unroll
+  for (int s = 0; s < K; ++s)
+    wgmma_rs<C1>(acc_w[s], af, wg_desc(gw + (x + s) * C1 * kTE * 2, 128, 2 * 128));
+  wg_commit();
+}
+
 template <int K, int C1>
 __global__ void __launch_bounds__(kWgThreads, 1)
     bwd_v1_wgmma_kernel(Args a, const __nv_bfloat16* gpt, const __nv_bfloat16* wrc, int tpb,
                         int ntiles) {
   using bf = __nv_bfloat16;
-  constexpr int kR = K * C1;                   // dM's depth: the window rows of one x
   constexpr int kGp = v1_gp_bytes(K, C1);
   constexpr int kWr = v1_wr_bytes(K, C1);
   constexpr int kStage = 2 * kFactorBytes + kGp;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* wrs = smem;                                   // [pair/8][r/8][pair%8][8 r]
   uint16_t* pij = reinterpret_cast<uint16_t*>(smem + kWr + 2 * kStage);  // i << 8 | j
-  const int tid = threadIdx.x, wg = tid / 128, ct = tid % 128;
+  const int tid = threadIdx.x, ct = tid % 128;
+  // the warpgroup, uniform across each warp as the compiler sees it
+  const int wg = __shfl_sync(0xFFFFFFFFu, tid / 128, 0);
   const int warp = ct / 32, lane = tid % 32, gq = lane / 4, tq = lane % 4;
   unsigned char* fa = smem + kWr + wg * kStage;   // planes [x][pair][example]: E[b, i, 16j + x]
   unsigned char* fb = fa + kFactorBytes;          // E[b, j, 16i + x]
@@ -461,108 +531,101 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       wg_pin<C1 / 2>(acc_w[s]);
     }
 
+    // The two warpgroups do the same work, so left alone they would load,
+    // compute and store in step; warpgroup 1 starts each chunk once
+    // warpgroup 0 has loaded its first tile, so that one's loads and
+    // stores run under the other's products.
+    bool stagger = t_end - t_begin >= 2;  // both warpgroups have a tile
     for (int tile = t_begin + wg; tile < t_end; tile += 2) {
       const long long b0 = static_cast<long long>(tile) * kTE;
+      if (wg == 1 && stagger) named_sync(3, 256);
       named_sync(1 + wg, 128);  // the previous tile's dE stores have read the planes
+      // the tile's tap window, one contiguous block, by async copies that
+      // run while E is loaded
+      const unsigned char* gsrc =
+          reinterpret_cast<const unsigned char*>(gpt) + static_cast<long long>(tile) * kGp;
+      for (int u = ct; u < kGp / 16; u += 128) cp_async16(gw + 16 * u, gsrc + 16 * u);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
       // E pieces of two examples, stored transposed: plane x, word (pair,
-      // example pair) = (example 2e2 at x, example 2e2 + 1 at x)
-      for (int u = ct; u < kWgPairs * kTE / 2; u += 128) {
-        const int p = u / (kTE / 2), e2 = u - p * (kTE / 2);
-        const uint16_t ij = pij[p];
-        uint4 va[2][2], vb[2][2];
+      // example pair) = (example 2e2 at x, example 2e2 + 1 at x); two items
+      // a thread at a time, their 16 loads in flight together; consecutive
+      // lanes take consecutive pairs, whose i-side pieces often lie side by
+      // side in one row
+      for (int u0 = ct; u0 < kWgPairs * kTE / 2; u0 += 2 * 128) {
+        uint4 v[2][2][2][2];  // [item][side][example][half]
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const long long b = b0 + 2 * e2 + e;
-          if (ij != 0xFFFFu && b < a.batch) {
-            const int i = ij >> 8, j = ij & 0xFF;
-            const uint4* ri = reinterpret_cast<const uint4*>(in_row<bf>(a, i, b) + j * kD);
-            const uint4* rj = reinterpret_cast<const uint4*>(in_row<bf>(a, j, b) + i * kD);
-            va[e][0] = __ldg(ri);
-            va[e][1] = __ldg(ri + 1);
-            vb[e][0] = __ldg(rj);
-            vb[e][1] = __ldg(rj + 1);
-          } else {
-            va[e][0] = va[e][1] = vb[e][0] = vb[e][1] = make_uint4(0u, 0u, 0u, 0u);
+        for (int it = 0; it < 2; ++it) {
+          const int u = u0 + it * 128;
+          const int p = u % kWgPairs, e2 = u / kWgPairs;
+          const uint16_t ij = pij[p];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const long long b = b0 + 2 * e2 + e;
+            if (ij != 0xFFFFu && b < a.batch) {
+              const int i = ij >> 8, j = ij & 0xFF;
+              const uint4* ri = reinterpret_cast<const uint4*>(in_row<bf>(a, i, b) + j * kD);
+              const uint4* rj = reinterpret_cast<const uint4*>(in_row<bf>(a, j, b) + i * kD);
+              v[it][0][e][0] = __ldg(ri);
+              v[it][0][e][1] = __ldg(ri + 1);
+              v[it][1][e][0] = __ldg(rj);
+              v[it][1][e][1] = __ldg(rj + 1);
+            } else {
+              v[it][0][e][0] = v[it][0][e][1] = v[it][1][e][0] = v[it][1][e][1] =
+                  make_uint4(0u, 0u, 0u, 0u);
+            }
           }
         }
-        const uint32_t* a0 = reinterpret_cast<const uint32_t*>(va[0]);  // 8 words: x = 2w, 2w+1
-        const uint32_t* a1 = reinterpret_cast<const uint32_t*>(va[1]);
-        const uint32_t* b0w = reinterpret_cast<const uint32_t*>(vb[0]);
-        const uint32_t* b1w = reinterpret_cast<const uint32_t*>(vb[1]);
-        const int off = (p * kTE + 2 * e2) * 2;
 #pragma unroll
-        for (int w = 0; w < 8; ++w) {
-          word(fa, (2 * w) * kPlane + off) = __byte_perm(a0[w], a1[w], 0x5410);
-          word(fa, (2 * w + 1) * kPlane + off) = __byte_perm(a0[w], a1[w], 0x7632);
-          word(fb, (2 * w) * kPlane + off) = __byte_perm(b0w[w], b1w[w], 0x5410);
-          word(fb, (2 * w + 1) * kPlane + off) = __byte_perm(b0w[w], b1w[w], 0x7632);
+        for (int it = 0; it < 2; ++it) {
+          const int u = u0 + it * 128;
+          const int p = u % kWgPairs, e2 = u / kWgPairs;
+          const int off = plane_off(p, e2);
+#pragma unroll
+          for (int side = 0; side < 2; ++side) {
+            unsigned char* plane = side ? fb : fa;
+            const uint32_t* w0 = reinterpret_cast<const uint32_t*>(v[it][side][0]);  // x = 2w, 2w+1
+            const uint32_t* w1 = reinterpret_cast<const uint32_t*>(v[it][side][1]);
+#pragma unroll
+            for (int w = 0; w < 8; ++w) {
+              word(plane, (2 * w) * kPlane + off) = __byte_perm(w0[w], w1[w], 0x5410);
+              word(plane, (2 * w + 1) * kPlane + off) = __byte_perm(w0[w], w1[w], 0x7632);
+            }
+          }
         }
       }
-      // the tile's tap window, one contiguous block
-      const uint4* gsrc = reinterpret_cast<const uint4*>(gpt) + static_cast<long long>(tile) * (kGp / 16);
-      for (int u = ct; u < kGp / 16; u += 128) reinterpret_cast<uint4*>(gw)[u] = __ldg(gsrc + u);
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       named_sync(1 + wg, 128);
-
+      if (wg == 0 && stagger) named_arrive(3, 256);
+      stagger = false;
+      // per position x: the A fragment of M_x, dM_x and dW issued, dM_x
+      // awaited and dE formed while dW runs
+#pragma unroll 1
       for (int x = 0; x < kD; ++x) {
-        unsigned char* pa = fa + x * kPlane;
-        unsigned char* pb = fb + x * kPlane;
-        // M_x's A fragment: (pair pr + 8h, examples 8j + 2tq, +1) in af[h + 2j]
         uint32_t af[4];
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int o = ((pr + 8 * h) * kTE + 8 * j + 2 * tq) * 2;
-            af[h + 2 * j] = mul2(word(pa, o), word(pb, o));
-          }
-        float acc_m[8];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) acc_m[r] = 0.f;
-        wg_fence();
-        // dM_x = wr (64 x R, K-major) . Gw_x (R x 16, MN-major)
-#pragma unroll
-        for (int kr = 0; kr < kR / 16; ++kr)
-          wgmma_ss_n16_bmn(acc_m, wg_desc(wrs + 2 * kr * 128, 128, (kR / 8) * 128),
-                           wg_desc(gw + (x * C1 + 16 * kr) * kTE * 2, 2 * 128, 128), kr);
-        wg_commit();
-        // dW_s += M_x (64 x 16, registers) . Gw_x rows s*C1.. (16 x C1, K-major)
-#pragma unroll
-        for (int s = 0; s < K; ++s)
-          wgmma_rs<C1>(acc_w[s], af, wg_desc(gw + (x + s) * C1 * kTE * 2, 128, 2 * 128));
-        wg_commit();
+        float am[8];
+        m_fragment(af, fa, fb, x, pr, tq);
+        issue_x<K, C1>(am, acc_w, af, wrs, gw, x);
         wg_wait<1>();
-        wg_pin<8>(acc_m);
-        // dE at x, in place: the i side's factor slot takes dM * E_j (row
-        // i's lanes 16j + x), the j side's takes dM * E_i
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int o = ((pr + 8 * h) * kTE + 8 * j + 2 * tq) * 2;
-            const __nv_bfloat162 dm2 =
-                __floats2bfloat162_rn(acc_m[4 * j + 2 * h], acc_m[4 * j + 2 * h + 1]);
-            const uint32_t dm = *reinterpret_cast<const uint32_t*>(&dm2);
-            const uint32_t ea = word(pa, o), eb = word(pb, o);
-            word(pa, o) = mul2(dm, eb);
-            word(pb, o) = mul2(dm, ea);
-          }
+        wg_pin<8>(am);
+        de_at(fa, fb, x, am, pr, tq);
         wg_wait<0>();
         wg_pin(af);
-#pragma unroll
-        for (int s = 0; s < K; ++s) wg_pin<C1 / 2>(acc_w[s]);
       }
+#pragma unroll
+      for (int s = 0; s < K; ++s) wg_pin<C1 / 2>(acc_w[s]);
 
       named_sync(1 + wg, 128);  // every position's dE is in the planes
-      // gather (pair, example pair, side) items back into 32-byte pieces
+      // gather (pair, example pair, side) items back into 32-byte pieces,
+      // consecutive lanes on consecutive pairs
       for (int u = ct; u < kWgPairs * kTE; u += 128) {
-        const int side = u & 1, r2 = u >> 1;
-        const int p = r2 / (kTE / 2), e2 = r2 - p * (kTE / 2);
+        const int p = u % kWgPairs, e2 = (u / kWgPairs) % (kTE / 2);
+        const int side = u / (kWgPairs * kTE / 2);
         const uint16_t ij = pij[p];
         if (ij == 0xFFFFu) continue;
         const int i = ij >> 8, j = ij & 0xFF;
         const unsigned char* buf = side ? fb : fa;
-        const int off = (p * kTE + 2 * e2) * 2;
+        const int off = plane_off(p, e2);
         uint32_t w[kD];
 #pragma unroll
         for (int x = 0; x < kD; ++x) w[x] = *reinterpret_cast<const uint32_t*>(buf + x * kPlane + off);

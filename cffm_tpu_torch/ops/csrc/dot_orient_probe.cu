@@ -255,7 +255,9 @@ __global__ void __launch_bounds__(kThreads, 1) probe_kernel(const bf* __restrict
   // the descriptor's start address is in 16-byte units in its low bits
   const uint64_t a_step = (2 * a_lbo) >> 4, b_step = (2 * b_lbo) >> 4;
 
-  const int wg = tid / 128;
+  // the warpgroup, uniform across each warp as the compiler sees it (else
+  // it serialises the wgmma chain)
+  const int wg = __shfl_sync(0xFFFFFFFFu, tid / 128, 0);
   const int s_begin = static_cast<int>(static_cast<long long>(blockIdx.y) * steps / splits);
   const int s_end = static_cast<int>(static_cast<long long>(blockIdx.y + 1) * steps / splits);
   const int ksteps = k / 16;

@@ -51,27 +51,28 @@ VARIANTS = {
 }
 
 
-def variant_source(text: str, name: str) -> str:
-    """The shipped source with variant `name`'s replacements; each replaced
-    text must occur exactly once."""
-    for old, new in VARIANTS[name]:
+def variant_source(text: str, name: str, variants=None) -> str:
+    """The shipped source with variant `name`'s replacements (from
+    `variants`, this script's VARIANTS by default); each replaced text must
+    occur exactly once."""
+    for old, new in (variants or VARIANTS)[name]:
         if text.count(old) != 1:
-            raise ValueError(f"ablate_bwd: variant {name} no longer matches the source")
+            raise ValueError(f"ablate: variant {name} no longer matches the source")
         text = text.replace(old, new)
     return text
 
 
-def build(names, out_dir: pathlib.Path) -> dict:
-    """Compile the shipped source and the named variants, one nvcc each, in
-    parallel. Returns {name: loaded library}."""
+def build(names, out_dir: pathlib.Path, source: str = SOURCE, variants=None) -> dict:
+    """Compile the shipped `source` and the named variants, one nvcc each,
+    in parallel. Returns {name: loaded library}."""
     from cffm_tpu_torch.ops import _build
 
-    text = (_build._CSRC / f"{SOURCE}.cu").read_text()
+    text = (_build._CSRC / f"{source}.cu").read_text()
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in ("shipped",) + tuple(names):
         src = out_dir / f"{name}.cu"
-        src.write_text(text if name == "shipped" else variant_source(text, name))
+        src.write_text(text if name == "shipped" else variant_source(text, name, variants))
         lib = out_dir / f"lib{name}.so"
         procs[name] = (subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
                                          str(src)], stdout=subprocess.PIPE,

@@ -9,8 +9,8 @@ import torch
 from cffm_tpu_torch import config
 from cffm_tpu_torch.ops import bwd_variants as bv
 from cffm_tpu_torch.ops import _build
-from cffm_tpu_torch.scripts import (ablate_bwd, bench_bwd_variants, bench_kernel, profile_step,
-                                    trace_step)
+from cffm_tpu_torch.scripts import (ablate_bwd, ablate_bwd_v1, bench_bwd_variants, bench_kernel,
+                                    profile_step, trace_step)
 
 MIXED = (32, 64, 128) + (1000,) * 12          # F=15: fused column, 3 small fields
 
@@ -71,3 +71,20 @@ def test_ablate_bwd_needs_a_card(capsys):
     assert "no CUDA device" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         ablate_bwd.main(["no_such_variant"])
+
+
+@pytest.mark.parametrize("name", sorted(ablate_bwd_v1.VARIANTS))
+def test_ablate_bwd_v1_variants_match_the_kernel_source(name):
+    """Each ablation variant's replaced text occurs once in kernel 8a's source."""
+    text = (_build._CSRC / f"{ablate_bwd_v1.SOURCE}.cu").read_text()
+    out = ablate_bwd.variant_source(text, name, ablate_bwd_v1.VARIANTS)
+    assert out != text and all(new in out for _, new in ablate_bwd_v1.VARIANTS[name])
+
+
+def test_ablate_bwd_v1_needs_a_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the script would run")
+    assert ablate_bwd_v1.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        ablate_bwd_v1.main(["no_such_variant"])
