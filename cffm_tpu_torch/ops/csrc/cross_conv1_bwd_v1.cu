@@ -395,13 +395,13 @@ __device__ __forceinline__ uint32_t mul2(uint32_t x, uint32_t y) {
   return *reinterpret_cast<const uint32_t*>(&z);
 }
 
-// Byte offset in a position plane of the word (pair p, examples 2*e2 and
-// 2*e2 + 1): pair-major, the example pair's slot XOR-ed with (p/4) % 8, so
-// that the fragment loads (8 pairs x 4 example pairs a warp), the
-// transposing stores and the gather (32 consecutive pairs a warp) each hit
-// 32 distinct banks.
-__device__ __forceinline__ int plane_off(int p, int e2) {
-  return (p * (kTE / 2) + (e2 ^ ((p >> 2) & 7))) * 4;
+// Byte offset in position x's plane of the word (pair p, examples 2*e2
+// and 2*e2 + 1): pair-major, the example pair's slot XOR-ed with (p/4) % 8
+// and with 4 in the upper half of the positions, so that the fragment loads
+// (8 pairs x 4 example pairs a warp) and the transposing stores and the
+// gather (16 consecutive pairs, two halves a warp) each hit 32 distinct banks.
+__device__ __forceinline__ int plane_off(int p, int e2, int x) {
+  return (p * (kTE / 2) + (e2 ^ ((p >> 2) & 7) ^ ((x >> 3) << 2))) * 4;
 }
 
 __device__ __forceinline__ uint32_t& word(unsigned char* base, int off) {
@@ -442,7 +442,7 @@ __device__ __forceinline__ void m_fragment(uint32_t (&af)[4], unsigned char* fa,
   for (int j = 0; j < 2; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int o = x * kPlane + plane_off(pr + 8 * h, 4 * j + tq);
+      const int o = x * kPlane + plane_off(pr + 8 * h, 4 * j + tq, x);
       af[h + 2 * j] = mul2(word(fa, o), word(fb, o));
     }
 }
@@ -456,7 +456,7 @@ __device__ __forceinline__ void de_at(unsigned char* fa, unsigned char* fb, int 
   for (int j = 0; j < 2; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int o = x * kPlane + plane_off(pr + 8 * h, 4 * j + tq);
+      const int o = x * kPlane + plane_off(pr + 8 * h, 4 * j + tq, x);
       const __nv_bfloat162 dm2 = __floats2bfloat162_rn(am[4 * j + 2 * h], am[4 * j + 2 * h + 1]);
       const uint32_t dm = *reinterpret_cast<const uint32_t*>(&dm2);
       const uint32_t ea = word(fa, o), eb = word(fb, o);
@@ -546,51 +546,47 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           reinterpret_cast<const unsigned char*>(gpt) + static_cast<long long>(tile) * kGp;
       for (int u = ct; u < kGp / 16; u += 128) cp_async16(gw + 16 * u, gsrc + 16 * u);
       asm volatile("cp.async.commit_group;\n" ::: "memory");
-      // E pieces of two examples, stored transposed: plane x, word (pair,
-      // example pair) = (example 2e2 at x, example 2e2 + 1 at x); two items
-      // a thread at a time, their 16 loads in flight together; consecutive
-      // lanes take consecutive pairs, whose i-side pieces often lie side by
-      // side in one row
-      for (int u0 = ct; u0 < kWgPairs * kTE / 2; u0 += 2 * 128) {
-        uint4 v[2][2][2][2];  // [item][side][example][half]
+      // E, stored transposed: plane x, word (pair, example pair) = (example
+      // 2e2 at x, example 2e2 + 1 at x). A thread owns one (pair, half of
+      // the 16 positions) and walks the 8 example pairs, four at a time
+      // with their 16 loads in flight together: two lanes share each
+      // 32-byte piece and consecutive lanes take consecutive pairs, whose
+      // i-side pieces often lie side by side in one row.
+      {
+        const int h = ct & 1, p = (ct >> 1) & (kWgPairs - 1);
+        const uint16_t ij = pij[p];
+        const int i = ij >> 8, j = ij & 0xFF;
+#pragma unroll 1
+        for (int e20 = 0; e20 < kTE / 2; e20 += 4) {
+          uint4 v[4][2][2];  // [example pair][side][example]
 #pragma unroll
-        for (int it = 0; it < 2; ++it) {
-          const int u = u0 + it * 128;
-          const int p = u % kWgPairs, e2 = u / kWgPairs;
-          const uint16_t ij = pij[p];
+          for (int it = 0; it < 4; ++it)
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const long long b = b0 + 2 * e2 + e;
-            if (ij != 0xFFFFu && b < a.batch) {
-              const int i = ij >> 8, j = ij & 0xFF;
-              const uint4* ri = reinterpret_cast<const uint4*>(in_row<bf>(a, i, b) + j * kD);
-              const uint4* rj = reinterpret_cast<const uint4*>(in_row<bf>(a, j, b) + i * kD);
-              v[it][0][e][0] = __ldg(ri);
-              v[it][0][e][1] = __ldg(ri + 1);
-              v[it][1][e][0] = __ldg(rj);
-              v[it][1][e][1] = __ldg(rj + 1);
-            } else {
-              v[it][0][e][0] = v[it][0][e][1] = v[it][1][e][0] = v[it][1][e][1] =
-                  make_uint4(0u, 0u, 0u, 0u);
+            for (int e = 0; e < 2; ++e) {
+              const long long b = b0 + 2 * (e20 + it) + e;
+              if (ij != 0xFFFFu && b < a.batch) {
+                v[it][0][e] = __ldg(reinterpret_cast<const uint4*>(in_row<bf>(a, i, b) + j * kD) + h);
+                v[it][1][e] = __ldg(reinterpret_cast<const uint4*>(in_row<bf>(a, j, b) + i * kD) + h);
+              } else {
+                v[it][0][e] = v[it][1][e] = make_uint4(0u, 0u, 0u, 0u);
+              }
             }
-          }
-        }
 #pragma unroll
-        for (int it = 0; it < 2; ++it) {
-          const int u = u0 + it * 128;
-          const int p = u % kWgPairs, e2 = u / kWgPairs;
-          const int off = plane_off(p, e2);
+          for (int it = 0; it < 4; ++it)
 #pragma unroll
-          for (int side = 0; side < 2; ++side) {
-            unsigned char* plane = side ? fb : fa;
-            const uint32_t* w0 = reinterpret_cast<const uint32_t*>(v[it][side][0]);  // x = 2w, 2w+1
-            const uint32_t* w1 = reinterpret_cast<const uint32_t*>(v[it][side][1]);
+            for (int side = 0; side < 2; ++side) {
+              unsigned char* plane = side ? fb : fa;
+              const uint32_t* w0 = reinterpret_cast<const uint32_t*>(&v[it][side][0]);
+              const uint32_t* w1 = reinterpret_cast<const uint32_t*>(&v[it][side][1]);
 #pragma unroll
-            for (int w = 0; w < 8; ++w) {
-              word(plane, (2 * w) * kPlane + off) = __byte_perm(w0[w], w1[w], 0x5410);
-              word(plane, (2 * w + 1) * kPlane + off) = __byte_perm(w0[w], w1[w], 0x7632);
+              for (int w = 0; w < 4; ++w) {  // positions x = 8h + 2w, 8h + 2w + 1
+                const int x = 8 * h + 2 * w;
+                word(plane, x * kPlane + plane_off(p, e20 + it, x)) =
+                    __byte_perm(w0[w], w1[w], 0x5410);
+                word(plane, (x + 1) * kPlane + plane_off(p, e20 + it, x + 1)) =
+                    __byte_perm(w0[w], w1[w], 0x7632);
+              }
             }
-          }
         }
       }
       asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -616,33 +612,37 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       for (int s = 0; s < K; ++s) wg_pin<C1 / 2>(acc_w[s]);
 
       named_sync(1 + wg, 128);  // every position's dE is in the planes
-      // gather (pair, example pair, side) items back into 32-byte pieces,
-      // consecutive lanes on consecutive pairs
-      for (int u = ct; u < kWgPairs * kTE; u += 128) {
-        const int p = u % kWgPairs, e2 = (u / kWgPairs) % (kTE / 2);
-        const int side = u / (kWgPairs * kTE / 2);
+      // gather the planes back into pieces of dE: a thread owns one (pair,
+      // half) as in the loads and walks (side, example pair); two lanes
+      // share each 32-byte piece
+      {
+        const int h = ct & 1, p = (ct >> 1) & (kWgPairs - 1);
         const uint16_t ij = pij[p];
-        if (ij == 0xFFFFu) continue;
         const int i = ij >> 8, j = ij & 0xFF;
-        const unsigned char* buf = side ? fb : fa;
-        const int off = plane_off(p, e2);
-        uint32_t w[kD];
+#pragma unroll 1
+        for (int it = 0; it < kTE && ij != 0xFFFFu; ++it) {
+          const int side = it / (kTE / 2), e2 = it % (kTE / 2);
+          const unsigned char* buf = side ? fb : fa;
+          uint32_t w[8];
 #pragma unroll
-        for (int x = 0; x < kD; ++x) w[x] = *reinterpret_cast<const uint32_t*>(buf + x * kPlane + off);
-        uint32_t lo[8], hi[8];
+          for (int xx = 0; xx < 8; ++xx) {
+            const int x = 8 * h + xx;
+            w[xx] = *reinterpret_cast<const uint32_t*>(buf + x * kPlane + plane_off(p, e2, x));
+          }
+          uint32_t lo[4], hi[4];
 #pragma unroll
-        for (int k2 = 0; k2 < 8; ++k2) {
-          lo[k2] = __byte_perm(w[2 * k2], w[2 * k2 + 1], 0x5410);
-          hi[k2] = __byte_perm(w[2 * k2], w[2 * k2 + 1], 0x7632);
-        }
+          for (int k2 = 0; k2 < 4; ++k2) {
+            lo[k2] = __byte_perm(w[2 * k2], w[2 * k2 + 1], 0x5410);
+            hi[k2] = __byte_perm(w[2 * k2], w[2 * k2 + 1], 0x7632);
+          }
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const long long b = b0 + 2 * e2 + e;
-          if (b >= a.batch) continue;
-          const uint32_t* v = e ? hi : lo;
-          bf* row = side ? out_row<bf>(a, j, b) + i * kD : out_row<bf>(a, i, b) + j * kD;
-          reinterpret_cast<uint4*>(row)[0] = make_uint4(v[0], v[1], v[2], v[3]);
-          reinterpret_cast<uint4*>(row)[1] = make_uint4(v[4], v[5], v[6], v[7]);
+          for (int e = 0; e < 2; ++e) {
+            const long long b = b0 + 2 * e2 + e;
+            if (b >= a.batch) continue;
+            const uint32_t* v = e ? hi : lo;
+            bf* row = side ? out_row<bf>(a, j, b) + i * kD : out_row<bf>(a, i, b) + j * kD;
+            reinterpret_cast<uint4*>(row)[h] = make_uint4(v[0], v[1], v[2], v[3]);
+          }
         }
       }
       if (q == 0)

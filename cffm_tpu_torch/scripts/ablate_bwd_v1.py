@@ -39,14 +39,15 @@ VARIANTS = {
     "no_dm": [_NO_DM],
     "no_dw": [_NO_DW],
     "no_e_loads": [
-        ("            if (ij != 0xFFFFu && b < a.batch) {\n              const int i = ij >> 8",
-         "            if (false) {\n              const int i = ij >> 8"),
+        ("              if (ij != 0xFFFFu && b < a.batch) {\n                v[it][0][e]",
+         "              if (false) {\n                v[it][0][e]"),
     ],
     "no_window": [
         ("for (int u = ct; u < kGp / 16; u += 128)", "for (int u = ct; u < 0; u += 128)"),
     ],
     "no_de_stores": [
-        ("for (int u = ct; u < kWgPairs * kTE; u += 128) {", "for (int u = ct; u < 0; u += 128) {"),
+        ("for (int it = 0; it < kTE && ij != 0xFFFFu; ++it) {",
+         "for (int it = 0; it < 0 && ij != 0xFFFFu; ++it) {"),
     ],
     "no_de_products": [
         ("      word(fa, o) = mul2(dm, eb);\n      word(fb, o) = mul2(dm, ea);\n",
