@@ -434,6 +434,49 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
+// Four example pairs' E for this thread's (pair ij, half h): v[it][side][e]
+// = 16 bytes of E[b, i, 16j + 8h ..] (side 0) or E[b, j, 16i + 8h ..] (side
+// 1) of example b = b0 + 2 * (e20 + it) + e; zeros past the batch and for a
+// pad pair.
+__device__ __forceinline__ void load_quad(uint4 (&v)[4][2][2], const Args& a, uint16_t ij,
+                                          long long b0, int e20, int h) {
+  using bf = __nv_bfloat16;
+  const int i = ij >> 8, j = ij & 0xFF;
+#pragma unroll
+  for (int it = 0; it < 4; ++it)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const long long b = b0 + 2 * (e20 + it) + e;
+      if (ij != 0xFFFFu && b < a.batch) {
+        v[it][0][e] = __ldg(reinterpret_cast<const uint4*>(in_row<bf>(a, i, b) + j * kD) + h);
+        v[it][1][e] = __ldg(reinterpret_cast<const uint4*>(in_row<bf>(a, j, b) + i * kD) + h);
+      } else {
+        v[it][0][e] = v[it][1][e] = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+}
+
+// load_quad's pieces into the position planes, transposed: plane x, word
+// (pair p, example pair) = (example 2e2 at x, example 2e2 + 1 at x)
+__device__ __forceinline__ void store_quad(const uint4 (&v)[4][2][2], unsigned char* fa,
+                                           unsigned char* fb, int p, int e20, int h) {
+#pragma unroll
+  for (int it = 0; it < 4; ++it)
+#pragma unroll
+    for (int side = 0; side < 2; ++side) {
+      unsigned char* plane = side ? fb : fa;
+      const uint32_t* w0 = reinterpret_cast<const uint32_t*>(&v[it][side][0]);
+      const uint32_t* w1 = reinterpret_cast<const uint32_t*>(&v[it][side][1]);
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {  // positions x = 8h + 2w, 8h + 2w + 1
+        const int x = 8 * h + 2 * w;
+        word(plane, x * kPlane + plane_off(p, e20 + it, x)) = __byte_perm(w0[w], w1[w], 0x5410);
+        word(plane, (x + 1) * kPlane + plane_off(p, e20 + it, x + 1)) =
+            __byte_perm(w0[w], w1[w], 0x7632);
+      }
+    }
+}
+
 // M_x's A fragment from the factor planes at x: (pair pr + 8h, examples
 // 8j + 2tq, +1) in af[h + 2j], each bf16(E_i * E_j)
 __device__ __forceinline__ void m_fragment(uint32_t (&af)[4], unsigned char* fa,
@@ -536,6 +579,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     // warpgroup 0 has loaded its first tile, so that one's loads and
     // stores run under the other's products.
     bool stagger = t_end - t_begin >= 2;  // both warpgroups have a tile
+    // the thread's (pair, half) in E's loads and dE's stores
+    const int h = ct & 1, p = (ct >> 1) & (kWgPairs - 1);
+    const uint16_t ij = pij[p];
+    uint4 pre[4][2][2];
+    bool have_pre = false;
     for (int tile = t_begin + wg; tile < t_end; tile += 2) {
       const long long b0 = static_cast<long long>(tile) * kTE;
       if (wg == 1 && stagger) named_sync(3, 256);
@@ -548,52 +596,27 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       asm volatile("cp.async.commit_group;\n" ::: "memory");
       // E, stored transposed: plane x, word (pair, example pair) = (example
       // 2e2 at x, example 2e2 + 1 at x). A thread owns one (pair, half of
-      // the 16 positions) and walks the 8 example pairs, four at a time
-      // with their 16 loads in flight together: two lanes share each
-      // 32-byte piece and consecutive lanes take consecutive pairs, whose
-      // i-side pieces often lie side by side in one row.
+      // the 16 positions) and loads four example pairs at a time, their 16
+      // loads in flight together: two lanes share each 32-byte piece and
+      // consecutive lanes take consecutive pairs, whose i-side pieces often
+      // lie side by side in one row. The first four of a tile were loaded
+      // during the previous tile's products (pre).
+      if (!have_pre) load_quad(pre, a, ij, b0, 0, h);
+      store_quad(pre, fa, fb, p, 0, h);
       {
-        const int h = ct & 1, p = (ct >> 1) & (kWgPairs - 1);
-        const uint16_t ij = pij[p];
-        const int i = ij >> 8, j = ij & 0xFF;
-#pragma unroll 1
-        for (int e20 = 0; e20 < kTE / 2; e20 += 4) {
-          uint4 v[4][2][2];  // [example pair][side][example]
-#pragma unroll
-          for (int it = 0; it < 4; ++it)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const long long b = b0 + 2 * (e20 + it) + e;
-              if (ij != 0xFFFFu && b < a.batch) {
-                v[it][0][e] = __ldg(reinterpret_cast<const uint4*>(in_row<bf>(a, i, b) + j * kD) + h);
-                v[it][1][e] = __ldg(reinterpret_cast<const uint4*>(in_row<bf>(a, j, b) + i * kD) + h);
-              } else {
-                v[it][0][e] = v[it][1][e] = make_uint4(0u, 0u, 0u, 0u);
-              }
-            }
-#pragma unroll
-          for (int it = 0; it < 4; ++it)
-#pragma unroll
-            for (int side = 0; side < 2; ++side) {
-              unsigned char* plane = side ? fb : fa;
-              const uint32_t* w0 = reinterpret_cast<const uint32_t*>(&v[it][side][0]);
-              const uint32_t* w1 = reinterpret_cast<const uint32_t*>(&v[it][side][1]);
-#pragma unroll
-              for (int w = 0; w < 4; ++w) {  // positions x = 8h + 2w, 8h + 2w + 1
-                const int x = 8 * h + 2 * w;
-                word(plane, x * kPlane + plane_off(p, e20 + it, x)) =
-                    __byte_perm(w0[w], w1[w], 0x5410);
-                word(plane, (x + 1) * kPlane + plane_off(p, e20 + it, x + 1)) =
-                    __byte_perm(w0[w], w1[w], 0x7632);
-              }
-            }
-        }
+        uint4 v[4][2][2];
+        load_quad(v, a, ij, b0, 4, h);
+        store_quad(v, fa, fb, p, 4, h);
       }
       asm volatile("cp.async.wait_all;\n" ::: "memory");
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       named_sync(1 + wg, 128);
       if (wg == 0 && stagger) named_arrive(3, 256);
       stagger = false;
+      // the next tile's first four example pairs, in flight during this
+      // tile's products
+      have_pre = tile + 2 < t_end;
+      if (have_pre) load_quad(pre, a, ij, b0 + 2 * kTE, 0, h);
       // per position x: the A fragment of M_x, dM_x and dW issued, dM_x
       // awaited and dE formed while dW runs
 #pragma unroll 1
@@ -616,8 +639,6 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       // half) as in the loads and walks (side, example pair); two lanes
       // share each 32-byte piece
       {
-        const int h = ct & 1, p = (ct >> 1) & (kWgPairs - 1);
-        const uint16_t ij = pij[p];
         const int i = ij >> 8, j = ij & 0xFF;
 #pragma unroll 1
         for (int it = 0; it < kTE && ij != 0xFFFFu; ++it) {

@@ -39,8 +39,8 @@ VARIANTS = {
     "no_dm": [_NO_DM],
     "no_dw": [_NO_DW],
     "no_e_loads": [
-        ("              if (ij != 0xFFFFu && b < a.batch) {\n                v[it][0][e]",
-         "              if (false) {\n                v[it][0][e]"),
+        ("      if (ij != 0xFFFFu && b < a.batch) {\n        v[it][0][e]",
+         "      if (false) {\n        v[it][0][e]"),
     ],
     "no_window": [
         ("for (int u = ct; u < kGp / 16; u += 128)", "for (int u = ct; u < 0; u += 128)"),
