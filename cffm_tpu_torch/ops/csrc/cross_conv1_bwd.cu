@@ -25,12 +25,14 @@
 // and criteo_full, and movielens field-aware) take
 // cross_conv1_bwd_wgmma_kernel (below the CUDA-core kernel): both products
 // as wgmma GEMMs around one shared tap window of g. Everything else (f32,
-// hadamard, k=9, other shapes) takes cross_conv1_bwd_kernel: a block owns
-// a range of examples and walks the pair axis in chunks, stages the weight
-// chunk, g and the cross map in shared memory as f32, and runs both
-// products as FMAs on the CUDA cores, a thread's dW over one pair and one
-// or two groups of 8 channels (C1 <= 128). cffm_cross_conv1_bwd_takes
-// says which shapes the two take together; the wrapper raises for others.
+// hadamard, k >= 9, other shapes) takes cross_conv1_bwd_kernel: a block
+// owns a range of examples and walks the pair axis in chunks and layer 1
+// in slices of channels and taps, stages the slice's weights, g and the
+// cross map in shared memory as f32, and runs both products as FMAs on
+// the CUDA cores, a thread's dW over one pair and one group of 8 channels.
+// cffm_cross_conv1_bwd_takes says which shapes the two take together (any
+// C1 and every odd k whose smallest slice fits); the wrapper raises for
+// others.
 //
 // Bound on the H100. At criteo_kaggle shapes (F=39, d=16, W=640, C1=64,
 // k=3, bf16) dW and dM each take 2*d*P*k*C1 = 4.55 MFLOP per example

@@ -74,7 +74,6 @@ struct Args {
   float* dwp;              // (blocks, K, pairs, c1) f32 partials, tap order s
   int batch, fields, d, k, c1, pairs, kc, lin_col, w_phys;
   int ebl;                 // examples per block (a multiple of kEB)
-  int tb;                  // examples per tile
   int pcs;                 // pairs per chunk (CUDA-core kernel)
 };
 
@@ -245,26 +244,32 @@ __global__ void __launch_bounds__(kThreads) bwd_v1_kernel(Args a) {
 // per pair chunk (v1_weight_chunks).
 //
 // Loop order. One block per SM walks a contiguous range of tiles; its two
-// warpgroups take alternate tiles, so one loads while the other computes.
-// The pair axis goes in chunks of kWgPairs (wgmma's M) in the outer loop:
-// a warpgroup keeps the chunk's dW (k accumulators of 64 x C1) in
-// registers over all its tiles and writes one f32 partial per (block,
+// warpgroups take alternate tiles, warpgroup 1 starting each chunk one load
+// phase behind, so that one's loads and stores run under the other's
+// products. The pair axis goes in chunks of kWgPairs (wgmma's M) in the
+// outer loop: a warpgroup keeps the chunk's dW (k accumulators of 64 x C1)
+// in registers over all its tiles and writes one f32 partial per (block,
 // warpgroup, chunk); sum_partials_kernel sums them in order. Per tile a
-// warpgroup loads the pairs' 32-byte pieces of E, E[b, i, 16j + x] and
-// E[b, j, 16i + x], and stores them transposed into position planes
-// [x][pair][example], two examples per 32-bit word; then for each x it
-// forms M_x = bf16(E_i * E_j) straight into the register fragment of
-// wgmma's A operand (a thread's fragment positions are those of its dM
-// accumulator), issues dM_x (wgmma, A = wr from shared memory) and dW
-// (wgmma, A from registers), rounds dM_x to bf16 and overwrites the two
-// factors at x in place with dE = bf16(dM * partner). Last it gathers each
-// (pair, example)'s 16 positions back into 32-byte pieces and stores dE.
-// The tile's diagonal blocks and pad lanes are written in the first chunk.
+// warpgroup copies the window by cp.async and loads the pairs' 32-byte
+// pieces of E, E[b, i, 16j + x] and E[b, j, 16i + x] (two lanes a piece,
+// consecutive lanes on consecutive pairs; half of them already loaded
+// during its previous tile's products), and stores them transposed into
+// position planes [x][pair][example], two examples per 32-bit word
+// (plane_off swizzles the slots); then for each x it forms M_x = bf16(E_i *
+// E_j) straight into the register fragment of wgmma's A operand (a
+// thread's fragment positions are those of its dM accumulator), issues
+// dM_x (wgmma, A = wr from shared memory) and dW (wgmma, A from
+// registers), rounds dM_x to bf16 and overwrites the two factors at x in
+// place with dE = bf16(dM * partner). Last it gathers each (pair,
+// example)'s 16 positions back into 32-byte pieces and stores dE. The
+// tile's diagonal blocks and pad lanes are written in the first chunk.
 //
 // Shared memory (k=3, C1=64): the weight chunk 24 KB; per warpgroup the
 // two factors' planes 2 x 32 KB and the tap window (16 + k - 1) * C1 * kTE
-// * 2 = 36 KB; 229.4 KB in all, so one block per SM and no ring: the
-// overlap of loads and products comes from the two warpgroups.
+// * 2 = 36 KB; 229.4 KB in all, so one block per SM and no ring. What holds
+// it back (scripts/ablate_bwd_v1.py): the loads of E and the stores of dE,
+// each 32-byte pieces half scattered over rows, which two warpgroups do not
+// keep in flight long enough; the products cost little.
 // ---------------------------------------------------------------------------
 
 constexpr int kWgPairs = 64;                  // pairs per chunk: wgmma's M
@@ -367,7 +372,8 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)
 
 // d (64 x 16, f32, this thread's 8) = scale_d * d + A (64 x 16, K-major
 // descriptor) * B (16 x 16, MN-major descriptor: the transpose bit)
-__device__ __forceinline__ void wgmma_ss_n16_bmn(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+__device__ __forceinline__ void wgmma_ss_n16_bmn(float (&d)[8], uint64_t a, uint64_t b,
+                                                 int scale_d) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -545,7 +551,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int warp = ct / 32, lane = tid % 32, gq = lane / 4, tq = lane % 4;
   unsigned char* fa = smem + kWr + wg * kStage;   // planes [x][pair][example]: E[b, i, 16j + x]
   unsigned char* fb = fa + kFactorBytes;          // E[b, j, 16i + x]
-  unsigned char* gw = fb + kFactorBytes;          // window: core matrix (r/8, b/8) at (r/8*2 + b/8)*128
+  unsigned char* gw = fb + kFactorBytes;          // window: core (r/8, b/8) at (r/8*2 + b/8)*128
   const int pairs = a.pairs;
   const int nq = (pairs + kWgPairs - 1) / kWgPairs;
   const int t_begin = blockIdx.x * tpb;
@@ -555,8 +561,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
   for (int q = 0; q < nq; ++q) {
     __syncthreads();  // the previous chunk's readers of the weights and pair table are done
-    const uint4* wsrc = reinterpret_cast<const uint4*>(wrc) + static_cast<long long>(q) * (kWr / 16);
-    for (int u = tid; u < kWr / 16; u += kWgThreads) reinterpret_cast<uint4*>(wrs)[u] = __ldg(wsrc + u);
+    const uint4* wsrc =
+        reinterpret_cast<const uint4*>(wrc) + static_cast<long long>(q) * (kWr / 16);
+    for (int u = tid; u < kWr / 16; u += kWgThreads)
+      reinterpret_cast<uint4*>(wrs)[u] = __ldg(wsrc + u);
     if (tid < kWgPairs) {
       const int p = q * kWgPairs + tid;
       int i = 0, j = 0;
@@ -731,7 +739,6 @@ cudaError_t launch(Args a, int blocks, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
       bwd_v1_kernel<T, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  a.tb = kEB;
   bwd_v1_kernel<T, K><<<blocks, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -830,7 +837,6 @@ Args make_args(const void* e, void* de, long long fs, long long bs, int batch, i
   a.lin_col = lin_col;
   a.w_phys = w_phys;
   a.ebl = examples_per_block(batch);
-  a.tb = kEB;
   return a;
 }
 

@@ -7,7 +7,8 @@ shapes: emb3 (39, B, 640), g (B, 1024), glin (B,) (bf16, bf16, f32), w1
 from default_rng(0). Variants (`ops.bwd_variants`):
 
   v0  the shipped backward: kernel 2 (cross_conv1_bwd.cu)
-  v1  g staged once per example tile: kernel 8a (cross_conv1_bwd_v1.cu)
+  v1  per position, products over one tap window of g: kernel 8a
+      (cross_conv1_bwd_v1.cu)
   v2  the TPU's one-dot restructure, equal to v0 bit for bit: kernel 2
 
 --check compares each variant's de[:, :256] with v0's at the TPU script's
