@@ -107,7 +107,8 @@ nonzero without them, or when any phase fails. Phases, in order:
      row 8b (bwd_v2, kernel 2 from the variants' weights) against the
      plain version, each case's route checked (V1_CASES): k=3 at B=512
      in f32 (the CUDA-core kernels) and at B=1, 7, 131, 4096 and 65536 in
-     bf16 (kernel 8a on wgmma), k=9 at B=512 in f32 and bf16 (CUDA cores),
+     bf16 (kernel 8a on wgmma), every other wgmma instantiation (k, C1) at
+     B=131, k=9 at B=512 in f32 and bf16 (CUDA cores),
      and kernel 8a alone at C1=72 in bf16, B=512 (its bf16 CUDA-core
      kernel, at the phase-4 tolerances); bf16 dE
      within one bf16 ulp of the product plus two ulps of the product
@@ -2200,12 +2201,15 @@ def _de_limit_ratio(got, ref, de_abs) -> float:
     return worst
 
 
-# kernel 8a's cases after the C1=72 one: (batch, dtype, k, route); the
-# last is the timed one
-V1_CASES = ((512, "float32", 3, "CUDA cores"), (1, "bfloat16", 3, "wgmma"),
-            (7, "bfloat16", 3, "wgmma"), (131, "bfloat16", 3, "wgmma"),
-            (4096, "bfloat16", 3, "wgmma"), (512, "float32", 9, "CUDA cores"),
-            (512, "bfloat16", 9, "CUDA cores"), (65536, "bfloat16", 3, "wgmma"))
+# kernel 8a's cases after the C1=72 one: (batch, dtype, k, C1, route),
+# every wgmma instantiation among them; the last is the timed one
+V1_CASES = ((512, "float32", 3, 64, "CUDA cores"), (1, "bfloat16", 3, 64, "wgmma"),
+            (7, "bfloat16", 3, 64, "wgmma"), (131, "bfloat16", 3, 64, "wgmma"),
+            (131, "bfloat16", 1, 64, "wgmma"), (131, "bfloat16", 1, 32, "wgmma"),
+            (131, "bfloat16", 3, 32, "wgmma"), (131, "bfloat16", 5, 32, "wgmma"),
+            (131, "bfloat16", 7, 32, "wgmma"), (4096, "bfloat16", 3, 64, "wgmma"),
+            (512, "float32", 9, 64, "CUDA cores"), (512, "bfloat16", 9, 64, "CUDA cores"),
+            (65536, "bfloat16", 3, 64, "wgmma"))
 
 
 def phase_parity_bwd_v1() -> dict:
@@ -2232,9 +2236,9 @@ def phase_parity_bwd_v1() -> dict:
         x["glin"], cfg, "v1 (kernel 8a, CUDA cores) vs plain criteo_kaggle C1=72 bfloat16 B=512")
     del x, de1, dw1, de_ref, dw_ref
     lib = bv._library()
-    for b, name, k, route in V1_CASES:
+    for b, name, k, c1, route in V1_CASES:
         dtype = getattr(torch, name)
-        cfg = dataclasses.replace(_criteo_model(name), conv_kernel=k)
+        cfg = dataclasses.replace(_criteo_model(name), conv_kernel=k, conv_channels=(c1, 64))
         x = make_inputs(cfg, b, "cuda", dtype)
         glin = x["glin"]
         e = x["emb3"]
@@ -2242,14 +2246,14 @@ def phase_parity_bwd_v1() -> dict:
             int(dtype == torch.bfloat16), e.data_ptr(), e.data_ptr(), e.stride(0), e.stride(1),
             cfg.num_fields, cfg.embed_dim, k, cfg.conv_channels[0], cfg.row_width,
             cfg.table_width)
-        print(f"parity_bwd_v1 criteo_kaggle {name} k={k} B={b}: kernel 8a on "
+        print(f"parity_bwd_v1 criteo_kaggle {name} k={k} C1={c1} B={b}: kernel 8a on "
               f"{'wgmma' if wgmma else 'CUDA cores'}", flush=True)
         if (route == "wgmma") != bool(wgmma):
-            fail(f"parity_bwd_v1 k={k} {name} B={b}: kernel 8a not on {route}")
+            fail(f"parity_bwd_v1 k={k} C1={c1} {name} B={b}: kernel 8a not on {route}")
         de1, dw1 = _variant_grads(bv, cfg, x, "v1")
         de_ref, dw_ref = bv.bwd_v1_reference(x["emb3"], x["wr"], x["g"], glin, cfg)
         de_ref, dw_ref = de_ref.transpose(0, 1), dw_ref[:, :cfg.num_pairs].permute(2, 1, 0)
-        what = f"criteo_kaggle {name} k={k} B={b}"
+        what = f"criteo_kaggle {name} k={k} C1={c1} B={b}"
         err = _check_rows_grad(de1, de_ref, dw1, dw_ref, glin, cfg,
                                f"v1 (kernel 8a) vs plain {what}")
         out["max_abs_err"] = max(out["max_abs_err"], err)
