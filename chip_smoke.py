@@ -1374,8 +1374,8 @@ def phase_parity_caps() -> dict:
     # backward at 6 m-tiles; f32: the CUDA-core one), C1=136 (the CUDA-core
     # backward in two channel slices), then k=9 in bf16 and k=11 (the
     # CUDA-core forward's run-time-k instantiation; the backward in two tap
-    # slices). The cases added after PR 7 draw from their own generator, so
-    # that the earlier cases keep their inputs.
+    # slices). The C1=136 and k=11 cases draw from their own generator, so
+    # that the earlier cases keep the inputs they were first checked with.
     gen = torch.Generator(device="cuda").manual_seed(22)
     gen_new = torch.Generator(device="cuda").manual_seed(23)
     b = 4096
