@@ -42,6 +42,9 @@ _SOURCE = "cross_conv1_bwd_v1"
 # kernel 8a's tensor-core tiles: examples per tile, pairs per chunk
 V1_TILE = 16
 V1_PAIRS = 64
+# the channel counts kernel 8a's tensor-core kernel is built for; a
+# narrower layer runs there with zero channels added
+V1_CHANNELS = (32, 64)
 
 
 def round_up(x: int, m: int) -> int:
@@ -90,24 +93,58 @@ def bwd_v2_reference(emb3, wrs, g, glin, cfg: ModelConfig):
     return bwd_reference(emb3, w1_from_wrs(wrs, cfg), g, glin, cfg, wrs.shape[1])
 
 
-def v1_window_tiles(g: torch.Tensor, k: int, d: int) -> torch.Tensor:
-    """g (B, C1*d) as kernel 8a's tensor-core kernel reads it: per tile of
-    V1_TILE examples, the tap window gp[q*C1 + c, b] = g[b, c, q - k//2]
-    (zero outside [0, d) and past B), R = (d+k-1)*C1 rows by V1_TILE
-    examples in 8x8 core matrices, core (r/8, b/8) at (r/8 * 2 + b/8) * 64
-    elements. Shape (ntiles, R/8, 2, 8, 8)."""
+def v1_channels(c1: int) -> int:
+    """The channel count kernel 8a's tensor-core kernel would run C1 at:
+    the smallest of V1_CHANNELS that holds it, else C1."""
+    return next((c for c in V1_CHANNELS if c >= c1), c1)
+
+
+def v1_pad_channels(wr: torch.Tensor, g: torch.Tensor, k: int, d: int, c1p: int):
+    """wr (P_pad, k*C1) and g (B, C1*d) with zero channels up to c1p:
+    (P_pad, k*c1p) and (B, c1p*d). The added channels' products are exact
+    zeros, so dE keeps its value and dW's first C1 channels are dW."""
+    p_pad, kc = wr.shape
+    c1 = kc // k
+    if c1p == c1:
+        return wr, g
     b = g.shape[0]
-    c1 = g.shape[1] // d
-    lo = k // 2
-    nt = -(-b // V1_TILE)
-    if nt * V1_TILE != b:
-        g = F.pad(g, (0, 0, 0, nt * V1_TILE - b))
-    # (tile, q, c/8, b/8, c%8, b%8); the halo rows q < lo and q >= lo + d are zeros
-    out = g.new_empty((nt, d + k - 1, c1 // 8, 2, 8, 8))
-    out[:, :lo] = 0
-    out[:, lo + d:] = 0
-    out[:, lo:lo + d] = g.reshape(nt, 2, 8, c1 // 8, 8, d).permute(0, 5, 3, 1, 4, 2)
-    return out.reshape(nt, (d + k - 1) * c1 // 8, 2, 8, 8)
+    wr = F.pad(wr.reshape(p_pad, k, c1), (0, c1p - c1)).reshape(p_pad, k * c1p)
+    g = F.pad(g.reshape(b, c1, d), (0, 0, 0, c1p - c1)).reshape(b, c1p * d)
+    return wr, g
+
+
+def v1_window_offset(r, e):
+    """Element offset of kernel 8a's tap-window element (row r, example e)
+    in a tile's window: 8x8 core matrices (r/8, e/8) at (r/8 * 2 + e/8) *
+    64 elements, rows of 8 examples."""
+    return ((r // 8) * 2 + e // 8) * 64 + (r % 8) * 8 + e % 8
+
+
+def v1_window_items(c1: int):
+    """Kernel 8a's store_window assignment: (thread, item) -> (channel,
+    example pair) for a warpgroup's 128 threads and C1/16 items each, as
+    two (128, C1/16) integer tensors."""
+    u = torch.arange(128)[:, None] + 128 * torch.arange(c1 // 16)[None, :]
+    w, lane = u // 32, u % 32
+    return 8 * (w // 2) + lane % 8, 4 * (w % 2) + lane // 8
+
+
+def v1_window(g: torch.Tensor, k: int, d: int, b0: int) -> torch.Tensor:
+    """The tap window of examples b0 .. b0+15 as kernel 8a's store_window
+    and halo zeroing write it, flat in v1_window_offset's layout: rows
+    q*C1 + c hold g[b, c, q - k//2] for q - k//2 in [0, d) and are zero
+    elsewhere, examples past B zero. Shape ((d+k-1) * C1 * V1_TILE,)."""
+    b, c1 = g.shape[0], g.shape[1] // d
+    gb = g.reshape(b, c1, d)
+    out = g.new_zeros(((d + k - 1) * c1 * V1_TILE,))
+    c, e2 = (t.reshape(-1) for t in v1_window_items(c1))
+    for e in range(2):
+        ex = b0 + 2 * e2 + e
+        live = ex < b
+        for x in range(d):
+            r = (x + k // 2) * c1 + c
+            out[v1_window_offset(r, 2 * e2 + e)[live]] = gb[ex[live], c[live], x]
+    return out
 
 
 def v1_weight_chunks(wr: torch.Tensor) -> torch.Tensor:
@@ -131,10 +168,11 @@ def v1_grid(batch: int, sms: int):
 
 def bwd_v1_tiles(emb3, wr, g, glin, cfg: ModelConfig, sms: int = 132):
     """Kernel 8a's tensor-core formulation in plain torch, its index
-    arithmetic spelled out (for tests): each tile's tap window unpacked
-    from v1_window_tiles and each chunk's weights from v1_weight_chunks;
-    per chunk of V1_PAIRS pairs, tile of V1_TILE examples and position x,
-    with Gw_x = window rows [x*C1, (x+k)*C1),
+    arithmetic spelled out (for tests): each tile's tap window built by
+    v1_window and read back through v1_window_offset, each chunk's weights
+    unpacked from v1_weight_chunks; per chunk of V1_PAIRS pairs, tile of
+    V1_TILE examples and position x, with Gw_x = window rows [x*C1,
+    (x+k)*C1),
       dW_all (pairs, k*C1) += M_x Gw_x^T  and  dM_x = wr_chunk Gw_x,
     sums in f32 of operands in the rows' dtype; dM_x rounded, dE = dM times
     the partner factor; dW_all kept per (block, warpgroup) over v1_grid's
@@ -145,8 +183,8 @@ def bwd_v1_tiles(emb3, wr, g, glin, cfg: ModelConfig, sms: int = 132):
     k, d = cfg.conv_kernel, cfg.embed_dim
     p_pad, kc = wr.shape
     c1, pairs = kc // k, cfg.num_pairs
-    win = v1_window_tiles(g.to(dt), k, d)
-    win = win.permute(0, 1, 3, 2, 4).reshape(win.shape[0], -1, V1_TILE).float()  # (nt, R, 16)
+    rows = (d + k - 1) * c1
+    at = v1_window_offset(torch.arange(rows)[:, None], torch.arange(V1_TILE)[None, :])
     chunks = v1_weight_chunks(wr.to(dt))
     wrc = chunks.permute(0, 1, 3, 2, 4).reshape(chunks.shape[0], V1_PAIRS, kc).float()
     blocks, tpb, nt = v1_grid(b, sms)
@@ -160,11 +198,12 @@ def bwd_v1_tiles(emb3, wr, g, glin, cfg: ModelConfig, sms: int = 132):
             row = 2 * (tile // tpb) + (tile - tile // tpb * tpb) % 2
             ex = torch.arange(tile * V1_TILE, min(b, (tile + 1) * V1_TILE))
             n = ex.numel()
+            win = v1_window(g.to(dt), k, d, tile * V1_TILE)[at].float()   # (R, 16)
             for x in range(d):
                 fa = emb3[i[:, None], ex[None], (d * j + x)[:, None]].float()
                 fb = emb3[j[:, None], ex[None], (d * i + x)[:, None]].float()
                 m = (fa * fb).to(dt).float()                        # (pairs, n)
-                gw = win[tile, x * c1:(x + k) * c1, :n]             # (k*C1, n)
+                gw = win[x * c1:(x + k) * c1, :n]                   # (k*C1, n)
                 partials[row, p] += m @ gw.t()
                 dm = (wrc[q, :p.numel()] @ gw).to(dt).float()
                 de[i[:, None], ex[None], (d * j + x)[:, None]] = (dm * fb).to(dt)
@@ -227,10 +266,11 @@ def bwd_v1(emb3: torch.Tensor, wr: torch.Tensor, g: torch.Tensor, glin: torch.Te
            cfg: ModelConfig):
     """The v1 backward from wr (P_pad, k*C1): kernel 8a on CUDA tensors.
 
-    bf16 rows with d=16, C1 of 32 or 64, k*C1 <= 224 and 16-byte aligned
-    rows run on the tensor cores (wgmma), with the weights and g in
-    v1_weight_chunks' and v1_window_tiles' layouts; f32 and every other
-    shape on the CUDA cores."""
+    bf16 rows with d=16 and 16-byte aligned rows run on the tensor cores
+    (wgmma) at C1 <= 32 with k <= 7 and at 32 < C1 <= 64 with k <= 3,
+    brought to 32 or 64 channels by v1_pad_channels, the weights in
+    v1_weight_chunks' layout; f32 and every other shape on the CUDA
+    cores."""
     kind, c1 = _check(emb3, wr, g, glin, cfg, v1=True)
     if kind == "cpu":
         return bwd_v1_reference(emb3, wr, g, glin, cfg)
@@ -244,27 +284,33 @@ def bwd_v1(emb3: torch.Tensor, wr: torch.Tensor, g: torch.Tensor, glin: torch.Te
     de = torch.empty_like(e)
     lib = _library()
     is_bf16 = int(dt == torch.bfloat16)
+    c1k = v1_channels(c1)   # the channels the kernel runs
     wgmma = lib.cffm_cross_conv1_bwd_v1_wgmma(is_bf16, e.data_ptr(), de.data_ptr(), e.stride(0),
-                                              e.stride(1), f, cfg.embed_dim, k, c1,
+                                              e.stride(1), f, cfg.embed_dim, k, c1k,
                                               cfg.row_width, wp)
     if wgmma:
-        w, gg = v1_weight_chunks(w), v1_window_tiles(gg, k, cfg.embed_dim)
+        w, gg = v1_pad_channels(w, gg, k, cfg.embed_dim, c1k)
+        w = v1_weight_chunks(w)
+        if gg.data_ptr() % 16:
+            gg = gg.clone()
+    else:
+        c1k = c1
     with torch.cuda.device(dev):
         rows = lib.cffm_cross_conv1_bwd_v1_blocks(b, wgmma)
     if rows < 0:
         raise RuntimeError("cross_conv1_bwd_v1: the device's SM count could not be read")
-    dwp = torch.empty((rows, k, cfg.num_pairs, c1), dtype=torch.float32, device=dev)
-    dw = torch.empty((k, p_pad, c1), dtype=torch.float32, device=dev)
+    dwp = torch.empty((rows, k, cfg.num_pairs, c1k), dtype=torch.float32, device=dev)
+    dw = torch.empty((k, p_pad, c1k), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.cffm_cross_conv1_bwd_v1(
             is_bf16, wgmma, e.data_ptr(), de.data_ptr(), e.stride(0), e.stride(1),
             w.data_ptr(), gg.data_ptr(), gl.data_ptr(), dwp.data_ptr(), dw.data_ptr(), b, f,
-            cfg.embed_dim, k, c1, p_pad, cfg.row_width, wp,
+            cfg.embed_dim, k, c1k, p_pad, cfg.row_width, wp,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"cross_conv1_bwd_v1 kernel launch failed: CUDA error {err}")
     bwd_v1.launches += 1
-    return de, dw
+    return de, (dw if c1k == c1 else dw[..., :c1].contiguous())
 
 
 def _kernel2(emb3, wrs, g, glin, cfg: ModelConfig):

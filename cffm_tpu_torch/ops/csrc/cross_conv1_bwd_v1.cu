@@ -21,7 +21,8 @@
 // Design. v1 merged the dW and dM loops on the TPU so that one staged g
 // window served both products per position x. Two kernels keep that.
 // Field-aware bf16 rows with d=16, C1 of 32 or 64 and k*C1 <= 224 take
-// bwd_v1_wgmma_kernel (below): both products as wgmma GEMMs over one tap
+// bwd_v1_wgmma_kernel (below; bwd_variants.bwd_v1 brings a narrower layer
+// to 32 or 64 channels with zero channels): both products as wgmma GEMMs over one tap
 // window of g per (pair chunk, example tile) in shared memory, read at x's
 // offset, dW in registers over a block's tile range. f32 and every other
 // shape take bwd_v1_kernel: a block walks its examples in tiles of kEB,
@@ -35,9 +36,9 @@
 // Bound on the H100 at criteo_kaggle shapes (F=39, d=16, W=640, C1=64, k=3,
 // bf16, B=65536): like kernel 2, 2 x 298 GFLOP against ~6.7 GB of E, dE and g
 // moved, so memory-bound on paper at 2.0 ms. The wgmma kernel moves more:
-// it reads the tap window once per pair chunk (12 chunks of 64 pairs, ~1.8
-// GB at B=65536) besides E and dE, and stores dE in 32-byte pieces as
-// kernel 2 does.
+// it reads g once per pair chunk (12 chunks of 64 pairs, ~1.6 GB at
+// B=65536, much of it from L2) besides E and dE, and stores dE in 32-byte
+// pieces as kernel 2 does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,7 +70,7 @@ struct Args {
   void* de;                // same layout as e
   long long fs, bs;        // field and batch strides of e and de (elements)
   const void* wr;          // (p_pad, K*c1) in T (CUDA-core kernel)
-  const void* g;           // (batch, c1, d) in T (CUDA-core kernel)
+  const void* g;           // (batch, c1, d) in T
   const float* glin;       // (batch,)
   float* dwp;              // (blocks, K, pairs, c1) f32 partials, tap order s
   int batch, fields, d, k, c1, pairs, kc, lin_col, w_phys;
@@ -239,9 +240,10 @@ __global__ void __launch_bounds__(kThreads) bwd_v1_kernel(Args a) {
 // Both GEMMs read the one shared-memory window at x's offset (x*C1 rows,
 // x*C1*kTE*2 bytes, whole core matrices for C1 a multiple of 8): dW reads
 // it K-major (rows r, examples contiguous), dM MN-major (its transpose
-// bit). The window comes from the wrapper in this layout, one contiguous
-// block per tile (bwd_variants.v1_window_tiles), and the weights one block
-// per pair chunk (v1_weight_chunks).
+// bit). A warpgroup builds the window from g for each tile, transposing
+// it into 8x8 core matrices (r/8, b/8) at (r/8 * 2 + b/8) * 128 bytes; its
+// halo rows (q < k/2 or q >= k/2 + 16) are zeroed once. The weights come
+// from the wrapper one block per pair chunk (bwd_variants.v1_weight_chunks).
 //
 // Loop order. One block per SM walks a contiguous range of tiles; its two
 // warpgroups take alternate tiles, warpgroup 1 starting each chunk one load
@@ -250,12 +252,13 @@ __global__ void __launch_bounds__(kThreads) bwd_v1_kernel(Args a) {
 // outer loop: a warpgroup keeps the chunk's dW (k accumulators of 64 x C1)
 // in registers over all its tiles and writes one f32 partial per (block,
 // warpgroup, chunk); sum_partials_kernel sums them in order. Per tile a
-// warpgroup copies the window by cp.async and loads the pairs' 32-byte
-// pieces of E, E[b, i, 16j + x] and E[b, j, 16i + x] (two lanes a piece,
-// consecutive lanes on consecutive pairs; half of them already loaded
-// during its previous tile's products), and stores them transposed into
-// position planes [x][pair][example], two examples per 32-bit word
-// (plane_off swizzles the slots); then for each x it forms M_x = bf16(E_i *
+// warpgroup loads the pairs' 32-byte pieces of E, E[b, i, 16j + x] and
+// E[b, j, 16i + x] (two lanes a piece, consecutive lanes on consecutive
+// pairs; half of them already loaded during its previous tile's
+// products), and stores them transposed into position planes
+// [x][pair][example], two examples per 32-bit word (plane_off swizzles the
+// slots); it writes the window's rows from g's 32-byte pieces g[b, c,
+// 0..16) the same way (store_window); then for each x it forms M_x = bf16(E_i *
 // E_j) straight into the register fragment of wgmma's A operand (a
 // thread's fragment positions are those of its dM accumulator), issues
 // dM_x (wgmma, A = wr from shared memory) and dW (wgmma, A from
@@ -267,7 +270,7 @@ __global__ void __launch_bounds__(kThreads) bwd_v1_kernel(Args a) {
 // Shared memory (k=3, C1=64): the weight chunk 24 KB; per warpgroup the
 // two factors' planes 2 x 32 KB and the tap window (16 + k - 1) * C1 * kTE
 // * 2 = 36 KB; 229.4 KB in all, so one block per SM and no ring. What holds
-// it back (scripts/ablate_bwd_v1.py): the loads of E and the stores of dE,
+// it back (scripts/ablate_bwd.py --kernel=8a): the loads of E and the stores of dE,
 // each 32-byte pieces half scattered over rows, which two warpgroups do not
 // keep in flight long enough; the products cost little.
 // ---------------------------------------------------------------------------
@@ -435,9 +438,53 @@ __device__ void diag_and_pads16(const Args& a, long long b_begin, long long b_en
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
+// Byte offset of window element (row r, example e) in its 8x8 core
+// matrix layout: core (r/8, e/8) at (r/8 * 2 + e/8) * 128 bytes, rows of
+// 8 examples.
+__device__ __forceinline__ int window_off(int r, int e) {
+  return ((r >> 3) * 2 + (e >> 3)) * 128 + (r & 7) * 16 + (e & 7) * 2;
+}
+
+// The tile's window rows from g, transposed: word (row (x + K/2) * C1 + c,
+// examples 2e2, 2e2 + 1) = (g[b, c, x], g[b + 1, c, x]) for b = b0 + 2e2,
+// zeros past the batch. A thread takes C1/16 (channel, example pair)
+// items, item u = ct + 128 * it: lanes on 8 channels and 4 example pairs,
+// so that each warp's stores hit 32 banks and its loads read 256 bytes
+// of one example's row.
+template <int K, int C1>
+__device__ __forceinline__ void store_window(unsigned char* gw, const Args& a, long long b0,
+                                             int ct) {
+  constexpr int kItems = C1 / 16;  // 2 or 4: two items' loads in flight at a time
+#pragma unroll
+  for (int i0 = 0; i0 < kItems; i0 += 2) {
+    uint4 v[2][2][2];
+#pragma unroll
+    for (int it = 0; it < 2; ++it) {
+      const int u = ct + 128 * (i0 + it), w = u >> 5, l = u & 31;
+      const int c = 8 * (w >> 1) + (l & 7), e2 = 4 * (w & 1) + (l >> 3);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const long long b = b0 + 2 * e2 + e;
+        const uint4* src = reinterpret_cast<const uint4*>(
+            static_cast<const __nv_bfloat16*>(a.g) + (b * C1 + c) * kD);
+        v[it][e][0] = b < a.batch ? __ldg(src) : make_uint4(0u, 0u, 0u, 0u);
+        v[it][e][1] = b < a.batch ? __ldg(src + 1) : make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < 2; ++it) {
+      const int u = ct + 128 * (i0 + it), w = u >> 5, l = u & 31;
+      const int c = 8 * (w >> 1) + (l & 7), e2 = 4 * (w & 1) + (l >> 3);
+      const uint32_t* w0 = reinterpret_cast<const uint32_t*>(&v[it][0][0]);
+      const uint32_t* w1 = reinterpret_cast<const uint32_t*>(&v[it][1][0]);
+#pragma unroll
+      for (int x2 = 0; x2 < kD / 2; ++x2) {  // positions 2x2, 2x2 + 1
+        const int r = (2 * x2 + K / 2) * C1 + c;
+        word(gw, window_off(r, 2 * e2)) = __byte_perm(w0[x2], w1[x2], 0x5410);
+        word(gw, window_off(r + C1, 2 * e2)) = __byte_perm(w0[x2], w1[x2], 0x7632);
+      }
+    }
+  }
 }
 
 // Four example pairs' E for this thread's (pair ij, half h): v[it][side][e]
@@ -536,8 +583,7 @@ __device__ __forceinline__ void issue_x(float (&acc_m)[8], float (&acc_w)[K][C1 
 
 template <int K, int C1>
 __global__ void __launch_bounds__(kWgThreads, 1)
-    bwd_v1_wgmma_kernel(Args a, const __nv_bfloat16* gpt, const __nv_bfloat16* wrc, int tpb,
-                        int ntiles) {
+    bwd_v1_wgmma_kernel(Args a, const __nv_bfloat16* wrc, int tpb, int ntiles) {
   using bf = __nv_bfloat16;
   constexpr int kGp = v1_gp_bytes(K, C1);
   constexpr int kWr = v1_wr_bytes(K, C1);
@@ -558,6 +604,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int t_end = min(ntiles, t_begin + tpb);
   float* part = a.dwp + static_cast<long long>(2 * blockIdx.x + wg) * K * pairs * C1;
   const int pr = 16 * warp + gq;   // this thread's pairs pr, pr + 8 and examples 2tq, +1, +8, +9
+  // the window's halo rows, zeros for every tile: the first K/2 * C1 rows
+  // and the last (K - 1 - K/2) * C1, 256 bytes per 8 rows
+  for (int u = ct; u < (K - 1) * C1 * 2; u += 128) {
+    const int lo16 = (K / 2) * C1 * 2;
+    reinterpret_cast<uint4*>(gw)[u < lo16 ? u : u + kD * C1 * 2] = make_uint4(0u, 0u, 0u, 0u);
+  }
 
   for (int q = 0; q < nq; ++q) {
     __syncthreads();  // the previous chunk's readers of the weights and pair table are done
@@ -596,12 +648,6 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       const long long b0 = static_cast<long long>(tile) * kTE;
       if (wg == 1 && stagger) named_sync(3, 256);
       named_sync(1 + wg, 128);  // the previous tile's dE stores have read the planes
-      // the tile's tap window, one contiguous block, by async copies that
-      // run while E is loaded
-      const unsigned char* gsrc =
-          reinterpret_cast<const unsigned char*>(gpt) + static_cast<long long>(tile) * kGp;
-      for (int u = ct; u < kGp / 16; u += 128) cp_async16(gw + 16 * u, gsrc + 16 * u);
-      asm volatile("cp.async.commit_group;\n" ::: "memory");
       // E, stored transposed: plane x, word (pair, example pair) = (example
       // 2e2 at x, example 2e2 + 1 at x). A thread owns one (pair, half of
       // the 16 positions) and loads four example pairs at a time, their 16
@@ -611,12 +657,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       // during the previous tile's products (pre).
       if (!have_pre) load_quad(pre, a, ij, b0, 0, h);
       store_quad(pre, fa, fb, p, 0, h);
+      store_window<K, C1>(gw, a, b0, ct);
       {
         uint4 v[4][2][2];
         load_quad(v, a, ij, b0, 4, h);
         store_quad(v, fa, fb, p, 4, h);
       }
-      asm volatile("cp.async.wait_all;\n" ::: "memory");
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       named_sync(1 + wg, 128);
       if (wg == 0 && stagger) named_arrive(3, 256);
@@ -782,29 +828,26 @@ cudaError_t wg_grid(int batch, WgGrid* g) {
 }
 
 template <int K, int C1>
-cudaError_t launch_wgmma(const Args& a, const void* gpt, const void* wrc, const WgGrid& g,
-                         cudaStream_t stream) {
+cudaError_t launch_wgmma(const Args& a, const void* wrc, const WgGrid& g, cudaStream_t stream) {
   constexpr int smem = v1_smem(K, C1);
   static_assert(smem <= kSmemMax, "shared memory");
   const cudaError_t err = cudaFuncSetAttribute(
       bwd_v1_wgmma_kernel<K, C1>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   bwd_v1_wgmma_kernel<K, C1><<<g.blocks, kWgThreads, smem, stream>>>(
-      a, static_cast<const __nv_bfloat16*>(gpt), static_cast<const __nv_bfloat16*>(wrc), g.tpb,
-      g.ntiles);
+      a, static_cast<const __nv_bfloat16*>(wrc), g.tpb, g.ntiles);
   return cudaGetLastError();
 }
 
-cudaError_t launch_wgmma_k(const Args& a, const void* gpt, const void* wrc, const WgGrid& g,
-                           cudaStream_t stream) {
+cudaError_t launch_wgmma_k(const Args& a, const void* wrc, const WgGrid& g, cudaStream_t stream) {
   const int key = a.k * 1000 + a.c1;
   switch (key) {
-    case 1032: return launch_wgmma<1, 32>(a, gpt, wrc, g, stream);
-    case 3032: return launch_wgmma<3, 32>(a, gpt, wrc, g, stream);
-    case 5032: return launch_wgmma<5, 32>(a, gpt, wrc, g, stream);
-    case 7032: return launch_wgmma<7, 32>(a, gpt, wrc, g, stream);
-    case 1064: return launch_wgmma<1, 64>(a, gpt, wrc, g, stream);
-    case 3064: return launch_wgmma<3, 64>(a, gpt, wrc, g, stream);
+    case 1032: return launch_wgmma<1, 32>(a, wrc, g, stream);
+    case 3032: return launch_wgmma<3, 32>(a, wrc, g, stream);
+    case 5032: return launch_wgmma<5, 32>(a, wrc, g, stream);
+    case 7032: return launch_wgmma<7, 32>(a, wrc, g, stream);
+    case 1064: return launch_wgmma<1, 64>(a, wrc, g, stream);
+    case 3064: return launch_wgmma<3, 64>(a, wrc, g, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -844,9 +887,9 @@ Args make_args(const void* e, void* de, long long fs, long long bs, int batch, i
 
 extern "C" {
 
-// 1 when these rows take the tensor-core (wgmma) kernel, whose weights and
-// g come in bwd_variants' v1_weight_chunks and v1_window_tiles layouts;
-// 0 for the CUDA-core kernel (wr (p_pad, k*c1) and g (batch, c1, d)).
+// 1 when these rows take the tensor-core (wgmma) kernel, whose weights come
+// in bwd_variants' v1_weight_chunks layout (and g 16-byte aligned); 0 for
+// the CUDA-core kernel (wr (p_pad, k*c1)).
 int cffm_cross_conv1_bwd_v1_wgmma(int is_bf16, const void* e, const void* de, long long fs,
                                   long long bs, int fields, int d, int k, int c1, int lin_col,
                                   int w_phys) {
@@ -870,8 +913,8 @@ int cffm_cross_conv1_bwd_v1_blocks(int batch, int wgmma) {
 // which kernel and operand layouts, and must be what
 // cffm_cross_conv1_bwd_v1_wgmma says. e, de: (fields, batch, w_phys) with
 // field stride fs and batch stride bs; wr: (p_pad, k*c1) in T, or the
-// chunks of v1_weight_chunks; g: (batch, c1, d) in T, or the tiles of
-// v1_window_tiles; glin: (batch,) f32; dwp: (rows of
+// chunks of v1_weight_chunks; g: (batch, c1, d) in T; glin: (batch,) f32;
+// dwp: (rows of
 // cffm_cross_conv1_bwd_v1_blocks, k, pairs, c1) f32 scratch; dw: (k,
 // p_pad, c1) f32 out.
 int cffm_cross_conv1_bwd_v1(int is_bf16, int wgmma, const void* e, void* de, long long fs,
@@ -884,7 +927,8 @@ int cffm_cross_conv1_bwd_v1(int is_bf16, int wgmma, const void* e, void* de, lon
   a.glin = glin;
   a.dwp = dwp;
   if (fields < 2 || d < 1 || c1 < 1 || k < 1 || k % 2 == 0 || p_pad < a.pairs ||
-      lin_col != fields * d || w_phys <= lin_col || wgmma != (wgmma_path(a, is_bf16) ? 1 : 0))
+      lin_col != fields * d || w_phys <= lin_col || wgmma != (wgmma_path(a, is_bf16) ? 1 : 0) ||
+      (wgmma && !aligned16(g)))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rows = 0;
@@ -894,7 +938,7 @@ int cffm_cross_conv1_bwd_v1(int is_bf16, int wgmma, const void* e, void* de, lon
       WgGrid grid;
       if ((err = wg_grid(batch, &grid)) != cudaSuccess) return err;
       rows = 2 * grid.blocks;
-      err = launch_wgmma_k(a, g, wr, grid, s);
+      err = launch_wgmma_k(a, wr, grid, s);
     } else {
       rows = cffm_cross_conv1_bwd_v1_blocks(batch, 0);
       err = is_bf16 ? launch_k<__nv_bfloat16>(a, k, rows, s) : launch_k<float>(a, k, rows, s);

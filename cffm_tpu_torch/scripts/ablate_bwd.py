@@ -1,13 +1,16 @@
-"""Ablate kernel 2's tensor-core path on the card: where its time goes.
+"""Ablate a backward kernel's tensor-core path on the card: where its time goes.
 
-    python -m cffm_tpu_torch.scripts.ablate_bwd [--batch=65536] [--reps=10] [variant ...]
+    python -m cffm_tpu_torch.scripts.ablate_bwd [--kernel=2|8a] [--batch=65536] [--reps=10]
+        [variant ...]
 
-Builds `ops/csrc/cross_conv1_bwd.cu` as it ships and variants of it, each
-with one part of the work taken out, so that their results are wrong by
-design, and times each through `interaction_conv.cross_conv1_bwd` at
-criteo_kaggle's training shapes in bf16 (the split field-major layout),
-in the order shipped, variants, shipped. CUDA events per call; one line
-per run, then the card. The variants (all by default):
+Builds the kernel's source as it ships and variants of it, each with one
+part of the work taken out, so that their results are wrong by design,
+and times each at criteo_kaggle's shapes in bf16, in the order shipped,
+variants, shipped. CUDA events per call; one line per run, then the
+card. The variants (all of the kernel's by default):
+
+Kernel 2 (`ops/csrc/cross_conv1_bwd.cu`, the default), timed through
+`interaction_conv.cross_conv1_bwd` in the split field-major layout:
 
   no_wgmma      neither product is issued
   no_dm         the dM^T product (Gwin read MN-major) is not issued
@@ -15,6 +18,17 @@ per run, then the card. The variants (all by default):
   no_e_loads    the producer loads no E (the cross tile and factors are zeros)
   no_de_stores  the consumers write no dE
   no_prefetch   the producer does not prefetch the next tile's rows into L2
+
+Kernel 8a (`ops/csrc/cross_conv1_bwd_v1.cu`), timed through
+`bwd_variants.bwd_v1` on `bench_bwd_variants`' inputs:
+
+  no_wgmma        neither product is issued
+  no_dm           the dM_x products (the window read MN-major) are not issued
+  no_dw           the dW products (the window read K-major) are not issued
+  no_e_loads      no E is loaded (the factor planes hold zeros)
+  no_window       the tap window is not written from g (only its halo zeros)
+  no_de_stores    no dE is stored
+  no_de_products  dE is not formed at each position (the planes keep E)
 
 Exits nonzero without a CUDA card or nvcc.
 """
@@ -32,7 +46,7 @@ SOURCE = "cross_conv1_bwd"
 _NO_DM = ("for (int ks = 0; ks < L::kRP / 16; ++ks)", "for (int ks = 0; ks < 0; ++ks)")
 _NO_DW = ("for (int ks = 0; ks < kCols / 16; ++ks)", "for (int ks = 0; ks < 0; ++ks)")
 
-# variant -> [(text of the shipped source, its replacement)]
+# kernel 2's variants: name -> [(text of the shipped source, its replacement)]
 VARIANTS = {
     "no_wgmma": [_NO_DM, _NO_DW],
     "no_dm": [_NO_DM],
@@ -49,6 +63,73 @@ VARIANTS = {
          "        if (false) {\n#pragma unroll\n          for (int u = 0; u < kEU; ++u)"),
     ],
 }
+
+_NO_DM_V1 = ("for (int kr = 0; kr < kR / 16; ++kr)", "for (int kr = 0; kr < 0; ++kr)")
+_NO_DW_V1 = ("for (int s = 0; s < K; ++s)\n    wgmma_rs<C1>",
+             "for (int s = 0; s < 0; ++s)\n    wgmma_rs<C1>")
+
+# kernel 8a's variants
+VARIANTS_V1 = {
+    "no_wgmma": [_NO_DM_V1, _NO_DW_V1],
+    "no_dm": [_NO_DM_V1],
+    "no_dw": [_NO_DW_V1],
+    "no_e_loads": [
+        ("      if (ij != 0xFFFFu && b < a.batch) {\n        v[it][0][e]",
+         "      if (false) {\n        v[it][0][e]"),
+    ],
+    "no_window": [
+        ("      store_window<K, C1>(gw, a, b0, ct);\n", "      (void)b0;\n"),
+    ],
+    "no_de_stores": [
+        ("for (int it = 0; it < kTE && ij != 0xFFFFu; ++it) {",
+         "for (int it = 0; it < 0 && ij != 0xFFFFu; ++it) {"),
+    ],
+    "no_de_products": [
+        ("      word(fa, o) = mul2(dm, eb);\n      word(fb, o) = mul2(dm, ea);\n",
+         "      (void)dm;\n      (void)ea;\n      (void)eb;\n"),
+    ],
+}
+
+
+def _kernel2_call(batch: int):
+    """Kernel 2's timed call at criteo_kaggle's training shapes."""
+    import torch
+
+    from cffm_tpu_torch import get_config
+    from cffm_tpu_torch.ops import interaction_conv as ic
+
+    cfg = get_config("criteo_kaggle").model
+    fs, w, d = cfg.small_field_prefix, cfg.table_width, cfg.embed_dim
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    e = torch.randn((cfg.num_fields, batch, w), generator=gen, device="cuda").to(torch.bfloat16)
+    es, eb = e[:fs].contiguous(), e[fs:].contiguous()
+    del e
+    c1, p, k = cfg.conv_channels[0], cfg.num_pairs, cfg.conv_kernel
+    w1 = torch.randn((c1, p, k), generator=gen, device="cuda") * (2.0 / (p * k)) ** 0.5
+    gy = torch.randn((batch, c1, d), generator=gen, device="cuda").to(torch.bfloat16)
+    glin = torch.randn((batch,), generator=gen, device="cuda")
+    des, deb = torch.empty_like(es), torch.empty_like(eb)
+    parts = ic._descriptors("fm2", cfg, (es, eb))
+    dparts = ic._descriptors("fm2", cfg, (des, deb))
+    return lambda: ic.cross_conv1_bwd(parts, dparts, w1, gy, glin, cfg, w)
+
+
+def _kernel8a_call(batch: int):
+    """Kernel 8a's timed call on bench_bwd_variants' inputs."""
+    import torch
+
+    from cffm_tpu_torch import get_config
+    from cffm_tpu_torch.ops import bwd_variants as bv
+    from cffm_tpu_torch.scripts.bench_bwd_variants import make_inputs
+
+    cfg = get_config("criteo_kaggle").model
+    x = make_inputs(cfg, batch, "cuda", torch.bfloat16)
+    return lambda: bv.bwd_v1(x["emb3"], x["wr"], x["g"], x["glin"], cfg)
+
+
+# kernel -> (source, variants, the timed call's maker)
+KERNELS = {"2": (SOURCE, VARIANTS, _kernel2_call),
+           "8a": ("cross_conv1_bwd_v1", VARIANTS_V1, _kernel8a_call)}
 
 
 def variant_source(text: str, name: str, variants=None) -> str:
@@ -86,37 +167,20 @@ def build(names, out_dir: pathlib.Path, source: str = SOURCE, variants=None) -> 
     return libs
 
 
-def run(names, batch: int, reps: int) -> list:
+def run(names, batch: int, reps: int, kernel: str = "2") -> list:
     """[(name, ms)] in the order shipped, variants, shipped."""
-    import torch
-
-    from cffm_tpu_torch import get_config
     from cffm_tpu_torch.ops import _build
-    from cffm_tpu_torch.ops import interaction_conv as ic
     from cffm_tpu_torch.utils.timing import device_time
 
-    libs = build(names, _build._BUILD_DIR / "ablate_bwd")
-    cfg = get_config("criteo_kaggle").model
-    fs, w, d = cfg.small_field_prefix, cfg.table_width, cfg.embed_dim
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    e = torch.randn((cfg.num_fields, batch, w), generator=gen, device="cuda").to(torch.bfloat16)
-    es, eb = e[:fs].contiguous(), e[fs:].contiguous()
-    del e
-    c1, p, k = cfg.conv_channels[0], cfg.num_pairs, cfg.conv_kernel
-    w1 = torch.randn((c1, p, k), generator=gen, device="cuda") * (2.0 / (p * k)) ** 0.5
-    gy = torch.randn((batch, c1, d), generator=gen, device="cuda").to(torch.bfloat16)
-    glin = torch.randn((batch,), generator=gen, device="cuda")
-    des, deb = torch.empty_like(es), torch.empty_like(eb)
-    parts = ic._descriptors("fm2", cfg, (es, eb))
-    dparts = ic._descriptors("fm2", cfg, (des, deb))
+    source, variants, make_call = KERNELS[kernel]
+    libs = build(names, _build._BUILD_DIR / f"ablate_{source}", source, variants)
+    call = make_call(batch)
     shipped_load = _build.load
     out = []
     try:
         for name in ("shipped",) + tuple(names) + ("shipped",):
-            _build.load = lambda src, _lib=libs[name]: _lib if src == SOURCE else shipped_load(src)
-            ms = device_time(lambda: ic.cross_conv1_bwd(parts, dparts, w1, gy, glin, cfg, w),
-                             n=reps) * 1e3
-            out.append((name, ms))
+            _build.load = lambda src, _lib=libs[name]: _lib if src == source else shipped_load(src)
+            out.append((name, device_time(call, n=reps) * 1e3))
     finally:
         _build.load = shipped_load
     return out
@@ -124,14 +188,16 @@ def run(names, batch: int, reps: int) -> list:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", default="2", choices=sorted(KERNELS))
     ap.add_argument("--batch", type=int, default=65536)
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("variants", nargs="*", help=f"a subset of {sorted(VARIANTS)}")
+    ap.add_argument("variants", nargs="*", help="a subset of the kernel's variants")
     args = ap.parse_args(argv)
-    unknown = set(args.variants) - set(VARIANTS)
+    variants = KERNELS[args.kernel][1]
+    unknown = set(args.variants) - set(variants)
     if unknown:
-        ap.error(f"unknown variants {sorted(unknown)}")
-    args.variants = args.variants or list(VARIANTS)
+        ap.error(f"unknown variants of kernel {args.kernel}: {sorted(unknown)}")
+    args.variants = args.variants or list(variants)
     import torch
 
     if not torch.cuda.is_available():
@@ -139,8 +205,8 @@ def main(argv=None) -> int:
         return 1
     from cffm_tpu_torch.bench import card_line
 
-    for name, ms in run(args.variants, args.batch, args.reps):
-        print(f"ablate_bwd {name} B={args.batch}: {ms:.4f} ms", flush=True)
+    for name, ms in run(args.variants, args.batch, args.reps, args.kernel):
+        print(f"ablate_bwd kernel {args.kernel} {name} B={args.batch}: {ms:.4f} ms", flush=True)
     print(f"card: {card_line()}")
     return 0
 

@@ -1,10 +1,12 @@
 """Time the backward variants of the fused cross+conv1 kernel on the card.
 
     python -m cffm_tpu_torch.scripts.bench_bwd_variants [--batch=65536] [--check]
+        [--k=3] [--c1=64]
 
 The port's counterpart of `scripts/bench_bwd_variants.py`, at criteo_kaggle
 shapes: emb3 (39, B, 640), g (B, 1024), glin (B,) (bf16, bf16, f32), w1
-from default_rng(0). Variants (`ops.bwd_variants`):
+from default_rng(0); --k and --c1 set layer 1's width and channels.
+Variants (`ops.bwd_variants`):
 
   v0  the shipped backward: kernel 2 (cross_conv1_bwd.cu)
   v1  per position, products over one tap window of g: kernel 8a
@@ -23,6 +25,7 @@ TPU's `--bts` has no counterpart.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
@@ -84,14 +87,20 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=65536)
     ap.add_argument("--check", action="store_true")
+    ap.add_argument("--k", type=int, default=None)
+    ap.add_argument("--c1", type=int, default=None)
     args = ap.parse_args(argv)
     cfg = get_config("criteo_kaggle").model
+    cfg = dataclasses.replace(cfg, conv_kernel=args.k or cfg.conv_kernel,
+                              conv_channels=(args.c1 or cfg.conv_channels[0],)
+                              + cfg.conv_channels[1:])
     times = run(cfg, args.batch, check=args.check)
     if args.check:
         print(f"check: v1 and v2 match v0 (dE rtol=atol=1e-2, dW rtol=1e-3 and atol "
               f"{DW_ATOL} of max|dW|)", flush=True)
     for name, dt in times.items():
-        print(f"{name}: {dt * 1e3:.3f} ms  {args.batch / dt / 1e6:.2f}M ex/s", flush=True)
+        print(f"{name} k={cfg.conv_kernel} C1={cfg.conv_channels[0]}: {dt * 1e3:.3f} ms  "
+              f"{args.batch / dt / 1e6:.2f}M ex/s", flush=True)
     return 0
 
 

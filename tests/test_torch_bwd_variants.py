@@ -159,13 +159,14 @@ def test_variants_reject_bad_inputs():
 
 
 @pytest.mark.parametrize("sms", [1, 132])
-@pytest.mark.parametrize("k, c1", [(3, 64), (5, 32)])
+@pytest.mark.parametrize("k, c1", [(3, 64), (5, 32), (3, 24)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_v1_tiles_formulation_matches_jax(dtype, k, c1, sms):
     """The per-position products over slices gp[x:x+k] of each tile's tap
     window, dW kept per (block, warpgroup) and summed in order, v1's tap
-    order: against the TPU script's bwd_v1 (interpret, bt=8) at B=40, so
-    that the last 16-example tile is ragged."""
+    order, a narrower layer brought to 32 channels by v1_pad_channels:
+    against the TPU script's bwd_v1 (interpret, bt=8) at B=40, so that the
+    last 16-example tile is ragged."""
     kw = dict(num_fields=15, vocab_sizes=(50,) * 15, embed_dim=16, conv_channels=(c1,),
               conv_kernel=k, compute_dtype=dtype)
     jcfg, cfg = JaxModelConfig(**kw), ModelConfig(**kw)
@@ -182,8 +183,12 @@ def test_v1_tiles_formulation_matches_jax(dtype, k, c1, sms):
                                   jnp.asarray(g).astype(jdt), jnp.asarray(glin), jcfg, BT)
     tdt = getattr(torch, dtype)
     wr = bv.prep_w_bwd(torch.from_numpy(w1), cfg, p_pad, tdt).t().contiguous()
-    de, dw = bv.bwd_v1_tiles(torch.from_numpy(e3).to(tdt), wr, torch.from_numpy(g).to(tdt),
-                             torch.from_numpy(glin), cfg, sms)
+    c1k = bv.v1_channels(c1)
+    assert c1k == max(c1, 32)
+    wr_k, g_k = bv.v1_pad_channels(wr, torch.from_numpy(g).to(tdt), k, 16, c1k)
+    de, dw = bv.bwd_v1_tiles(torch.from_numpy(e3).to(tdt), wr_k, g_k, torch.from_numpy(glin),
+                             cfg, sms)
+    dw = dw[..., :c1]
     assert de.dtype == tdt and dw.dtype == torch.float32
     rtol, atol = TOL[dtype]["de"]
     np.testing.assert_allclose(de.float().numpy(), _np(de_want), rtol=rtol, atol=atol)
@@ -192,21 +197,28 @@ def test_v1_tiles_formulation_matches_jax(dtype, k, c1, sms):
     assert (dw[:, cfg.num_pairs:] == 0).all()
 
 
-def test_v1_window_tiles_and_weight_chunks_layouts():
-    """Element (tile, r = q*C1 + c, example) of the window sits in core
-    matrix (r/8, example/8) at (r/8 * 2 + example/8) * 64 elements; weight
-    (pair, r) of chunk pair/64 in core matrix (pair%64/8, r/8)."""
-    b, c1, d, k = 21, 8, 16, 3
+def test_v1_window_and_weight_chunks_layouts():
+    """Element (r = q*C1 + c, example e) of a tile's window sits in core
+    matrix (r/8, e/8) at (r/8 * 2 + e/8) * 64 elements and holds g[b0 + e,
+    c, q - k//2] (zero in the halo rows and past B); store_window's items
+    write each real row's 16 examples exactly once. Weight (pair, r) of
+    chunk pair/64 sits in core matrix (pair%64/8, r/8)."""
+    b, c1, d, k = 21, 32, 16, 3
     g = torch.arange(b * c1 * d, dtype=torch.float32).reshape(b, c1 * d) + 1
-    tiles = bv.v1_window_tiles(g, k, d)
     q = d + k - 1
-    assert tuple(tiles.shape) == (2, q * c1 // 8, 2, 8, 8)
-    flat = tiles.reshape(2, -1)
-    for tile, qq, c, e in [(0, 0, 0, 0), (0, 1, 3, 5), (1, 9, 7, 4), (1, 17, 2, 9), (0, 16, 5, 15)]:
-        r, ex = qq * c1 + c, tile * 16 + e
-        x = qq - k // 2
+    for b0, qq, c, e in [(0, 0, 0, 0), (0, 1, 3, 5), (16, 9, 7, 4), (16, 17, 2, 9),
+                         (0, 16, 5, 15), (16, 3, 31, 4), (16, 3, 31, 5)]:
+        win = bv.v1_window(g, k, d, b0)
+        assert win.numel() == q * c1 * 16
+        x, ex = qq - k // 2, b0 + e
         want = g[ex].reshape(c1, d)[c, x] if 0 <= x < d and ex < b else 0
-        assert flat[tile, ((r // 8) * 2 + e // 8) * 64 + (r % 8) * 8 + e % 8] == want
+        assert win[bv.v1_window_offset(qq * c1 + c, e)] == want
+    c, e2 = (t.reshape(-1) for t in bv.v1_window_items(c1))
+    slots = torch.stack([bv.v1_window_offset((x + k // 2) * c1 + c, 2 * e2 + e)
+                         for x in range(d) for e in range(2)]).reshape(-1)
+    real = bv.v1_window_offset(torch.arange(k // 2 * c1, (k // 2 + d) * c1)[:, None],
+                               torch.arange(16)[None, :]).reshape(-1)
+    assert torch.equal(slots.sort().values, real.sort().values)
     wr = torch.arange(112 * 24, dtype=torch.float32).reshape(112, 24) + 1
     chunks = bv.v1_weight_chunks(wr)
     assert tuple(chunks.shape) == (2, 8, 3, 8, 8)

@@ -9,8 +9,8 @@ import torch
 from cffm_tpu_torch import config
 from cffm_tpu_torch.ops import bwd_variants as bv
 from cffm_tpu_torch.ops import _build
-from cffm_tpu_torch.scripts import (ablate_bwd, ablate_bwd_v1, bench_bwd_variants, bench_kernel,
-                                    profile_step, trace_step)
+from cffm_tpu_torch.scripts import (ablate_bwd, bench_bwd_variants, bench_kernel, profile_step,
+                                    sweep_bwd_seeds, trace_step)
 
 MIXED = (32, 64, 128) + (1000,) * 12          # F=15: fused column, 3 small fields
 
@@ -56,35 +56,51 @@ def test_trace_step_reports_no_device_time_on_the_cpu(tmp_path, capsys, monkeypa
     assert (tmp_path / "trace.json").exists()
 
 
-@pytest.mark.parametrize("name", sorted(ablate_bwd.VARIANTS))
-def test_ablate_bwd_variants_match_the_kernel_source(name):
-    """Each ablation variant's replaced text occurs once in kernel 2's source."""
-    text = (_build._CSRC / f"{ablate_bwd.SOURCE}.cu").read_text()
-    out = ablate_bwd.variant_source(text, name)
-    assert out != text and all(new in out for _, new in ablate_bwd.VARIANTS[name])
+ABLATIONS = [(kernel, name) for kernel, (_, variants, _) in ablate_bwd.KERNELS.items()
+             for name in sorted(variants)]
 
 
-def test_ablate_bwd_needs_a_card(capsys):
+@pytest.mark.parametrize("kernel,name", ABLATIONS, ids=[f"{k}-{n}" for k, n in ABLATIONS])
+def test_ablate_bwd_variants_match_the_kernel_source(kernel, name):
+    """Each ablation variant's replaced text occurs once in its kernel's source."""
+    source, variants, _ = ablate_bwd.KERNELS[kernel]
+    text = (_build._CSRC / f"{source}.cu").read_text()
+    out = ablate_bwd.variant_source(text, name, variants)
+    assert out != text and all(new in out for _, new in variants[name])
+
+
+@pytest.mark.parametrize("kernel", sorted(ablate_bwd.KERNELS))
+def test_ablate_bwd_needs_a_card(kernel, capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the script would run")
-    assert ablate_bwd.main([]) == 1
+    assert ablate_bwd.main([f"--kernel={kernel}"]) == 1
     assert "no CUDA device" in capsys.readouterr().err
     with pytest.raises(SystemExit):
-        ablate_bwd.main(["no_such_variant"])
+        ablate_bwd.main([f"--kernel={kernel}", "no_such_variant"])
 
 
-@pytest.mark.parametrize("name", sorted(ablate_bwd_v1.VARIANTS))
-def test_ablate_bwd_v1_variants_match_the_kernel_source(name):
-    """Each ablation variant's replaced text occurs once in kernel 8a's source."""
-    text = (_build._CSRC / f"{ablate_bwd_v1.SOURCE}.cu").read_text()
-    out = ablate_bwd.variant_source(text, name, ablate_bwd_v1.VARIANTS)
-    assert out != text and all(new in out for _, new in ablate_bwd_v1.VARIANTS[name])
+def test_sweep_bwd_seeds_reports_on_the_cpu():
+    """The sweep's draw, backward and report at a tiny batch, where the
+    wrappers take their plain versions: nothing apart, no launch."""
+    cfg = sweep_bwd_seeds.model("hadamard", 3, 16)
+    r = sweep_bwd_seeds.backward(cfg, *sweep_bwd_seeds.draw(cfg, 4, torch.Generator().manual_seed(0)))
+    m = sweep_bwd_seeds.report(r)
+    assert r["launches"] == 0 and r["de"].shape == (4, cfg.num_fields, 16)
+    assert m["de_err"] == 0 and m["outside_2e-2"] == 0 and m["ulp_ratio"] == 0
 
 
-def test_ablate_bwd_v1_needs_a_card(capsys):
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present: the script would run")
-    assert ablate_bwd_v1.main([]) == 1
+def test_de_limit_ratio_counts_ulps():
+    """An error of one bf16 ulp of |ref| where |ref| is the whole product
+    sits at a third of the limit; of 6 ulps, at twice it."""
+    ref = torch.tensor([[1.5, -3.0]])
+    ulp = sweep_bwd_seeds.bf16_ulp(ref)
+    assert torch.equal(ulp, torch.tensor([[2.0**-7, 2.0**-6]]))
+    ratio = sweep_bwd_seeds.de_limit_ratio
+    assert ratio(ref + ulp, ref, ref.abs()) == pytest.approx(1 / 3)
+    assert ratio(ref + 6 * ulp, ref, ref.abs()) == pytest.approx(2.0)
+
+
+def test_sweep_bwd_seeds_needs_a_card(capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert sweep_bwd_seeds.main(["--seeds=1"]) == 1
     assert "no CUDA device" in capsys.readouterr().err
-    with pytest.raises(SystemExit):
-        ablate_bwd_v1.main(["no_such_variant"])
