@@ -27,37 +27,54 @@
 //                 c1 = 1/(1-b1^t), c2 = 1/(1-b2^t) from the incremented t;
 //   an f32 table takes table + delta in f32; a bf16 table takes the f32 sum
 //   rounded to nearest, or stochastically with a 16-bit dither from a
-//   Philox4x32-10 stream keyed by the caller's seed and counted by
-//   (column pair, row), so each element's dither is fixed by (seed, row,
-//   column) alone.
+//   Philox4x32-10 stream keyed by the caller's seed, so each element's
+//   dither is fixed by (seed, row, column) alone: kernel 7 makes one
+//   Philox call per column pair, counted by (pair, row); kernels 4-5 one
+//   per group of four pairs c, c+32, c+64, c+96 (c mod 128 < 32), counted
+//   by (group, row), a 32-bit word of it per pair.
 //   Rows outside the ids are never read or written: they keep table and
 //   state bit for bit.
 //
 // Design. The TPU streamed the whole table through VMEM because its
-// scatter is slow per index; here one warp owns one slot and reads and
-// writes only that row, in place. The warp sums S^2 with shuffles, then
-// updates its row with two lanes' worth of columns per thread. The
-// hyperparameters are read from device memory, so a learning-rate
-// schedule or Adam's step costs no host synchronisation.
-// Kernel 7 runs a persistent grid, one wave of resident blocks, over the
-// live slots only: a bucket's live range ends at its first sentinel, found
-// on the device, so the ~95% of slots that are sentinels are never visited
-// and no count crosses to the host. Each block owns a range of ids, finds
-// its slots in every bucket, merges them in shared memory into (id,
-// bucket) order and gives each id's first slot the row (see
-// bucketed_kernel). The owner's warp issues every load of the row at once
-// (partials, table pair, m, state), sums S in bucket order into registers,
-// reading each partial once, and updates the row in one pass. No atomics;
-// the result does not depend on the order the blocks run in, and S and
-// the step round as in the warp-per-slot kernel this one replaced, so an
-// f32 table's result is bit for bit that kernel's.
+// scatter is slow per index; here the kernels read and write only the
+// touched rows, in place. Both run a persistent grid, one wave of resident
+// blocks, over the live slots only: a live range ends at its first
+// sentinel, found on the device, so sentinel slots (92% of kernel 4's at
+// B=65536, ~95% of kernel 7's) are never visited and no count crosses to
+// the host. The hyperparameters are read from device memory, so a
+// learning-rate schedule or Adam's step costs no host synchronisation.
+// Kernels 4-5 (apply_kernel): warp w of G takes the live slots w, w + G,
+// ... in turn. It holds a row in registers (NPL column pairs a lane, g and
+// the table as stored, widened to f32 where used) and issues every load of
+// its next row (g, table pairs, m, state) before it updates the current
+// one, so those loads are in flight under this row's math and stores; g
+// is read once and mean(S^2) taken from registers. The warp reads its
+// rows' ids 32 at a time, so no row waits on its own id. Two buffers of a
+// 640-lane row fit 128 registers, two blocks an SM (rowwise_adam's m
+// takes one block). Rows wider than the register route
+// (cffm_streamed_route) take the chunked route (apply_chunked_kernel):
+// S^2 over chunks of the row, then the update chunk by chunk, reading g
+// again.
+// Kernel 7 (bucketed_kernel): each block owns a range of ids, finds its
+// slots in every bucket, merges them in shared memory into (id, bucket)
+// order and gives each id's first slot the row. The owner's warp issues
+// every load of the row at once (first partial, table pairs, m, state),
+// sums S in bucket order into registers, reading each partial once, and
+// updates the row in one pass. No atomics; the result does not depend on
+// the order the blocks run in.
+// Both share the per-row body (load_row, row_mean, row_step, store_row):
+// one S^2 order (lane l sums pairs l, l+32, ... in turn, then a butterfly)
+// and written-out f32 roundings, so kernel 4 and kernel 7 at nb = 1 give
+// the same bits in f32 and bf16 to nearest, and an f32 table's result is
+// bit for bit that of the warp-per-slot kernel both replaced.
 //
 // Bound on the H100: per touched row, read the bf16 gradient(s) and the row
 // (plus m for rowwise_adam) and write the row (and m) back: about 6.4 KB
 // per row for an f32 table at W=640, 0.87 GB for the ~136k distinct
 // big-field rows of a criteo_kaggle step at B=65536 -- memory-bound at
-// about 0.26 ms. Kernel 7 also reads each live id once, and a few more per
-// block for its searches.
+// about 0.26 ms (3.8 KB per row for a bf16 table: ~1.44 ms for the 1.25M
+// rows of a batch of uniform ids). The kernels also read each live id
+// once, and a few more per block for their searches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,7 +82,8 @@
 
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
 struct Args {
   void* table;            // (V, W) f32 or bf16
@@ -107,17 +125,22 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// sum over the W lanes of (scale * S)^2, S(c) giving column pair c
-template <typename Total>
-__device__ __forceinline__ float sum_sq(const Args& a, int lane, float scale, Total total) {
-  float ss = 0.f;
-  for (int c = lane; c < a.w2; c += 32) {
-    float2 s = total(c);
-    s.x *= scale;
-    s.y *= scale;
-    ss = fmaf(s.x, s.x, fmaf(s.y, s.y, ss));
+// First index in [lo, hi) of the ascending p with p[i] >= key (hi if none),
+// by the whole warp: 32 probes a round.
+__device__ long long warp_lower_bound(const int* p, long long lo, long long hi, long long key,
+                                      int lane) {
+  while (hi - lo > 32) {
+    const long long step = (hi - lo + 31) / 32;
+    const long long i = lo + lane * step;
+    const unsigned below = __ballot_sync(0xFFFFFFFFu, i < hi && p[i] < key);
+    const int n = __popc(below);  // the probes below key are a prefix of the lanes
+    if (n == 0) return lo;
+    const long long nlo = lo + (n - 1) * step + 1;
+    hi = min(hi, lo + n * step);
+    lo = nlo;
   }
-  return warp_sum(ss);
+  const long long i = lo + lane;
+  return lo + __popc(__ballot_sync(0xFFFFFFFFu, i < hi && p[i] < key));
 }
 
 // The row's scalar state before the step: accum (adagrad) or v
@@ -157,8 +180,9 @@ __device__ __forceinline__ RowStep row_step(const Args& a, int uid, int lane, fl
 // The step of one column pair: the delta for the scaled S pair s, with the
 // rowwise_adam first moment mv updated in place. The f32 roundings are
 // written out, none left to the compiler's contraction, as the
-// warp-per-slot kernel that kernel 7 replaced compiled them (checked bit
-// for bit on the card), so an f32 table's result is that kernel's.
+// warp-per-slot kernel that kernels 4 and 7 replaced compiled them
+// (checked bit for bit on the card), so an f32 table's result is that
+// kernel's.
 __device__ __forceinline__ float2 pair_delta(const Args& a, const RowStep& r, float2 s,
                                              float2& mv) {
   if (a.mode == kRowwiseAdam) {
@@ -170,19 +194,28 @@ __device__ __forceinline__ float2 pair_delta(const Args& a, const RowStep& r, fl
   return make_float2(__fmul_rn(-r.lr, s.x), __fmul_rn(-r.lr, s.y));
 }
 
-// Table pair c of row uid as f32.
+// A column pair as it is stored: a table of T holds Pair<T>.
 template <typename T>
-__device__ __forceinline__ float2 load_pair(const Args& a, int uid, int c) {
-  const long long i = static_cast<long long>(uid) * a.w2 + c;
-  if constexpr (sizeof(T) == 4) return reinterpret_cast<const float2*>(a.table)[i];
-  return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(a.table)[i]);
-}
+struct PairOf {
+  using type = __nv_bfloat162;
+};
+template <>
+struct PairOf<float> {
+  using type = float2;
+};
+template <typename T>
+using Pair = typename PairOf<T>::type;
+
+// A stored pair as f32.
+__device__ __forceinline__ float2 as_f32(float2 x) { return x; }
+__device__ __forceinline__ float2 as_f32(__nv_bfloat162 x) { return __bfloat1622float2(x); }
 
 // Writes table pair c of row uid: its old value tv plus the delta d, in f32
-// or rounded into bf16 (stochastically with the Philox dither of (seed,
-// row, column)).
+// or rounded into bf16: to nearest, or stochastically with the 16-bit
+// dithers in the low (x) and high (y) halves of dither.
 template <typename T>
-__device__ __forceinline__ void store_pair(const Args& a, int uid, int c, float2 tv, float2 d) {
+__device__ __forceinline__ void store_pair(const Args& a, int uid, int c, float2 tv, float2 d,
+                                           uint32_t dither) {
   const long long i = static_cast<long long>(uid) * a.w2 + c;
   if constexpr (sizeof(T) == 4) {
     reinterpret_cast<float2*>(a.table)[i] = make_float2(__fadd_rn(tv.x, d.x), __fadd_rn(tv.y, d.y));
@@ -190,72 +223,257 @@ __device__ __forceinline__ void store_pair(const Args& a, int uid, int c, float2
     __nv_bfloat162* tp = reinterpret_cast<__nv_bfloat162*>(a.table) + i;
     const float nx = tv.x + d.x, ny = tv.y + d.y;
     if (a.stochastic) {
-      const uint4 r = philox(make_uint4(static_cast<uint32_t>(c), static_cast<uint32_t>(uid),
-                                        0u, 0u),
-                             a.key0, a.key1);
-      *tp = __halves2bfloat162(round_sr(nx, r.x), round_sr(ny, r.y));
+      *tp = __halves2bfloat162(round_sr(nx, dither), round_sr(ny, dither >> 16));
     } else {
       *tp = __floats2bfloat162_rn(nx, ny);
     }
   }
 }
 
-// The optimizer step of row uid from S(c) * scale (see row_step).
-template <typename T, typename Total>
-__device__ __forceinline__ void update_row(const Args& a, int uid, int lane, float mean,
-                                           float scale, Total total) {
-  const RowStep r = row_step(a, uid, lane, mean, row_state(a, uid));
-  float2* m = reinterpret_cast<float2*>(a.m) + static_cast<long long>(uid) * a.w2;
-  for (int c = lane; c < a.w2; c += 32) {
-    float2 s = total(c);
-    s.x *= scale;
-    s.y *= scale;
-    float2 mv = a.mode == kRowwiseAdam ? m[c] : make_float2(0.f, 0.f);
-    const float2 d = pair_delta(a, r, s, mv);
-    if (a.mode == kRowwiseAdam) m[c] = mv;
-    store_pair<T>(a, uid, c, load_pair<T>(a, uid, c), d);
+// ---------------------------------------------------------------------------
+// The per-row body both entries share
+// ---------------------------------------------------------------------------
+
+// A row in registers: lane l holds the column pairs c0 + l + 32 i (i < NPL)
+// of S (s: as read, bf16, or summed in f32), of the table (tv, as stored)
+// and, with kM, of m (mv), and the row's scalar state st (row_state). Each
+// is widened to f32 where it is used, so a row held as read takes half
+// the registers of one held in f32.
+template <typename T, typename S, int NPL, bool kM>
+struct RowRegs {
+  S s[NPL];
+  Pair<T> tv[NPL];
+  float2 mv[kM ? NPL : 1];
+  float st;
+};
+
+// Issues every load of row uid's pairs c0 + lane + 32 i (c < w2) at once:
+// its gradient from g (the slot's row), its table pairs, m (rowwise_adam,
+// kM) and, with st, its scalar state.
+template <typename T, typename S, int NPL, bool kM>
+__device__ __forceinline__ void load_row(const Args& a, int uid, const __nv_bfloat162* g, int c0,
+                                         int lane, bool st, RowRegs<T, S, NPL, kM>& r) {
+  const long long row = static_cast<long long>(uid) * a.w2;
+  const float2* mrow = reinterpret_cast<const float2*>(a.m) + row;
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) {
+    const int c = c0 + lane + 32 * i;
+    if (c < a.w2) {
+      if constexpr (sizeof(S) == 8) {
+        r.s[i] = __bfloat1622float2(g[c]);
+      } else {
+        r.s[i] = g[c];
+      }
+      r.tv[i] = reinterpret_cast<const Pair<T>*>(a.table)[row + c];
+      if constexpr (kM) r.mv[i] = a.mode == kRowwiseAdam ? mrow[c] : make_float2(0.f, 0.f);
+    }
+  }
+  if (st) r.st = row_state(a, uid);
+}
+
+// mean(S^2) over the W lanes of a row held whole in r (c0 = 0), S scaled
+// first by the clip's factor, returned in scale (1 without a clip); 0 for
+// sgd without a clip, which needs neither.
+template <typename T, typename S, int NPL, bool kM>
+__device__ __forceinline__ float row_mean(const Args& a, int lane,
+                                          const RowRegs<T, S, NPL, kM>& r, float& scale) {
+  scale = 1.f;
+  if (!(a.clip > 0.f || a.mode != kSgd)) return 0.f;
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < NPL; ++i)
+    if (lane + 32 * i < a.w2) {
+      const float2 x = as_f32(r.s[i]);
+      ss = fmaf(x.x, x.x, fmaf(x.y, x.y, ss));
+    }
+  ss = warp_sum(ss);
+  if (a.clip > 0.f) {
+    scale = fminf(1.f, a.clip / fmaxf(sqrtf(ss), 1e-12f));
+    if (a.mode != kSgd) {
+      ss = 0.f;
+#pragma unroll
+      for (int i = 0; i < NPL; ++i)
+        if (lane + 32 * i < a.w2) {
+          const float x = as_f32(r.s[i]).x * scale, y = as_f32(r.s[i]).y * scale;
+          ss = fmaf(x, x, fmaf(y, y, ss));
+        }
+      ss = warp_sum(ss);
+    }
+  }
+  return ss / (2 * a.w2);
+}
+
+// The dither word of pair c of row uid, held as pair i of a row loaded
+// from a multiple of 128 pairs: kDither pairs' dither from one Philox call,
+// 1 (kernel 7) counted by (pair, row); 4 (kernels 4-5) counted by the group
+// (c mod 32) + 32 (c / 128) of pairs c, c+32, c+64, c+96 and the row,
+// drawn at the group's first pair into bits, word i mod 4 for pair c.
+template <int kDither>
+__device__ __forceinline__ uint32_t pair_dither(const Args& a, int uid, int c, int i,
+                                                uint4& bits) {
+  const uint32_t row = static_cast<uint32_t>(uid);
+  if constexpr (kDither == 1) {
+    const uint4 p = philox(make_uint4(static_cast<uint32_t>(c), row, 0u, 0u), a.key0, a.key1);
+    return (p.x & 0xFFFFu) | (p.y << 16);
+  } else {
+    const uint32_t group = static_cast<uint32_t>((c & 31) | (c >> 7) << 5);
+    if (i % 4 == 0) bits = philox(make_uint4(group, row, 0u, 0u), a.key0, a.key1);
+    return i % 4 == 0 ? bits.x : i % 4 == 1 ? bits.y : i % 4 == 2 ? bits.z : bits.w;
   }
 }
 
-// Kernels 4-5: one warp per slot of the flat deduplicated stream.
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32) apply_kernel(Args a) {
-  const long long slot = static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (slot >= a.slots) return;
-  const int uid = a.ids[slot];
-  if (uid < 0 || uid >= a.rows) return;
-  const __nv_bfloat162* g = a.g + slot * a.w2;
-  auto total = [g](int c) { return __bfloat1622float2(g[c]); };
-  const float mean = a.mode == kSgd ? 0.f : sum_sq(a, lane, 1.f, total) / (2 * a.w2);
-  update_row<T>(a, uid, lane, mean, 1.f, total);
+// Writes row uid's pairs held in r (loaded from c0) with the step rs and S
+// scaled by scale: m (rowwise_adam) and the table, a stochastic bf16 table
+// dithered by pair_dither<kDither>.
+template <int kDither, typename T, typename S, int NPL, bool kM>
+__device__ __forceinline__ void store_row(const Args& a, int uid, int c0, int lane,
+                                          const RowStep& rs, float scale,
+                                          const RowRegs<T, S, NPL, kM>& r) {
+  float2* mw = reinterpret_cast<float2*>(a.m) + static_cast<long long>(uid) * a.w2;
+  uint4 bits = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) {
+    const int c = c0 + lane + 32 * i;
+    if (c < a.w2) {
+      float2 mv = make_float2(0.f, 0.f);
+      if constexpr (kM) mv = r.mv[i];
+      const float2 x = as_f32(r.s[i]);
+      const float2 d = pair_delta(a, rs, make_float2(x.x * scale, x.y * scale), mv);
+      if constexpr (kM) {
+        if (a.mode == kRowwiseAdam) mw[c] = mv;
+      }
+      uint32_t dither = 0u;
+      if constexpr (sizeof(T) == 2) {
+        if (a.stochastic) dither = pair_dither<kDither>(a, uid, c, i, bits);
+      }
+      store_pair<T>(a, uid, c, as_f32(r.tv[i]), d, dither);
+    }
+  }
 }
+
+// ---------------------------------------------------------------------------
+// Kernels 4-5: the flat update over live slots only
+// ---------------------------------------------------------------------------
+
+// The live slots [lo, hi) of the ascending uids, lo the first >= 0 and hi
+// the first >= V, found by the block's first warp.
+__device__ __forceinline__ void live_range(const Args& a, long long* range_s) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const long long lo = warp_lower_bound(a.ids, 0, a.slots, 0, lane);
+    const long long hi = warp_lower_bound(a.ids, lo, a.slots, a.rows, lane);
+    if (lane == 0) {
+      range_s[0] = lo;
+      range_s[1] = hi;
+    }
+  }
+  __syncthreads();
+}
+
+// Kernels 4-5, the register route: rows of at most 32 * NPL column pairs,
+// the next row's loads issued before this row's update. The warp reads
+// its rows' ids 32 at a time, one a lane, so that a row's loads wait on
+// no id load of their own. Two blocks an SM where two rows fit 128
+// registers (without m, NPL <= 10).
+template <typename T, int NPL, bool kM>
+__global__ void __launch_bounds__(kThreads, kM || NPL > 10 ? 1 : 2) apply_kernel(Args a) {
+  __shared__ long long range_s[2];
+  live_range(a, range_s);
+  const long long hi = range_s[1], step = static_cast<long long>(gridDim.x) * kWarps;
+  const int lane = threadIdx.x % 32;
+  long long slot = range_s[0] + static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
+  int ids = 0, k = 0;  // lane j: the id of the warp's row k + j of this batch of 32
+  auto id_of = [&](long long s) {  // the id of slot s, the warp's row after the last asked
+    if (k == 0) ids = s + lane * step < hi ? a.ids[s + lane * step] : 0;
+    const int u = __shfl_sync(0xFFFFFFFFu, ids, k);
+    k = (k + 1) % 32;
+    return u;
+  };
+  using Row = RowRegs<T, __nv_bfloat162, NPL, kM>;
+  Row r0, r1;
+  int u0 = 0, u1 = 0;
+  if (slot < hi) {
+    u0 = id_of(slot);
+    load_row(a, u0, a.g + slot * a.w2, 0, lane, true, r0);
+  }
+  // updates the row in cur after issuing the loads of the warp's next row
+  // into nxt; no clip (a.clip is 0), so S is not scaled
+  auto advance = [&](const Row& cur, int uc, Row& nxt, int& un) {
+    const long long next = slot + step;
+    if (next < hi) {
+      un = id_of(next);
+      load_row(a, un, a.g + next * a.w2, 0, lane, true, nxt);
+    }
+    float scale;
+    const float mean = row_mean(a, lane, cur, scale);
+    store_row<4>(a, uc, 0, lane, row_step(a, uc, lane, mean, cur.st), 1.f, cur);
+    slot = next;
+  };
+  while (slot < hi) {
+    advance(r0, u0, r1, u1);
+    if (slot >= hi) break;
+    advance(r1, u1, r0, u0);
+  }
+}
+
+// Kernels 4-5, the chunked route: rows wider than the register route, in
+// chunks of 32 * NPL column pairs (NPL a multiple of 4). S^2 over the
+// chunks in the register route's order, then each chunk's update, reading
+// its g again.
+template <typename T, int NPL>
+__global__ void __launch_bounds__(kThreads) apply_chunked_kernel(Args a) {
+  __shared__ long long range_s[2];
+  live_range(a, range_s);
+  const long long hi = range_s[1], step = static_cast<long long>(gridDim.x) * kWarps;
+  const int lane = threadIdx.x % 32;
+  const long long first = range_s[0] + static_cast<long long>(blockIdx.x) * kWarps;
+  for (long long slot = first + threadIdx.x / 32; slot < hi; slot += step) {
+    const int uid = a.ids[slot];
+    const __nv_bfloat162* g = a.g + slot * a.w2;
+    const float st = row_state(a, uid);
+    float mean = 0.f;
+    if (a.mode != kSgd) {
+      float ss = 0.f;
+      for (int c0 = 0; c0 < a.w2; c0 += 32 * NPL) {
+        float2 s[NPL];
+#pragma unroll
+        for (int i = 0; i < NPL; ++i)
+          if (c0 + lane + 32 * i < a.w2) s[i] = __bfloat1622float2(g[c0 + lane + 32 * i]);
+#pragma unroll
+        for (int i = 0; i < NPL; ++i)
+          if (c0 + lane + 32 * i < a.w2) ss = fmaf(s[i].x, s[i].x, fmaf(s[i].y, s[i].y, ss));
+      }
+      ss = warp_sum(ss);
+      mean = ss / (2 * a.w2);
+    }
+    const RowStep rs = row_step(a, uid, lane, mean, st);
+    for (int c0 = 0; c0 < a.w2; c0 += 32 * NPL) {
+      RowRegs<T, __nv_bfloat162, NPL, true> r;
+      load_row(a, uid, g, c0, lane, false, r);
+      store_row<4>(a, uid, c0, lane, rs, 1.f, r);
+    }
+  }
+}
+
+// Column pairs a lane holds on kernel 4's register route for rows of w
+// lanes (w % 64 == 0), or 0: the chunked route.
+int streamed_route(int w) {
+  const int npl = w / 64;
+  if (npl <= 4) return 4;
+  if (npl <= 8) return 8;
+  if (npl <= 10) return 10;
+  if (npl <= 16) return 16;
+  return 0;
+}
+
+// the chunked route's pairs a lane per chunk
+constexpr int kChunkPairs = 8;
 
 // ---------------------------------------------------------------------------
 // Kernel 7: the bucketed update over live slots only.
 // ---------------------------------------------------------------------------
 
-constexpr int k7Threads = 256;
-constexpr int k7Warps = k7Threads / 32;
 constexpr int k7Win = 2048;  // slots one window merges in shared memory
-
-// First index in [lo, hi) of the ascending p with p[i] >= key (hi if none),
-// by the whole warp: 32 probes a round.
-__device__ long long warp_lower_bound(const int* p, long long lo, long long hi, long long key,
-                                      int lane) {
-  while (hi - lo > 32) {
-    const long long step = (hi - lo + 31) / 32;
-    const long long i = lo + lane * step;
-    const unsigned below = __ballot_sync(0xFFFFFFFFu, i < hi && p[i] < key);
-    const int n = __popc(below);  // the probes below key are a prefix of the lanes
-    if (n == 0) return lo;
-    const long long nlo = lo + (n - 1) * step + 1;
-    hi = min(hi, lo + n * step);
-    lo = nlo;
-  }
-  const long long i = lo + lane;
-  return lo + __popc(__ballot_sync(0xFFFFFFFFu, i < hi && p[i] < key));
-}
 
 // First index in [0, n) of the ascending shared p with p[i] >= key (or > key
 // when upper), n if none.
@@ -285,7 +503,7 @@ __device__ __forceinline__ int smem_bound(const int* p, int n, int key, bool upp
 // the partials into registers once (S, NPL column pairs a lane), takes
 // |S|^2, the clip scale and mean(S^2) from them, and updates the row.
 template <typename T, int NPL>
-__global__ void __launch_bounds__(k7Threads, 2) bucketed_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads, 2) bucketed_kernel(Args a) {
   extern __shared__ long long sm7[];
   const int nb = a.nb;
   long long* lo_s = sm7;               // (nb) live range [lo, hi) of each bucket
@@ -299,12 +517,12 @@ __global__ void __launch_bounds__(k7Threads, 2) bucketed_kernel(Args a) {
   int* cnt_s = head_s + k7Win;         // (nb) the window's slots in each bucket
   int* off_s = cnt_s + nb;             // (nb + 1) their offsets in the window
   __shared__ long long split_s[2];
-  __shared__ int warp_s[k7Warps];
+  __shared__ int warp_s[kWarps];
   __shared__ int nheads_s, more_s;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const long long c = a.slots;
-  for (int b = warp; b < nb; b += k7Warps) {
+  for (int b = warp; b < nb; b += kWarps) {
     const int* p = a.ids + b * c;
     const long long lo = warp_lower_bound(p, 0, c, 0, lane);
     const long long hi = warp_lower_bound(p, lo, c, a.rows, lane);
@@ -328,7 +546,7 @@ __global__ void __launch_bounds__(k7Threads, 2) bucketed_kernel(Args a) {
   __syncthreads();
   const long long s_lo = split_s[0], s_hi = split_s[1];
   if (s_lo >= s_hi) return;  // no id falls in this block's range
-  for (int b = warp; b < nb; b += k7Warps) {
+  for (int b = warp; b < nb; b += kWarps) {
     const int* p = a.ids + b * c;
     const long long st = warp_lower_bound(p, lo_s[b], hi_s[b], s_lo, lane);
     const long long en = warp_lower_bound(p, st, hi_s[b], s_hi, lane);
@@ -342,7 +560,7 @@ __global__ void __launch_bounds__(k7Threads, 2) bucketed_kernel(Args a) {
   const int cap = k7Win / nb;
   while (true) {
     // load up to cap ids of each bucket
-    for (int u = tid; u < nb * cap; u += k7Threads) {
+    for (int u = tid; u < nb * cap; u += kThreads) {
       const int b = u / cap, j = u - b * cap;
       if (cur_s[b] + j < end_s[b]) ids_s[u] = a.ids[b * c + cur_s[b] + j];
     }
@@ -362,7 +580,7 @@ __global__ void __launch_bounds__(k7Threads, 2) bucketed_kernel(Args a) {
     __syncthreads();
     if (!more_s) break;
     const long long v_end = split_s[0];
-    for (int b = tid; b < nb; b += k7Threads) {
+    for (int b = tid; b < nb; b += kThreads) {
       const int n = static_cast<int>(min(static_cast<long long>(cap), end_s[b] - cur_s[b]));
       cnt_s[b] = smem_bound(ids_s + b * cap, n, static_cast<int>(v_end), false);
     }
@@ -379,7 +597,7 @@ __global__ void __launch_bounds__(k7Threads, 2) bucketed_kernel(Args a) {
     const int n = off_s[nb];
 
     // merge by co-rank into (id, bucket) order
-    for (int u = tid; u < n; u += k7Threads) {
+    for (int u = tid; u < n; u += kThreads) {
       int b = 0;
       while (u >= off_s[b + 1]) ++b;
       const int j = u - off_s[b];
@@ -393,7 +611,7 @@ __global__ void __launch_bounds__(k7Threads, 2) bucketed_kernel(Args a) {
     __syncthreads();
 
     // the runs' first slots, compacted in order by a block scan
-    constexpr int kPer = k7Win / k7Threads;
+    constexpr int kPer = k7Win / kThreads;
     int flags = 0, cnt = 0;
 #pragma unroll
     for (int q = 0; q < kPer; ++q) {
@@ -413,7 +631,7 @@ __global__ void __launch_bounds__(k7Threads, 2) bucketed_kernel(Args a) {
     __syncthreads();
     if (tid == 0) {
       int o = 0;
-      for (int w = 0; w < k7Warps; ++w) {
+      for (int w = 0; w < kWarps; ++w) {
         const int t = warp_s[w];
         warp_s[w] = o;
         o += t;
@@ -428,68 +646,27 @@ __global__ void __launch_bounds__(k7Threads, 2) bucketed_kernel(Args a) {
     __syncthreads();
 
     const int nheads = nheads_s;
-    for (int h = warp; h < nheads; h += k7Warps) {
+    for (int h = warp; h < nheads; h += kWarps) {
       const int r0 = head_s[h], r1 = h + 1 < nheads ? head_s[h + 1] : n;
       const int uid = mid_s[r0];
-      // every load of the row at once: its first partial, its table pair,
-      // m and the scalar state
-      float2 s[NPL], tv[NPL], mv[NPL];
-      const __nv_bfloat162* g0 = a.g + src_s[r0] * a.w2;
-      const long long row = static_cast<long long>(uid) * a.w2;
-      const float2* mrow = reinterpret_cast<const float2*>(a.m) + row;
-#pragma unroll
-      for (int i = 0; i < NPL; ++i)
-        if (lane + 32 * i < a.w2) {
-          s[i] = __bfloat1622float2(g0[lane + 32 * i]);
-          tv[i] = load_pair<T>(a, uid, lane + 32 * i);
-          mv[i] = a.mode == kRowwiseAdam ? mrow[lane + 32 * i] : make_float2(0.f, 0.f);
-        }
-      const float st = row_state(a, uid);
+      RowRegs<T, float2, NPL, true> row;
+      load_row(a, uid, a.g + src_s[r0] * a.w2, 0, lane, true, row);
       for (int r = r0 + 1; r < r1; ++r) {
         const __nv_bfloat162* gr = a.g + src_s[r] * a.w2;
 #pragma unroll
         for (int i = 0; i < NPL; ++i)
           if (lane + 32 * i < a.w2) {
             const float2 x = __bfloat1622float2(gr[lane + 32 * i]);
-            s[i].x += x.x;
-            s[i].y += x.y;
+            row.s[i].x += x.x;
+            row.s[i].y += x.y;
           }
       }
-      float scale = 1.f, mean = 0.f;
-      if (a.clip > 0.f || a.mode != kSgd) {
-        float ss = 0.f;
-#pragma unroll
-        for (int i = 0; i < NPL; ++i)
-          if (lane + 32 * i < a.w2) ss = fmaf(s[i].x, s[i].x, fmaf(s[i].y, s[i].y, ss));
-        ss = warp_sum(ss);
-        if (a.clip > 0.f) {
-          scale = fminf(1.f, a.clip / fmaxf(sqrtf(ss), 1e-12f));
-          if (a.mode != kSgd) {
-            ss = 0.f;
-#pragma unroll
-            for (int i = 0; i < NPL; ++i)
-              if (lane + 32 * i < a.w2) {
-                const float x = s[i].x * scale, y = s[i].y * scale;
-                ss = fmaf(x, x, fmaf(y, y, ss));
-              }
-            ss = warp_sum(ss);
-          }
-        }
-        mean = ss / (2 * a.w2);
-      }
-      const RowStep rs = row_step(a, uid, lane, mean, st);
-      float2* mw = reinterpret_cast<float2*>(a.m) + row;
-#pragma unroll
-      for (int i = 0; i < NPL; ++i)
-        if (lane + 32 * i < a.w2) {
-          const float2 d =
-              pair_delta(a, rs, make_float2(s[i].x * scale, s[i].y * scale), mv[i]);
-          if (a.mode == kRowwiseAdam) mw[lane + 32 * i] = mv[i];
-          store_pair<T>(a, uid, lane + 32 * i, tv[i], d);
-        }
+      float scale;
+      const float mean = row_mean(a, lane, row, scale);
+      store_row<1>(a, uid, 0, lane, row_step(a, uid, lane, mean, row.st), scale, row);
     }
     __syncthreads();
-    for (int b = tid; b < nb; b += k7Threads) cur_s[b] += cnt_s[b];
+    for (int b = tid; b < nb; b += kThreads) cur_s[b] += cnt_s[b];
     __syncthreads();
   }
 }
@@ -499,11 +676,10 @@ size_t bucketed_smem(int nb) {
          sizeof(int) * (3 * static_cast<size_t>(k7Win) + 2 * nb + 1);
 }
 
-template <typename T, int NPL>
-cudaError_t launch_bucketed(const Args& a, cudaStream_t s) {
-  const size_t smem = bucketed_smem(a.nb);
-  cudaError_t err = cudaFuncSetAttribute(bucketed_kernel<T, NPL>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+// Launches kernel on a persistent grid of one wave: as many blocks of
+// kThreads as the card holds at once.
+cudaError_t launch_wave(void (*kernel)(Args), const Args& a, size_t smem, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0;
@@ -511,22 +687,40 @@ cudaError_t launch_bucketed(const Args& a, cudaStream_t s) {
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
   int per_sm = 0;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bucketed_kernel<T, NPL>,
-                                                           k7Threads, smem)) != cudaSuccess)
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
+      cudaSuccess)
     return err;
-  // one wave: every block resident at once
-  bucketed_kernel<T, NPL><<<sms * (per_sm > 0 ? per_sm : 1), k7Threads, smem, s>>>(a);
+  kernel<<<sms * (per_sm > 0 ? per_sm : 1), kThreads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
+template <typename T, int NPL>
+cudaError_t launch_rows(const Args& a, cudaStream_t s) {
+  void (*kernel)(Args) = apply_kernel<T, NPL, false>;
+  if (a.mode == kRowwiseAdam) kernel = apply_kernel<T, NPL, true>;
+  return launch_wave(kernel, a, 0, s);
+}
+
 template <typename T>
-cudaError_t launch_bucketed_w(const Args& a, cudaStream_t s) {
+cudaError_t launch_apply(const Args& a, cudaStream_t s) {
+  switch (streamed_route(2 * a.w2)) {
+    case 4: return launch_rows<T, 4>(a, s);
+    case 8: return launch_rows<T, 8>(a, s);
+    case 10: return launch_rows<T, 10>(a, s);
+    case 16: return launch_rows<T, 16>(a, s);
+    default: return launch_wave(apply_chunked_kernel<T, kChunkPairs>, a, 0, s);
+  }
+}
+
+template <typename T>
+cudaError_t launch_bucketed(const Args& a, cudaStream_t s) {
+  const size_t smem = bucketed_smem(a.nb);
   const int npl = a.w2 / 32;  // column pairs a lane
-  if (npl <= 4) return launch_bucketed<T, 4>(a, s);
-  if (npl <= 8) return launch_bucketed<T, 8>(a, s);
-  if (npl <= 10) return launch_bucketed<T, 10>(a, s);
-  if (npl <= 16) return launch_bucketed<T, 16>(a, s);
-  return launch_bucketed<T, 32>(a, s);
+  if (npl <= 4) return launch_wave(bucketed_kernel<T, 4>, a, smem, s);
+  if (npl <= 8) return launch_wave(bucketed_kernel<T, 8>, a, smem, s);
+  if (npl <= 10) return launch_wave(bucketed_kernel<T, 10>, a, smem, s);
+  if (npl <= 16) return launch_wave(bucketed_kernel<T, 16>, a, smem, s);
+  return launch_wave(bucketed_kernel<T, 32>, a, smem, s);
 }
 
 int check_state(int mode, float* accum, float* m, float* v) {
@@ -564,6 +758,11 @@ Args make_args(void* table, float* accum, float* m, float* v, const int* ids, co
 
 extern "C" {
 
+// Kernels 4-5's route for rows of w lanes: the column pairs a lane holds on
+// the register route (4, 8, 10 or 16), 0 for the chunked route, -1 for a
+// width the kernels do not take.
+int cffm_streamed_route(int w) { return w <= 0 || w % 64 != 0 ? -1 : streamed_route(w); }
+
 // Kernels 4-5. mode: 0 sgd, 1 adagrad, 2 rowwise_adam. Returns a
 // cudaError_t; 0 means the kernel was launched. Updates table and state in
 // place.
@@ -571,19 +770,13 @@ int cffm_streamed_apply(int is_bf16, void* table, float* accum, float* m, float*
                         const int* uids, const void* gsum, const float* hyper,
                         long long rows, long long slots, int w, int mode,
                         int stochastic, unsigned long long seed, void* stream) {
-  if (w % 64 != 0) return cudaErrorInvalidValue;
+  if (cffm_streamed_route(w) < 0 || rows > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
   if (const int err = check_state(mode, accum, m, v)) return err;
   const Args a = make_args(table, accum, m, v, uids, gsum, hyper, rows, slots, 1, w, mode,
                            stochastic, 0.f, seed);
   if (slots == 0) return cudaSuccess;
-  const unsigned blocks = static_cast<unsigned>((slots + kWarps - 1) / kWarps);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    apply_kernel<__nv_bfloat16><<<blocks, kWarps * 32, 0, s>>>(a);
-  } else {
-    apply_kernel<float><<<blocks, kWarps * 32, 0, s>>>(a);
-  }
-  return cudaGetLastError();
+  return is_bf16 ? launch_apply<__nv_bfloat16>(a, s) : launch_apply<float>(a, s);
 }
 
 // Kernel 7: ids (nb, c), g (nb, c, w) bf16 with w <= cffm_bucketed_max_width();
@@ -603,7 +796,7 @@ int cffm_bucketed_apply(int is_bf16, void* table, float* accum, float* m, float*
                            stochastic, clip, seed);
   if (c == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_bucketed_w<__nv_bfloat16>(a, s) : launch_bucketed_w<float>(a, s);
+  return is_bf16 ? launch_bucketed<__nv_bfloat16>(a, s) : launch_bucketed<float>(a, s);
 }
 
 }  // extern "C"

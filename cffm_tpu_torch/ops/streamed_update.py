@@ -27,7 +27,10 @@ seeded the same way, so the two agree in distribution, not in bits.
 
 A wrapper launches the CUDA kernel for a CUDA tensor and takes the plain
 PyTorch version (`streamed_apply_reference`) for a CPU tensor. Each
-entry counts its kernel launches in its `launches` attribute.
+entry counts its kernel launches in its `launches` attribute. Kernels
+4-5 hold a row in registers up to 1024 lanes and take wider rows in
+chunks (`streamed_route`); kernel 7 takes rows up to 2048 lanes
+(`bucketed_kernel_takes`).
 """
 
 from __future__ import annotations
@@ -94,6 +97,25 @@ def bucketed_kernel_takes(w: int, device=None) -> bool:
     if device is not None and torch.device(device).type == "cuda":
         return w <= _library().cffm_bucketed_max_width()
     return w <= BUCKETED_MAX_WIDTH
+
+
+# kernels 4-5's register route, the column pairs a lane holds for rows of up
+# to 64 * p lanes: cffm_streamed_route() of csrc/streamed_update.cu (chip_smoke.py
+# checks that the two agree); wider rows take the chunked route
+STREAMED_REGISTER_PAIRS = (4, 8, 10, 16)
+
+
+def streamed_route(w: int, device=None) -> int:
+    """Kernels 4-5's route for rows of w lanes: the column pairs a lane
+    holds on the register route (4, 8, 10 or 16), 0 for the chunked route
+    (rows wider than 1024 lanes: S^2 over chunks, then the update, reading
+    g again), -1 for a width the kernels do not take. On a CUDA device the
+    library's own answer; otherwise its CPU copy."""
+    if device is not None and torch.device(device).type == "cuda":
+        return _library().cffm_streamed_route(w)
+    if w <= 0 or w % 64:
+        return -1
+    return next((p for p in STREAMED_REGISTER_PAIRS if w // 64 <= p), 0)
 
 
 def _hyper(lr, eps, extra=()) -> torch.Tensor:
@@ -240,6 +262,8 @@ def _library() -> ctypes.CDLL:
         lib.cffm_bucketed_apply.restype = ctypes.c_int
         lib.cffm_bucketed_max_width.argtypes = []
         lib.cffm_bucketed_max_width.restype = ctypes.c_int
+        lib.cffm_streamed_route.argtypes = [i]
+        lib.cffm_streamed_route.restype = ctypes.c_int
     return lib
 
 

@@ -1,13 +1,13 @@
-"""Ablate a backward kernel's tensor-core path on the card: where its time goes.
+"""Ablate a kernel on the card: where its time goes.
 
-    python -m cffm_tpu_torch.scripts.ablate_bwd [--kernel=2|8a] [--batch=65536] [--reps=10]
+    python -m cffm_tpu_torch.scripts.ablate_bwd [--kernel=2|8a|4] [--batch=65536] [--reps=10]
         [variant ...]
 
 Builds the kernel's source as it ships and variants of it, each with one
-part of the work taken out, so that their results are wrong by design,
-and times each at criteo_kaggle's shapes in bf16, in the order shipped,
-variants, shipped. CUDA events per call; one line per run, then the
-card. The variants (all of the kernel's by default):
+part of the work taken out or changed, so that their results may be
+wrong by design, and times each at criteo_kaggle's shapes in bf16, in
+the order shipped, variants, shipped. CUDA events per call; one line per
+run, then the card. The variants (all of the kernel's by default):
 
 Kernel 2 (`ops/csrc/cross_conv1_bwd.cu`, the default), timed through
 `interaction_conv.cross_conv1_bwd` in the split field-major layout:
@@ -29,6 +29,18 @@ Kernel 8a (`ops/csrc/cross_conv1_bwd_v1.cu`), timed through
   no_window       the tap window is not written from g (only its halo zeros)
   no_de_stores    no dE is stored
   no_de_products  dE is not formed at each position (the planes keep E)
+
+Kernel 4 (`ops/csrc/streamed_update.cu`, the touched-row apply), timed
+through `streamed_update.streamed_rowwise_apply` (adagrad, a bf16 table
+with stochastic rounding) on the bench twin's rows (`bench_apply`'s
+bench shape; --batch is not read):
+
+  const_dither     every dither word is 0x80008000 (no Philox call)
+  per_pair_dither  one Philox call per column pair (kernel 7's), not per four
+  no_prefetch      the next row's loads are issued after this row's stores
+  id_per_row       each row's id is read on its own before its loads, not 32 at a time
+  rows_in_f32      the rows' gradients are held in f32 registers, not as read (bf16)
+  no_division      adagrad multiplies by its denominator instead of dividing
 
 Exits nonzero without a CUDA card or nvcc.
 """
@@ -91,6 +103,31 @@ VARIANTS_V1 = {
 }
 
 
+_K4_LOADS = """    if (next < hi) {
+      un = id_of(next);
+      load_row(a, un, a.g + next * a.w2, 0, lane, true, nxt);
+    }
+"""
+_K4_STORES = """    store_row<4>(a, uc, 0, lane, row_step(a, uc, lane, mean, cur.st), 1.f, cur);
+"""
+
+# kernel 4's variants
+VARIANTS_APPLY = {
+    "const_dither": [
+        ("if (i % 4 == 0) bits = philox(make_uint4(group, row, 0u, 0u), a.key0, a.key1);",
+         "if (i % 4 == 0) bits = make_uint4(0x80008000u, 0x80008000u, 0x80008000u, 0x80008000u);"
+         "\n    (void)group;"),
+    ],
+    "per_pair_dither": [(_K4_STORES, _K4_STORES.replace("store_row<4>", "store_row<1>"))],
+    "no_prefetch": [(_K4_LOADS, ""), (_K4_STORES, _K4_STORES + _K4_LOADS)],
+    "id_per_row": [("      un = id_of(next);", "      un = a.ids[next];")],
+    "rows_in_f32": [("  using Row = RowRegs<T, __nv_bfloat162, NPL, kM>;",
+                     "  using Row = RowRegs<T, float2, NPL, kM>;")],
+    "no_division": [("return make_float2((-r.lr) * s.x / r.denom, (-r.lr) * s.y / r.denom);",
+                     "return make_float2((-r.lr) * s.x * r.denom, (-r.lr) * s.y * r.denom);")],
+}
+
+
 def _kernel2_call(batch: int):
     """Kernel 2's timed call at criteo_kaggle's training shapes."""
     import torch
@@ -127,9 +164,27 @@ def _kernel8a_call(batch: int):
     return lambda: bv.bwd_v1(x["emb3"], x["wr"], x["g"], x["glin"], cfg)
 
 
+def _kernel4_call(batch: int):
+    """Kernel 4's timed call: adagrad on a bf16 table with stochastic
+    rounding, on the bench twin's rows (batch is not read)."""
+    import torch
+
+    from cffm_tpu_torch.ops import streamed_update as su
+    from cffm_tpu_torch.scripts.bench_apply import apply_inputs
+
+    x = apply_inputs("bench")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    table = (torch.randn((x["v"], x["w"]), generator=gen, device="cuda") * 0.01).to(
+        torch.bfloat16)
+    accum = torch.full((x["v"], 1), 0.1, device="cuda")
+    return lambda: su.streamed_rowwise_apply(table, accum, x["uids"], x["gsum"], 1e-9, 1e-8,
+                                             sr_seed=1234)
+
+
 # kernel -> (source, variants, the timed call's maker)
 KERNELS = {"2": (SOURCE, VARIANTS, _kernel2_call),
-           "8a": ("cross_conv1_bwd_v1", VARIANTS_V1, _kernel8a_call)}
+           "8a": ("cross_conv1_bwd_v1", VARIANTS_V1, _kernel8a_call),
+           "4": ("streamed_update", VARIANTS_APPLY, _kernel4_call)}
 
 
 def variant_source(text: str, name: str, variants=None) -> str:

@@ -18,9 +18,11 @@ nonzero without them, or when any phase fails. Phases, in order:
      m-tiles; the split field-major entry in bf16 at B = 1, 7, 8, 131,
      4097 and 65536, y and lin bit-equal in two runs;
   4. parity_bwd: the same entries' backward (kernel 2, through autograd)
-     against the plain backward: dE f32 rtol=atol=1e-4, bf16 2e-2; dW
-     rtol=1e-4 with atol 1e-4 of max|dW|; pad lanes and diagonal blocks of
-     dE exact zeros, the fused column exactly glin; dW bit-equal in two runs;
+     against the plain backward: dE f32 rtol=atol=1e-4, bf16 2e-2 (the
+     sliced hadamard bf16 dE at its ulp limit instead, as in parity_caps,
+     on its first draw and on HADAMARD_SEEDS); dW rtol=1e-4 with atol
+     1e-4 of max|dW|; pad lanes and diagonal blocks of dE exact zeros,
+     the fused column exactly glin; dW bit-equal in two runs;
      then the tensor-core (wgmma) kernel's edges through the split
      field-major entry in bf16, each with those checks: B = 1, 7, 8, 131,
      4097, 65536; (k, C1) giving every m-tile count 1-7 of its tap window
@@ -57,6 +59,12 @@ nonzero without them, or when any phase fails. Phases, in order:
      batch's uids and sums, f32 and bf16: rows outside uids bit-equal;
      touched rows within 1e-6 (f32) or one bf16 ulp (nearest); stochastic
      rounding within one ulp of nearest with a mean signed error near 0;
+     kernels 4-5 bit-equal to kernel 7 at nb=1 on the same uids and sums
+     in sgd, adagrad and rowwise_adam on f32 and bf16 (nearest) tables;
+     the edges (no live slot, every slot live, live counts that end inside
+     a block's share) and a 2560-lane table through the chunked route,
+     each against the plain version with its launch counted; the route
+     rule's CPU copy equal to the library's at every width to 8192;
   7. serve criteo_kaggle at full width through cffm_tpu_torch.score:
      the 2.6M x 640 f32 table on the card, random params from a fixed
      generator, 8 val batches of 4096; check finite metrics, the count,
@@ -77,8 +85,11 @@ nonzero without them, or when any phase fails. Phases, in order:
      adagrad step, two rowwise-Adam steps;
  11. time kernels 2-5, their plain versions, library yardsticks and bounds
      at the B=65536 training shapes (kernel 2 at B=4096 too), hold kernel
-     2 against its plain version there (the phase-4 checks), and time the
-     train step end to end with a torch.profiler breakdown;
+     2 against its plain version there (the phase-4 checks), kernel 7 at
+     nb=1 beside kernel 4, kernel 4 at the bench twin's shape (a bf16
+     table, stochastic rounding, ~1.25M touched rows of bench.py's uniform
+     ids), and time the train step end to end with a torch.profiler
+     breakdown;
  12. parity_segment_by_seg: kernel 6 on the segment stream of one B=65536
      batch routed at T=1 and on rank 0's at T=4: within half a bf16 ulp of
      the exact sums plus the f32 term (phase 5's limit), slots past the
@@ -130,7 +141,8 @@ nonzero without them, or when any phase fails. Phases, in order:
      lane's, torch.matmul as the yardstick;
  19. tools: main(argv) of `python -m cffm_tpu_torch.bench` (--feed=staged,
      score, sharded), of the scripts bench_kernel, bench_bwd_variants
-     --check, probe_dot_orient, profile_step full and trace_step, in
+     --check, probe_dot_orient, bench_apply, profile_step full and
+     trace_step, in
      process, launch counts set to 0 before and read after each: exit code
      0, each kernel of its path launched, and each bench line with a value
      and the card.
@@ -193,6 +205,9 @@ def _movielens_model(cross: str, dtype: str, d: int = 16):
 # tensor-core kernels (the backward's hadamard form excepted); d=8 holds
 # the bf16 CUDA-core kernels, which take every other shape
 MOVIELENS_CASES = (("field_aware", 16), ("hadamard", 16), ("field_aware", 8))
+# seeds of the sliced hadamard bf16 draws after the first (phase 4 and
+# parity_caps hold dE at its ulp limit on each)
+HADAMARD_SEEDS = (0, 1, 2, 3)
 
 
 def _inputs(cfg, b: int, dtype, gen, fm_split: int | None = None):
@@ -631,6 +646,32 @@ def _parity_bwd_edges(gen) -> float:
     return worst
 
 
+def _hadamard_de_over_seeds(cfg, first, what: str):
+    """The sliced hadamard bf16 backward at B=4096 on the first draw and on
+    HADAMARD_SEEDS: dE at its ulp limit (sweep_bwd_seeds.de_limit_ratio: one
+    bf16 ulp of dE plus two of dE taken from |E|, |W| and |gY|), dW at 1e-4
+    of max|dW|; prints the elements outside rtol=atol=2e-2. Where dE's sum
+    over pairs cancels, one dM rounded to its other bf16 neighbour stands
+    out against dE: 2e-2 is no limit of that arithmetic."""
+    import torch
+
+    from cffm_tpu_torch.scripts import sweep_bwd_seeds as sweep
+
+    for which, seed in [("first draw", None)] + [(f"seed {s}", s) for s in HADAMARD_SEEDS]:
+        x = first if seed is None else sweep.draw(
+            cfg, 4096, torch.Generator(device="cuda").manual_seed(seed))
+        r = sweep.backward(cfg, *x)
+        m = sweep.report(r)
+        print(f"parity_bwd {what} bfloat16 B=4096 {which}: dE max_abs_err={m['de_err']:.3e}, "
+              f"{m['outside_2e-2']} elements outside rtol=atol=2e-2, {m['ulp_ratio']:.3f} of "
+              f"the ulp limit (one bf16 ulp of dE plus two of dE taken from |E|, |W|, |gY|)",
+              flush=True)
+        if m["ulp_ratio"] > 1 or r["launches"] != 1:
+            fail(f"parity_bwd {what} {which}: dE beyond its ulp limit or not the kernel")
+        _check_dw(r["dw"], r["dw_ref"], f"{what} bfloat16 {which}")
+        del r
+
+
 def phase_parity_bwd() -> float:
     """Kernel 2 through every entry against the plain backward, then the
     tensor-core kernel's edges; returns the largest bf16 dE error of the
@@ -669,6 +710,9 @@ def phase_parity_bwd() -> float:
             emb, w1 = _inputs(mcfg, 4096, dtype, gen)
             gy = torch.randn((4096, w1.shape[0], mcfg.embed_dim), generator=gen,
                              device="cuda").to(dtype)
+            if cross == "hadamard" and dtype == torch.bfloat16:
+                _hadamard_de_over_seeds(mcfg, (emb, w1, gy), f"movielens sliced {cross} d={d}")
+                continue
             e = emb.detach().requires_grad_()
             w = w1.detach().requires_grad_()
             de, dw = torch.autograd.grad(ic.cross_conv1(e, w, mcfg), (e, w), gy)
@@ -827,8 +871,139 @@ def _compare_tables(a, b, base, touched, atol_ulps: bool, what: str,
     return err
 
 
+def _apply(su, route: str, mode: str, table, state: dict, uids, gsum):
+    """One update of table and state, in place: kernels 4-5 ("k4"), kernel
+    7 at nb=1 over the same uids and sums ("k7") or the plain version
+    ("plain"); lr 0.05, eps 1e-8, Adam's b1 0.9, b2 0.999 at step 3."""
+    lr, eps, b1, b2, t = 0.05, 1e-8, 0.9, 0.999, 3
+    if route == "plain":
+        extra = su._adam_extra(b1, b2, t) if mode == "rowwise_adam" else ()
+        su.streamed_apply_reference(table, state, uids, gsum, su._hyper(lr, eps, extra), mode)
+    elif mode == "rowwise_adam":
+        if route == "k4":
+            su.streamed_rowwise_adam_apply(table, state["m"], state["v"], uids, gsum, lr, eps,
+                                           b1, b2, t)
+        else:
+            su.bucketed_rowwise_adam_apply(table, state["m"], state["v"], uids[None],
+                                           gsum[None], lr, eps, b1, b2, t)
+    elif route == "k4":
+        su.streamed_rowwise_apply(table, state.get("accum"), uids, gsum, lr, eps)
+    else:
+        su.bucketed_rowwise_apply(table, state.get("accum"), uids[None], gsum[None], lr, eps)
+
+
+def _apply_state(mode: str, v: int, w: int, seed: int) -> dict:
+    """The optimizer state of a (v, w) table, drawn from seed."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if mode == "adagrad":
+        return {"accum": torch.rand((v, 1), generator=gen, device="cuda") + 0.1}
+    if mode == "rowwise_adam":
+        return {"m": torch.randn((v, w), generator=gen, device="cuda") * 0.01,
+                "v": torch.rand((v, 1), generator=gen, device="cuda") * 1e-4}
+    return {}
+
+
+def _k4_equals_k7(su, mode: str, base, uids, gsum, what: str):
+    """Kernels 4-5 and kernel 7 at nb=1 from the same table and state on
+    the same uids and sums: bit-equal results, one launch each; where they
+    part, the first differing element is printed before the run fails."""
+    import torch
+
+    v, w = base.shape
+    t4, t7 = base.clone(), base.clone()
+    s4, s7 = _apply_state(mode, v, w, 9), _apply_state(mode, v, w, 9)
+    k4 = su.streamed_rowwise_adam_apply if mode == "rowwise_adam" else su.streamed_rowwise_apply
+    k7 = su.bucketed_rowwise_adam_apply if mode == "rowwise_adam" else su.bucketed_rowwise_apply
+    n4, n7 = k4.launches, k7.launches
+    _apply(su, "k4", mode, t4, s4, uids, gsum)
+    _apply(su, "k7", mode, t7, s7, uids, gsum)
+    if k4.launches - n4 != 1 or k7.launches - n7 != 1:
+        fail(f"parity_apply {what}: kernel 4 or kernel 7 not launched once")
+    for name, a, b in [("table", t4, t7)] + [(k, s4[k], s7[k]) for k in s4]:
+        if not torch.equal(a, b):
+            diff = (a != b).reshape(a.shape[0], -1)
+            row = int(diff.any(dim=1).nonzero()[0])
+            col = int(diff[row].nonzero()[0])
+            fail(f"parity_apply {what}: kernel 4 and kernel 7 at nb=1 part in {name}: "
+                 f"{int(diff.any(dim=1).sum())} rows, first at ({row}, {col}): "
+                 f"{a[row, col].item()!r} against {b[row, col].item()!r}")
+    del t4, t7, s4, s7
+
+
+def _apply_edges(su) -> float:
+    """Kernels 4-5 at the edges of their live range and on each route, f32
+    and bf16 (nearest) tables: against the plain version (1e-6; one bf16
+    ulp, plus 4 f32 ulps of the operands where the step cancels the value)
+    with rows outside the uids bit-equal, bit-equal to kernel 7 at
+    nb=1 where it takes the width, one launch each. NaN in every sentinel
+    slot's sums: they are never read. Returns the largest f32 error."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(10)
+    cases = []  # (what, v, w, live rows, slots)
+    for live, slots in ((0, 1024), (4096, 4096), (13, 8192), (4101, 8192)):
+        cases.append((f"{live} live of {slots} slots", 50_000, 640, live, slots))
+    for w in (384, 1024, 2560):
+        cases.append((f"W={w} route {su.streamed_route(w, 'cuda')}", 100_000, w, 6000, 8192))
+    worst = 0.0
+    for what, v, w, live, slots in cases:
+        rows = np.sort(rng.choice(np.arange(1, v - 1), size=max(live - 2, 0), replace=False))
+        rows = np.unique(np.concatenate([[0, v - 1], rows]))[:live]
+        uids = torch.full((slots,), v, dtype=torch.int32, device="cuda")
+        uids[:live] = torch.from_numpy(rows.astype(np.int32)).cuda()
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        gsum = (torch.randn((slots, w), generator=gen, device="cuda") * 0.01).to(torch.bfloat16)
+        gsum[live:] = float("nan")
+        touched = torch.zeros((v,), dtype=torch.bool, device="cuda")
+        touched[uids[:live].long()] = True
+        base = torch.randn((v, w), generator=gen, device="cuda") * 0.01
+        for dtype in (torch.float32, torch.bfloat16):
+            b = base.to(dtype)
+            for mode in ("sgd", "adagrad", "rowwise_adam"):
+                name = f"{what} {mode} {str(dtype).removeprefix('torch.')}"
+                tk, tr = b.clone(), b.clone()
+                sk, sr = _apply_state(mode, v, w, 12), _apply_state(mode, v, w, 12)
+                k4 = (su.streamed_rowwise_adam_apply if mode == "rowwise_adam"
+                      else su.streamed_rowwise_apply)
+                n0 = k4.launches
+                _apply(su, "k4", mode, tk, sk, uids, gsum)
+                _apply(su, "plain", mode, tr, sr, uids, gsum)
+                if k4.launches - n0 != 1:
+                    fail(f"parity_apply edge {name}: kernel 4 not launched once")
+                bf16 = dtype == torch.bfloat16
+                err = _compare_tables(tk, tr, b, touched, False, f"edge {name}")
+                if bf16:
+                    # one bf16 ulp, plus 4 f32 ulps of the operands where the
+                    # step cancels the value: the two round the step apart in f32
+                    lim = _bf16_ulp(tr) + 2.0**-22 * (b.float().abs() + tr.float().abs())
+                    err = ((tk.float() - tr.float()).abs() / lim).max().item()
+                base_s = _apply_state(mode, v, w, 12)
+                for k in sk:
+                    err = max(err, _compare_tables(sk[k], sr[k], base_s[k], touched, False,
+                                                   f"edge {name} {k}"))
+                if err > (1 if bf16 else 1e-6) or not torch.isfinite(tk.float()).all():
+                    fail(f"parity_apply edge {name}: {err:.3e} from the plain version")
+                if not bf16:
+                    worst = max(worst, err)
+                if su.bucketed_kernel_takes(w, "cuda"):
+                    _k4_equals_k7(su, mode, b, uids, gsum, f"edge {name}")
+                del tk, tr, sk, sr, base_s
+        print(f"parity_apply edge {what} (V={v}, W={w}): sgd, adagrad, rowwise_adam on f32 "
+              f"and bf16 tables against the plain version (f32 max_abs_err so far "
+              f"{worst:.3e}, limit 1e-6; bf16 within its limit), untouched rows bit-equal, "
+              + ("bit-equal to kernel 7 at nb=1" if su.bucketed_kernel_takes(w, "cuda")
+                 else "past kernel 7's width"), flush=True)
+        del base, gsum, uids, touched
+        torch.cuda.empty_cache()
+    return worst
+
+
 def phase_parity_apply(seg_out) -> dict:
-    """Kernels 4 and 5 against the plain apply on the full table."""
+    """Kernels 4 and 5 against the plain apply on the full table, against
+    kernel 7 at nb=1, at their edges and on both routes."""
     import torch
 
     from cffm_tpu_torch.ops import streamed_update as su
@@ -903,6 +1078,27 @@ def phase_parity_apply(seg_out) -> dict:
           flush=True)
     if ulps_sr > 1 or abs(e_sr) > 0.01 or dithered == 0:
         fail("parity_apply bf16 stochastic rounding out of bounds")
+    del tk, tr, ts, exact
+
+    # kernels 4-5 against kernel 7 at nb=1 on the batch's uids and sums
+    for dtype in (torch.bfloat16, torch.float32):
+        b = b16 if dtype == torch.bfloat16 else b16.float()
+        for mode in ("sgd", "adagrad", "rowwise_adam"):
+            _k4_equals_k7(su, mode, b, uids_s, gsum,
+                          f"{mode} {str(dtype).removeprefix('torch.')} full table")
+        del b
+        torch.cuda.empty_cache()
+    print("parity_apply: kernels 4-5 bit-equal to kernel 7 at nb=1 (table and state) in sgd, "
+          "adagrad and rowwise_adam on f32 and bf16 (nearest) tables", flush=True)
+    del b16
+    torch.cuda.empty_cache()
+    apart = [w for w in range(-64, 8193, 32)
+             if su.streamed_route(w) != su.streamed_route(w, "cuda")]
+    print(f"parity_apply: streamed_route's CPU rule against the library at widths -64..8192 "
+          f"by 32: {len(apart)} apart {apart[:4]}", flush=True)
+    if apart:
+        fail("parity_apply: the route rule's CPU copy differs from the library's")
+    errs["edges"] = _apply_edges(su)
     return errs
 
 
@@ -1203,42 +1399,72 @@ def phase_time_train() -> dict:
                          mcfg.total_vocab).to(torch.int32)
     cnt = int(count)
 
-    # kernels 4 and 5 on the full f32 table, touched rows only
+    # kernels 4 and 5 on the full f32 table, touched rows only, kernel 7 at
+    # nb=1 on the same uids and sums beside kernel 4
+    from cffm_tpu_torch.scripts.bench_apply import apply_bytes, apply_inputs
+
     v = mcfg.total_vocab
     table = torch.randn((v, w), generator=gen, device="cuda") * 0.01
     accum = torch.full((v, 1), 0.1, device="cuda")
-    ms = cuda_ms(lambda: su.streamed_rowwise_apply(table, accum, uids_s, gsum, 1e-9, 1e-8), 5)
-    sgd_ms = cuda_ms(lambda: su.streamed_rowwise_apply(table, None, uids_s, gsum, 1e-9, 1e-8), 5)
+    ms = cuda_ms(lambda: su.streamed_rowwise_apply(table, accum, uids_s, gsum, 1e-9, 1e-8), 20)
+    k7_ms = cuda_ms(lambda: su.bucketed_rowwise_apply(table, accum, uids_s[None], gsum[None],
+                                                      1e-9, 1e-8), 20)
+    sgd_ms = cuda_ms(lambda: su.streamed_rowwise_apply(table, None, uids_s, gsum, 1e-9, 1e-8),
+                     20)
     hyper = su._hyper(1e-9, 1e-8)
     plain_ms = cuda_ms(lambda: su.streamed_apply_reference(
         table, {"accum": accum}, uids_s, gsum, hyper, "adagrad"), 3)
     rows = uids_s[:cnt].long()
     sgd_delta = gsum[:cnt].float() * -1e-9
     library_ms = cuda_ms(lambda: table.index_add_(0, rows, sgd_delta), 5)
-    base = m_pad * 4 + cnt * w * 2 + cnt * w * 4 * 2
     out["streamed_apply"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                             "sgd_ms": sgd_ms, **_bound(base + cnt * 4 * 2, cnt * w * 6,
-                                                        "float32"),
+                             "sgd_ms": sgd_ms, "kernel7_nb1_ms": k7_ms,
+                             **_bound(apply_bytes(m_pad, cnt, w, 4, "adagrad"), cnt * w * 6,
+                                      "float32"),
                              "touched_rows": cnt}
     mom = torch.zeros((v, w), device="cuda")
     vv = torch.zeros((v, 1), device="cuda")
     ms = cuda_ms(lambda: su.streamed_rowwise_adam_apply(table, mom, vv, uids_s, gsum, 1e-9,
-                                                        1e-8, 0.9, 0.999, 1), 5)
+                                                        1e-8, 0.9, 0.999, 1), 20)
     ahyper = su._hyper(1e-9, 1e-8, su._adam_extra(0.9, 0.999, 1))
     plain_ms = cuda_ms(lambda: su.streamed_apply_reference(
         table, {"m": mom, "v": vv}, uids_s, gsum, ahyper, "rowwise_adam"), 3)
     out["streamed_apply_rowwise_adam"] = {
         "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-        **_bound(base + cnt * w * 4 * 2 + cnt * 4 * 2, cnt * w * 10, "float32"),
+        **_bound(apply_bytes(m_pad, cnt, w, 4, "rowwise_adam"), cnt * w * 10, "float32"),
         "touched_rows": cnt}
     del table, accum, mom, vv, gsum, uids, uids_s, rows, sgd_delta
+    torch.cuda.empty_cache()
+
+    # kernel 4 at the bench twin's shape: bench.py's uniform ids, a bf16
+    # table with stochastic rounding, adagrad
+    x = apply_inputs("bench")
+    bcnt = x["rows"]
+    table = (torch.randn((v, w), generator=gen, device="cuda") * 0.01).to(torch.bfloat16)
+    accum = torch.full((v, 1), 0.1, device="cuda")
+    ms = cuda_ms(lambda: su.streamed_rowwise_apply(table, accum, x["uids"], x["gsum"], 1e-9,
+                                                   1e-8, sr_seed=1234), 20)
+    plain_ms = cuda_ms(lambda: su.streamed_apply_reference(
+        table, {"accum": accum}, x["uids"], x["gsum"], hyper, "adagrad", sr_seed=1234), 2,
+        warmup=1)
+    rows = x["uids"][:bcnt].long()
+    sgd_delta = (x["gsum"][:bcnt].float() * -1e-9).to(torch.bfloat16)
+    library_ms = cuda_ms(lambda: table.index_add_(0, rows, sgd_delta), 5)
+    out["streamed_apply_bench"] = {
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        **_bound(apply_bytes(x["uids"].numel(), bcnt, w, 2, "adagrad"), bcnt * w * 6,
+                 "float32"),
+        "touched_rows": bcnt}
+    del table, accum, x, rows, sgd_delta
     torch.cuda.empty_cache()
     for name, r in out.items():
         print(f"time {name} B={r.get('batch', b)}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}: {r['bytes'] / 1e9:.3f} GB, {r['ops'] / 1e9:.2f} GOP)"
               + (f", touched rows {r['touched_rows']}" if "touched_rows" in r else "")
-              + (f", sgd kernel {r['sgd_ms']:.4f} ms" if "sgd_ms" in r else ""),
+              + (f", sgd kernel {r['sgd_ms']:.4f} ms" if "sgd_ms" in r else "")
+              + (f", kernel 7 at nb=1 {r['kernel7_nb1_ms']:.4f} ms"
+                 if "kernel7_nb1_ms" in r else ""),
               flush=True)
 
     # the train step end to end, bf16 compute, f32 table, adagrad
@@ -1298,10 +1524,6 @@ def phase_time_train() -> dict:
 
 def _routes(counts: dict) -> dict:
     return {name: n for name, n in counts.items() if n}
-
-
-# seeds of parity_caps' C1=128 hadamard draws after the first
-HADAMARD_SEEDS = (0, 1, 2, 3)
 
 
 def phase_parity_caps() -> dict:
@@ -2457,6 +2679,8 @@ TOOLS = (
     ("bench_bwd_variants", "cffm_tpu_torch.scripts.bench_bwd_variants", ["--check"],
      ("bwd_v0", "bwd_v1", "bwd_v2", "cross_conv1_bwd")),
     ("probe_dot_orient", "cffm_tpu_torch.scripts.probe_dot_orient", [], ("dot_probe",)),
+    ("bench_apply", "cffm_tpu_torch.scripts.bench_apply", [],
+     ("streamed_rowwise_apply", "streamed_rowwise_adam_apply", "bucketed_rowwise_apply")),
     ("profile_step_full", "cffm_tpu_torch.scripts.profile_step", ["full"],
      ("cross_conv1_lin_fm2", "cross_conv1_bwd", "sorted_segment_sum_compact",
       "streamed_rowwise_apply")),
@@ -2641,6 +2865,12 @@ def _run_phases(phases, phase, mesh) -> int:
         records[-1]["train_step_ms_65536"] = ttimes["train_step_ms_65536"]
         records[1]["at_batch_4096"] = {k: ttimes["cross_conv1_bwd_4096"][k]
                                        for k in keys + ("max_abs_err",)}
+        # kernel 4: sgd, kernel 7 at nb=1 beside it, and the bench twin's shape
+        apply = ttimes["streamed_apply"]
+        records[3].update(sgd_ms=apply["sgd_ms"], kernel7_nb1_ms=apply["kernel7_nb1_ms"],
+                          touched_rows=apply["touched_rows"],
+                          at_bench_shape={k: ttimes["streamed_apply_bench"][k]
+                                          for k in keys + ("touched_rows",)})
         # kernels 6-7 at the T=1 shapes of the sharded step, T=4 rank 0 beside
         for name, src, rep, launches, err, tk in (
                 ("sorted_segment_sum_by_seg", "sorted_segment.cu",

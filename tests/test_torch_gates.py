@@ -80,6 +80,23 @@ def test_gate_decisions(gate, arg, want):
         assert ic.kernel_takes_width(arg) is want
 
 
+# kernels 4-5's route per row width: the column pairs a lane holds on the
+# register route, 0 for the chunked route, -1 for a width they do not take
+ROUTE_CASES = [(64, 4), (128, 4), (256, 4), (320, 8), (384, 8), (512, 8), (576, 10),
+               (640, 10), (704, 16), (1024, 16), (1088, 0), (2048, 0), (2560, 0), (8192, 0),
+               (0, -1), (-64, -1), (100, -1), (672, -1)]
+
+
+@pytest.mark.parametrize("w,want", ROUTE_CASES)
+def test_streamed_route_decisions(w, want):
+    """The CPU copy of cffm_streamed_route (chip_smoke.py's parity_apply
+    holds it against the library at every width to 8192)."""
+    assert su.streamed_route(w) == want
+    assert su.streamed_route(w, torch.device("cpu")) == want
+    if want > 0:
+        assert want in su.STREAMED_REGISTER_PAIRS and w <= 64 * want
+
+
 def test_gate_constants_match_the_kernels_caps():
     assert su.BUCKETED_MAX_WIDTH == 64 * 32 == 2048
     assert ic.BWD_CHANNEL_SLICE == 256 // 32 * 8 and ic.BWD_TAP_SLICE == 8

@@ -9,8 +9,8 @@ import torch
 from cffm_tpu_torch import config
 from cffm_tpu_torch.ops import bwd_variants as bv
 from cffm_tpu_torch.ops import _build
-from cffm_tpu_torch.scripts import (ablate_bwd, bench_bwd_variants, bench_kernel, profile_step,
-                                    sweep_bwd_seeds, trace_step)
+from cffm_tpu_torch.scripts import (ablate_bwd, bench_apply, bench_bwd_variants, bench_kernel,
+                                    profile_step, sweep_bwd_seeds, trace_step)
 
 MIXED = (32, 64, 128) + (1000,) * 12          # F=15: fused column, 3 small fields
 
@@ -103,4 +103,33 @@ def test_de_limit_ratio_counts_ulps():
 def test_sweep_bwd_seeds_needs_a_card(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert sweep_bwd_seeds.main(["--seeds=1"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("shape", ["zipf", "bench"])
+def test_bench_apply_inputs_keep_the_flat_contract(shape):
+    """The apply's inputs at a tiny batch on the CPU: the unique ascending
+    live prefix, the sentinel V after it, the padded slot count."""
+    x = bench_apply.apply_inputs(shape, device="cpu", batch=64)
+    u, n = x["uids"], x["rows"]
+    assert u.dtype == torch.int32 and x["gsum"].shape == (u.numel(), x["w"]) == (u.numel(), 640)
+    assert 0 < n <= 64 * 26 and bool((u[1:n] > u[:n - 1]).all()) and int(u[0]) >= 0
+    assert bool((u[n:] == x["v"]).all()) and int(u[n - 1]) < x["v"]
+    assert bench_apply.apply_bytes(u.numel(), n, 640, 4, "adagrad") == (
+        u.numel() * 4 + n * 640 * (2 + 8) + n * 8)
+
+
+def test_bench_apply_bound_and_bytes():
+    """The bench twin's bound: 1,250,387 rows of 640 lanes, bf16 gradient and
+    table read and written, accum read and written, 1.7M uids: ~1.44 ms."""
+    nbytes = bench_apply.apply_bytes(1_703_936, 1_250_387, 640, 2, "adagrad")
+    ms, by = bench_apply.bound_ms(nbytes, 1_250_387 * 640 * 6)
+    assert by == "bytes" and 1.43 < ms < 1.45
+    assert bench_apply.apply_bytes(10, 3, 128, 4, "sgd") == 40 + 3 * 128 * 10
+    assert bench_apply.apply_bytes(10, 3, 128, 4, "rowwise_adam") == 40 + 3 * 128 * 18 + 24
+
+
+def test_bench_apply_needs_a_card(capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert bench_apply.main(["--shape=zipf"]) == 1
     assert "no CUDA device" in capsys.readouterr().err

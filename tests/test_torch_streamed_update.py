@@ -1,9 +1,12 @@
 """The port's touched-row apply (plain versions, CPU) vs the JAX streamed
 apply (`streamed_rowwise_apply`, `streamed_rowwise_adam_apply`, Pallas
-interpret mode), on the same uids and bf16 gradient sums; and the
-bucketed apply of the sharded step (`bucketed_rowwise_apply`,
-`bucketed_rowwise_adam_apply`) on the same overlapping buckets, with and
-without the per-row clip (kernel 7's plain version).
+interpret mode), on the same uids and bf16 gradient sums, at the widths
+and live counts kernels 4-5 split their work on (the register route at
+128 and 640 lanes, the chunked route at 2560; no live slot, a partial
+prefix, every slot live); and the bucketed apply of the sharded step
+(`bucketed_rowwise_apply`, `bucketed_rowwise_adam_apply`) on the same
+overlapping buckets, with and without the per-row clip (kernel 7's plain
+version).
 
 f32 tables: rtol 1e-6, atol 1e-7 (mean(S^2) sums in another order).
 bf16 tables round to nearest in both (the JAX interpret mode has no
@@ -24,17 +27,17 @@ from cffm_tpu_torch.ops import streamed_update as su
 W = 128
 
 
-def _inputs(v, n_touched, seed, table_dtype=np.float32):
+def _inputs(v, n_touched, seed, table_dtype=np.float32, w=W):
     rng = np.random.default_rng(seed)
     uids = np.sort(rng.choice(v, size=n_touched, replace=False)).astype(np.int32)
     m = su.padded_entries(n_touched, su.pick_tile(v))
     assert m == jax_su.padded_entries(n_touched, jax_su.pick_tile(v))
     uids_s = np.full((m,), v, np.int32)
     uids_s[:n_touched] = uids
-    gsum = np.zeros((m, W), np.float32)
-    gsum[:n_touched] = rng.normal(size=(n_touched, W)) * 0.1
+    gsum = np.zeros((m, w), np.float32)
+    gsum[:n_touched] = rng.normal(size=(n_touched, w)) * 0.1
     gsum = np.asarray(jnp.asarray(gsum).astype(jnp.bfloat16))
-    table = rng.normal(size=(v, W)).astype(np.float32) * 0.1
+    table = rng.normal(size=(v, w)).astype(np.float32) * 0.1
     if table_dtype != np.float32:
         table = np.asarray(jnp.asarray(table).astype(jnp.bfloat16))
     return table, uids_s, gsum, uids
@@ -127,6 +130,56 @@ def test_stochastic_bf16_stays_within_one_ulp_of_nearest():
     assert (np.abs(sr.float().numpy() - near.float().numpy()) <= ulp).all()
     assert (sr != near).any()
     _untouched_equal(sr.float().numpy(), np.asarray(table, np.float32), uids)
+
+
+# live rows of V_ROUTES whose padded slots (640 at tile 512) hold none, some or all
+V_ROUTES = 700
+LIVE = {"none": 0, "partial": 300, "all": 640}
+
+
+@pytest.mark.parametrize("table_dtype", ["float32", "bf16"])
+@pytest.mark.parametrize("mode", ["adagrad", "sgd", "rowwise_adam"])
+@pytest.mark.parametrize("live", sorted(LIVE))
+@pytest.mark.parametrize("w", [128, 640, 2560])
+def test_routes_match_jax(w, live, mode, table_dtype):
+    """Each route's widths (kernels 4-5 hold 128 and 640 lanes in registers
+    and take 2560 in chunks) and live counts, against the JAX kernel: f32
+    at rtol 1e-6, atol 1e-7; bf16 (nearest) within one ulp, equal for all
+    but 0.1%, plus 4 f32 ulps of the value before the step where the step
+    cancels it (the two round lr * S apart in f32); the optimizer state as
+    the f32 table; rows outside bit-equal."""
+    v, n = V_ROUTES, LIVE[live]
+    table, uids_s, gsum, uids = _inputs(v, n, seed=w + n, table_dtype=np.float32
+                                        if table_dtype == "float32" else "bf16", w=w)
+    assert uids_s.shape == (640,) and su.streamed_route(w) == {128: 4, 640: 10, 2560: 0}[w]
+    rng = np.random.default_rng(3)
+    j = jnp.asarray
+    if mode == "rowwise_adam":
+        m = (rng.normal(size=(v, w)) * 0.01).astype(np.float32)
+        vv = rng.uniform(1e-5, 1e-3, size=(v, 1)).astype(np.float32)
+        want = jax_su.streamed_rowwise_adam_apply(j(table), j(m), j(vv), j(uids_s), j(gsum), 0.01,
+                                                  1e-8, 0.9, 0.999, jnp.int32(3))
+        got = su.streamed_rowwise_adam_apply(_t(table), _t(m), _t(vv), _t(uids_s), _t(gsum), 0.01,
+                                             1e-8, 0.9, 0.999, torch.tensor(3, dtype=torch.int32))
+        befores = (table, m, vv)
+    else:
+        acc = rng.uniform(0.1, 1.0, size=(v, 1)).astype(np.float32)
+        jacc, tacc = (j(acc), _t(acc)) if mode == "adagrad" else (None, None)
+        want = jax_su.streamed_rowwise_apply(j(table), jacc, j(uids_s), j(gsum), 0.05, 1e-8)
+        got = su.streamed_rowwise_apply(_t(table), tacc, _t(uids_s), _t(gsum), 0.05, 1e-8)
+        befores = (table, acc) if mode == "adagrad" else (table,)
+    for k, (got_x, want_x, before) in enumerate(zip(got, want, befores)):
+        got_x = got_x.float().numpy()
+        want_x, before = np.asarray(want_x, np.float32), np.asarray(before, np.float32)
+        if k == 0 and table_dtype == "bf16":
+            ulp = np.ldexp(1.0, np.frexp(np.maximum(np.abs(want_x), 1e-30))[1] - 8)
+            assert (np.abs(got_x - want_x) <= ulp + 2.0**-22 * np.abs(before)).all()
+            assert (got_x == want_x).mean() > 0.999
+        else:
+            np.testing.assert_allclose(got_x, want_x, rtol=1e-6, atol=1e-7)
+        _untouched_equal(got_x, before, uids)
+        if n == 0:
+            np.testing.assert_array_equal(got_x, before)
 
 
 def test_gates_match_jax():
