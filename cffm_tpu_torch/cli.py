@@ -1,7 +1,8 @@
 """The port's command lines: dotted config overrides and the train CLI.
 
 `data.batch_size=1024` (or `--data.batch_size=1024`) sets one field of
-the frozen dataclass tree.
+the frozen dataclass tree; top-level fields take the same form
+(`--checkpoint_dir=<dir> --checkpoint_every=50 --tensorboard_dir=<dir>`).
 """
 
 from __future__ import annotations

@@ -23,6 +23,9 @@ up, and its summed gradient applied to each shard's own prefix rows.
 With every field small nothing is routed at all (the JAX package cannot
 build that case; the port takes the single-device all-small branch).
 
+With `cfg.debug_barriers` the step prints a line before and after each
+collective region (`utils/debugging.collective_probe`, JAX's eight tags).
+
 Only the flat exchange is ported; the hierarchical and intra-host
 exchanges come with the next slice.
 """
@@ -45,6 +48,7 @@ from cffm_tpu_torch.parallel import sharded_embedding as se
 from cffm_tpu_torch.parallel.mesh import Mesh
 from cffm_tpu_torch.train import (TrainState, _prefix_grad, merge_dense_params,
                                   split_dense_params)
+from cffm_tpu_torch.utils.debugging import collective_probe
 
 
 def _round_up(x: int, m: int) -> int:
@@ -171,6 +175,9 @@ def _local_step(state: TrainState, ids, dense, labels, *, cfg: TrainConfig,
     leaves = [p.detach().requires_grad_() for p in tree_leaves(dense_p)]
     full = merge_dense_params(params, tree_unflatten(dense_p, leaves))
 
+    def dbg(tag):
+        collective_probe(tag, rank, cfg.debug_barriers)
+
     with torch.no_grad():
         ids_fm = ids.t()
         if fs:
@@ -185,8 +192,11 @@ def _local_step(state: TrainState, ids, dense, labels, *, cfg: TrainConfig,
             row_leaves = []
         routing = None
         if routed:
+            dbg("routing-a2a:enter")
             routing = router.build(flat_ids, route_vocabs)
+            dbg("lookup-a2a:enter")
             row_leaves.append(router.lookup(table_local, routing, cdt))
+            dbg("lookup-a2a:exit")
             if separate_linear:
                 row_leaves.append(router.lookup(params["linear"]["table"], routing,
                                                 torch.float32))
@@ -218,7 +228,11 @@ def _local_step(state: TrainState, ids, dense, labels, *, cfg: TrainConfig,
         if fs:
             # every rank sees the global small-block gradient
             summed.append(_prefix_grad(row_grads[0], ids_fm[:fs], mcfg))
+        # one all-reduce carries the loss and the dense grads
+        dbg("loss-psum:enter")
+        dbg("grads-psum:enter")
         summed = _all_reduce_flat(summed, mesh)
+        dbg("grads-psum:exit")
         loss, overflow = summed[0], summed[1].round().to(torch.int32)
         dgrads = summed[2:2 + len(dgrads)]
 
@@ -236,8 +250,10 @@ def _local_step(state: TrainState, ids, dense, labels, *, cfg: TrainConfig,
         if routed:
             # the reverse all-to-all, then the per-row update on this shard's
             # rows; cross-peer duplicates are summed inside the apply
+            dbg("grad-return-a2a:enter")
             row_ids, bucket_grads = router.grad(row_grads[1 if fs else 0].reshape(-1, w),
                                                 routing)
+            dbg("grad-return-a2a:exit")
             bucketed_rowwise_update(table_local, sparse["embed"], row_ids, bucket_grads, opt,
                                     lr_scale=lrf, sr_key=sk_emb)
         if fs:

@@ -1,13 +1,13 @@
-"""Batch scoring (inference) path: params -> CTR probabilities.
+"""Batch scoring (inference) path: checkpoint -> CTR probabilities.
 
-The port's counterpart of `cffm_tpu/score.py`. Streams the val split,
+The port's counterpart of `cffm_tpu/score.py`. Restores the params from
+a checkpoint (or takes them from the caller), streams the val split,
 computes p = sigmoid(forward + calibration offset) per example, folds
 the recovered logits into the binned AUC state and optionally writes one
 probability per line.
 
 Usage: python -m cffm_tpu_torch.score --config=<name> --checkpoint_dir=...
-The port has no checkpoint format yet, so the command line stops with an
-error until the checkpoint slice lands; `score()` takes params directly.
+           [--output=preds.txt] [--num_batches=N] [--platform=cuda|cpu]
 """
 
 from __future__ import annotations
@@ -32,16 +32,36 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
-def score(cfg: TrainConfig, params: Dict, num_batches: int = 0,
+def restore_params(cfg: TrainConfig, device, log_fn=print) -> Dict:
+    """The params of the latest checkpoint in cfg.checkpoint_dir on device,
+    as one table shard (restore_auto reshards a checkpoint saved by a
+    group)."""
+    from cffm_tpu_torch.checkpoint import CheckpointManager
+    from cffm_tpu_torch.train import create_state
+
+    state = create_state(cfg, torch.Generator(device=device).manual_seed(0))
+    mgr = CheckpointManager(cfg.checkpoint_dir)
+    state, meta = mgr.restore_auto(state, cfg, num_shards=1)
+    mgr.close()
+    log_fn(json.dumps({"restored": meta, "step": state.step}))
+    return state.params
+
+
+def score(cfg: TrainConfig, params: Optional[Dict] = None, num_batches: int = 0,
           output: Optional[str] = None, device=None, log_fn=print) -> dict:
     """Returns {"auc", "logloss", "calibration", "count"} over the scored
-    stream. Runs on the CUDA device unless device says otherwise; with
-    no CUDA device and no device given it raises."""
+    stream. params None: restored from cfg.checkpoint_dir. Runs on the
+    CUDA device unless device says otherwise; with no CUDA device and no
+    device given it raises."""
     from cffm_tpu_torch.data.loader import make_dataset
     from cffm_tpu_torch.models.cffm import forward
     from cffm_tpu_torch.train import batch_to_device, default_interaction_fn
 
+    if params is None and not cfg.checkpoint_dir:
+        raise SystemExit("error: --checkpoint_dir is required for scoring")
     device = resolve_device(device)
+    if params is None:
+        params = restore_params(cfg, device, log_fn)
     params = _to_device(params, device)
     interaction_fn = default_interaction_fn(cfg)
     ds = make_dataset(cfg, split="val")
@@ -87,12 +107,8 @@ def main(argv=None):
             raise SystemExit(f"error: unrecognized argument {item!r}")
         dotted, raw = item[2:].split("=", 1)
         cfg = _apply_override(cfg, dotted, raw)
-    if not cfg.checkpoint_dir:
-        raise SystemExit("error: --checkpoint_dir is required for scoring")
-    raise SystemExit(
-        "error: the port cannot restore --checkpoint_dir yet: its checkpoint "
-        "format arrives with the checkpoint slice; call "
-        "cffm_tpu_torch.score.score(cfg, params) with params in hand")
+    score(cfg, num_batches=args.num_batches, output=args.output, device=args.platform)
+    return 0
 
 
 if __name__ == "__main__":

@@ -17,7 +17,7 @@ The row-sharded step lives in `parallel/sharded_train.py`; `run` takes
 it for a sharded config launched on more than one process.
 
 Usage: python -m cffm_tpu_torch.train --config=<name> [--device=cuda]
-       [section.field=value ...]
+       [section.field=value ...] [--checkpoint_dir=<dir> --checkpoint_every=N]
        torchrun --nproc_per_node=N -m cffm_tpu_torch.train --config=avazu
 """
 
@@ -254,7 +254,8 @@ def default_interaction_fn(cfg: TrainConfig):
 # ---------------------------------------------------------------------------
 
 
-def run(cfg: TrainConfig, device=None, log_fn=print, interaction_fn=None) -> Dict:
+def run(cfg: TrainConfig, device=None, log_fn=print, interaction_fn=None,
+        preemption_guard=None) -> Dict:
     """Train cfg.data.num_train_steps steps, then evaluate on a window of
     the val stream. Runs on the CUDA device unless device says otherwise.
 
@@ -263,16 +264,23 @@ def run(cfg: TrainConfig, device=None, log_fn=print, interaction_fn=None) -> Dic
     takes the row-sharded path (parallel/sharded_train.py): each rank draws
     its own B/T block of every batch, and only rank 0 logs. Otherwise it
     takes the single-device path, as the JAX run does on one device.
-    Checkpoints, TensorBoard and the hierarchical and intra-host
-    exchanges arrive with later slices and raise here."""
+
+    With cfg.checkpoint_dir set it resumes from the latest checkpoint there
+    (resharding the tables if the shard count changed, and skipping the
+    batches already trained on), saves every cfg.checkpoint_every steps and
+    at the end. preemption_guard (a utils.preemption.PreemptionGuard; by
+    default one on SIGTERM) is checked every log_every (or 50) steps: on a
+    stop the run saves, logs {"preempted_at_step"} and goes on to the eval.
+    cfg.tensorboard_dir mirrors the logged scalars into event files. The
+    hierarchical and intra-host exchanges raise: only the flat one is
+    ported."""
+    from cffm_tpu_torch.checkpoint import CheckpointManager
     from cffm_tpu_torch.data.loader import make_dataset
     from cffm_tpu_torch.parallel.mesh import close_mesh, make_mesh, requested_world_size
+    from cffm_tpu_torch.utils.preemption import PreemptionGuard
+    from cffm_tpu_torch.utils.tb import ScalarWriter
 
     device = resolve_device(device)
-    if cfg.checkpoint_dir or cfg.tensorboard_dir:
-        raise NotImplementedError(
-            "checkpoint_dir and tensorboard_dir arrive with the port's checkpoint "
-            "slice (ROADMAP queue 1, checkpoint/score/export/utils)")
     sharded = cfg.sharding.table_sharded and requested_world_size() > 1
     if sharded and cfg.sharding.table_axis != "global":
         raise NotImplementedError(
@@ -309,8 +317,21 @@ def run(cfg: TrainConfig, device=None, log_fn=print, interaction_fn=None) -> Dic
             return eval_step(state, auc_state, ids, dense, labels, cfg, interaction_fn)
 
     rank, world = (mesh.rank, mesh.world) if mesh else (0, 1)
+    guard = PreemptionGuard() if preemption_guard is None else preemption_guard
+    tb = ScalarWriter(cfg.tensorboard_dir, rank)
+    ckpt_mgr = None
     try:
-        ds = make_dataset(cfg, rank, world)
+        # resume: the tables are resharded if the shard count changed, and
+        # the stream below skips the batches already trained on
+        start_step = 0
+        if cfg.checkpoint_dir:
+            ckpt_mgr = CheckpointManager(cfg.checkpoint_dir)
+            if ckpt_mgr.latest_step() is not None:
+                state, meta = ckpt_mgr.restore_auto(state, cfg, world)
+                start_step = state.step
+                log_fn(json.dumps({"resumed_from_step": start_step,
+                                   "checkpoint_meta": meta}))
+        ds = make_dataset(cfg, rank, world, skip_batches=start_step)
         val_ds = make_dataset(cfg, rank, world, split="val")
 
         def run_eval():
@@ -320,11 +341,14 @@ def run(cfg: TrainConfig, device=None, log_fn=print, interaction_fn=None) -> Dic
                 auc_state = eval_fn(auc_state, *batch_to_device(next(val_ds), device))
             return {k: float(v) for k, v in metrics.auc_state_finalize(auc_state).items()}
 
+        # a stop request costs at most stop_every steps of progress
+        stop_every = cfg.log_every or 50
+        preempted_at = None
         t0 = time.time()
         examples = 0
         last_loss = float("nan")
         m = None
-        for step in range(cfg.data.num_train_steps):
+        for step in range(start_step, cfg.data.num_train_steps):
             ids, dense, labels = batch_to_device(next(ds), device)
             state, m = step_fn(state, ids, dense, labels)
             examples += int(labels.shape[0]) * world
@@ -336,16 +360,43 @@ def run(cfg: TrainConfig, device=None, log_fn=print, interaction_fn=None) -> Dic
                 if "overflow" in m:
                     rec["id_overflow"] = int(m["overflow"])
                 log_fn(json.dumps(rec))
+                tb.scalars(step + 1, {"train/loss": rec["loss"],
+                                      "train/examples_per_s": rec["examples_per_s"]})
             if cfg.data.eval_every and (step + 1) % cfg.data.eval_every == 0:
-                log_fn(json.dumps({"step": step + 1, "eval": run_eval()}))
+                ev = run_eval()
+                log_fn(json.dumps({"step": step + 1, "eval": ev}))
+                tb.scalars(step + 1, {f"eval/{k}": v for k, v in ev.items()})
+            if ckpt_mgr and cfg.checkpoint_every and (step + 1) % cfg.checkpoint_every == 0:
+                ckpt_mgr.save(step + 1, state, cfg, num_shards=world)
+            if (step + 1) % stop_every == 0 and guard.sync():
+                # every rank agrees (sync is a collective): stop at this
+                # step, save, and go on to the eval
+                preempted_at = step + 1
+                if ckpt_mgr:
+                    ckpt_mgr.save(step + 1, state, cfg, num_shards=world, wait=True)
+                log_fn(json.dumps({"preempted_at_step": preempted_at,
+                                   "checkpoint_saved": bool(ckpt_mgr)}))
+                break
 
         result = run_eval()
         if math.isnan(last_loss) and m is not None:
             last_loss = float(m["loss"])
         result["final_train_loss"] = last_loss
+        if preempted_at is not None:
+            result["preempted_at_step"] = preempted_at
         log_fn(json.dumps({"eval": result}))
+        tb.scalars(cfg.data.num_train_steps, {f"eval/{k}": v for k, v in result.items()})
+        if ckpt_mgr:
+            if preempted_at is None:
+                # a preempted run saved at its stop step; a save at
+                # num_train_steps would make the resume think the run was done
+                ckpt_mgr.save(cfg.data.num_train_steps, state, cfg, num_shards=world,
+                              wait=True)
+            ckpt_mgr.close()
         return result
     finally:
+        guard.close()
+        tb.close()
         if mesh is not None:
             close_mesh(mesh)
 

@@ -80,6 +80,21 @@ nonzero without them, or when any phase fails. Phases, in order:
      B=65536 for 3 steps (adagrad, f32 table), 2 steps with a bf16 table
      (stochastic rounding) and 2 steps of rowwise_adam, launch counts set
      to 0 before and read after each run; finite loss and AUC;
+  9b. checkpoint: criteo_kaggle at full width (B=65536, f32 table,
+     adagrad) in a temporary directory with room for three checkpoints
+     (or it fails with the space it found): two train steps, a save and a
+     restore into a state drawn from another seed (bytes, seconds and
+     GB/s printed), every leaf bit-equal, one further step from each with
+     loss and table bit-equal; train.run for 3 steps twice (the controls),
+     then with a checkpoint_dir and a guard tripped as step 2 is logged
+     (preempted_at_step 2), then again (resumes from step 2 and skips 2
+     batches): auc, logloss and final_train_loss of the resumed run within
+     the controls' own spread (bit-equal when they agree), kernels 1-4
+     once a step and kernel 1 once an eval batch in each run; score.main
+     from the checkpoint, 8 kernel-1 launches and exactly the metrics of
+     score() on the restored params; export.main from it in f32, the
+     artifact run at B=4096, 1000 and 1 against the eager scoring_fn
+     (rtol=atol=1e-6) and score's kernel route (1e-4);
  10. step_vs_cpu: train steps from the same state and batches on the card
      and on the CPU (f32, f32 table, streamed update on, B=4096): one
      adagrad step, two rowwise-Adam steps;
@@ -1193,6 +1208,235 @@ def phase_train() -> dict:
                 fail(f"train {name}: want launches {want}, got {counts}")
         out[name] = counts
         torch.cuda.empty_cache()
+    return out
+
+
+def _unequal_leaves(a, b) -> list:
+    """Paths of the leaves of two TrainStates that are not bit-equal, or
+    not on the same device in the same dtype."""
+    import torch
+
+    from cffm_tpu_torch.checkpoint import state_leaves
+
+    la, lb = state_leaves(a), state_leaves(b)
+    if la.keys() != lb.keys():
+        return sorted(la.keys() ^ lb.keys())
+    bad = []
+    for k, x in la.items():
+        y = lb[k]
+        if isinstance(x, torch.Tensor):
+            same = (x.dtype, x.device, x.shape) == (y.dtype, y.device, y.shape)
+            if not (same and torch.equal(x, y)):
+                bad.append(k)
+        elif x != y:
+            bad.append(k)
+    return bad
+
+
+def _dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def _ckpt_round_trip(cfg, tmp: str) -> dict:
+    """Two train steps from seed 0, a save, a restore into a state drawn
+    from seed 1: every leaf bit-equal, then one further step from each
+    with loss and table bit-equal."""
+    import os
+
+    import torch
+
+    from cffm_tpu_torch import train
+    from cffm_tpu_torch.checkpoint import CheckpointManager
+    from cffm_tpu_torch.data.loader import make_dataset
+
+    dev = torch.device("cuda")
+    fn = train.default_interaction_fn(cfg)
+    ds = make_dataset(cfg, prefetch=0)
+    batches = [train.batch_to_device(next(ds), dev) for _ in range(3)]
+    state = train.create_state(cfg, torch.Generator(device=dev).manual_seed(0))
+    for b in batches[:2]:
+        state, _ = train.train_step(state, *b, cfg, fn)
+    mgr = CheckpointManager(os.path.join(tmp, "round_trip"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(2, state, cfg, wait=True)
+    save_s = time.perf_counter() - t0
+    nbytes = _dir_bytes(os.path.join(tmp, "round_trip", "2"))
+    template = train.create_state(cfg, torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored, meta = mgr.restore(template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del template
+    out = {"bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+           "save_gb_s": nbytes / save_s / 1e9, "restore_gb_s": nbytes / restore_s / 1e9}
+    print(f"checkpoint: round trip {json.dumps(out)} meta {json.dumps(meta)}", flush=True)
+    bad = _unequal_leaves(restored, state)
+    if bad or restored.step != 2:
+        fail(f"checkpoint: restored leaves not bit-equal to the saved state: {bad}")
+    state, m_a = train.train_step(state, *batches[2], cfg, fn)
+    restored, m_b = train.train_step(restored, *batches[2], cfg, fn)
+    same_table = torch.equal(state.params["embed"]["table"], restored.params["embed"]["table"])
+    print(f"checkpoint: further step loss {m_a['loss'].item()!r} (saved) "
+          f"{m_b['loss'].item()!r} (restored), tables bit-equal {same_table}", flush=True)
+    if not torch.equal(m_a["loss"], m_b["loss"]) or not same_table:
+        fail("checkpoint: the step after the restore differs from the step after the save")
+    return out
+
+
+def phase_checkpoint() -> dict:
+    """criteo_kaggle at full width (B=65536, f32 table, adagrad): save and
+    restore round trip, a preempted train.run resumed against two
+    uninterrupted controls, score from the checkpoint through score.main,
+    export from it through export.main and the artifact run on the card."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from cffm_tpu_torch import export as export_lib
+    from cffm_tpu_torch import metrics, train
+    from cffm_tpu_torch import score as score_lib
+    from cffm_tpu_torch.data.loader import make_dataset
+    from cffm_tpu_torch.models.cffm import forward
+    from cffm_tpu_torch.ops import interaction_conv as ic
+    from cffm_tpu_torch.utils.preemption import PreemptionGuard
+
+    base = {"data.batch_size": 65536, "data.eval_batches": 2, "log_every": 1}
+    cfg = _run_cfg({**base, "data.num_train_steps": 3})
+    m = cfg.model
+    # the table, adagrad's per-row accum, and under 1 MB of dense state
+    state_bytes = m.total_vocab * (m.table_width + 1) * 4
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        free = shutil.disk_usage(tmp).free
+        print(f"checkpoint: {free / 1e9:.1f} GB free in {tmp}, a checkpoint "
+              f"{state_bytes / 1e9:.2f} GB", flush=True)
+        if free < 3 * state_bytes + (1 << 30):
+            fail(f"checkpoint: {free / 1e9:.1f} GB free in {tmp}, three checkpoints "
+                 f"need {3 * state_bytes / 1e9:.1f} GB")
+        out["round_trip"] = _ckpt_round_trip(cfg, tmp)
+        torch.cuda.empty_cache()
+
+        # preemption and resume against two uninterrupted controls
+        run_dir = os.path.join(tmp, "run")
+        ckpt_cfg = dataclasses.replace(cfg, checkpoint_dir=run_dir)
+
+        def counted_run(name, c, steps, guard, log=lambda s: None):
+            want = {"cross_conv1_lin_fm2": steps + 2, "cross_conv1_bwd": steps,
+                    "sorted_segment_sum_compact": steps, "streamed_rowwise_apply": steps}
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            result = train.run(c, device="cuda", log_fn=log, preemption_guard=guard)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {k: v for k, v in _counts().items() if v}
+            print(f"checkpoint: {name} {json.dumps(result)} launches {counts} "
+                  f"wall {wall:.1f}s", flush=True)
+            if counts != want:
+                fail(f"checkpoint: {name}: want launches {want}, got {counts}")
+            torch.cuda.empty_cache()
+            return result
+
+        controls = [counted_run(f"control {i}", cfg, 3, PreemptionGuard(install=False))
+                    for i in range(2)]
+        guard = PreemptionGuard(install=False)
+        logs = []
+
+        def log(line):
+            logs.append(line)
+            if '"step": 2,' in line:
+                guard.request()
+
+        first = counted_run("preempted", ckpt_cfg, 2, guard, log)
+        if first.get("preempted_at_step") != 2:
+            fail(f"checkpoint: want preempted_at_step 2, got {first}")
+        logs.clear()
+        resumed = counted_run("resumed", ckpt_cfg, 1, PreemptionGuard(install=False),
+                              logs.append)
+        if not any('"resumed_from_step": 2' in line for line in logs):
+            fail(f"checkpoint: the second run did not resume from step 2: {logs[:2]}")
+        keys = ("auc", "logloss", "final_train_loss")
+        spread = {k: abs(controls[0][k] - controls[1][k]) for k in keys}
+        if any(spread.values()):
+            print(f"checkpoint: the two controls differ by {json.dumps(spread)}", flush=True)
+        apart = {k: abs(resumed[k] - controls[0][k]) for k in keys}
+        print(f"checkpoint: resumed - control {json.dumps(apart)} "
+              f"(the controls' spread {json.dumps(spread)})", flush=True)
+        if any(apart[k] > spread[k] for k in keys):
+            fail(f"checkpoint: the resumed run ends {apart} from the control, "
+                 f"more than the controls' own spread {spread}")
+        out.update(controls=controls, resumed=resumed, spread=spread)
+
+        # score from the checkpoint through the command line, in process
+        argv = ["--config=criteo_kaggle", f"--checkpoint_dir={run_dir}", "--num_batches=8"]
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = score_lib.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in _counts().items() if v}
+        lines = [json.loads(x) for x in buf.getvalue().splitlines()]
+        got = lines[-1]["score"]
+        print(f"checkpoint: score.main {argv[1:]} -> {lines}, launches {counts}, "
+              f"wall {wall:.1f}s incl. restore ({got['count'] / wall:.1f} ex/s from disk)",
+              flush=True)
+        if rc != 0 or counts != {"cross_conv1_lin_fm2": 8} or lines[0].get("step") != 3:
+            fail(f"checkpoint: score from disk: rc {rc}, launches {counts}, {lines[0]}")
+        score_cfg = dataclasses.replace(_run_cfg({}), checkpoint_dir=run_dir)
+        params = score_lib.restore_params(score_cfg, torch.device("cuda"), log_fn=lambda s: None)
+        want = score_lib.score(score_cfg, params, num_batches=8, device="cuda",
+                               log_fn=lambda s: None)
+        if got != want:
+            fail(f"checkpoint: score from disk {got} != score of the restored params {want}")
+        out["score"] = {"result": got, "wall_s": wall, "ex_s": got["count"] / wall}
+
+        # export from the checkpoint; the artifact on the card
+        art = os.path.join(tmp, "model.cffm")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = export_lib.main(["--config=criteo_kaggle", f"--out={art}",
+                                  f"--checkpoint_dir={run_dir}",
+                                  "--model.compute_dtype=float32"])
+        line = json.loads(buf.getvalue().splitlines()[-1])
+        meta, _ = export_lib.load_artifact(art)
+        print(f"checkpoint: export.main -> {line}, artifact {os.path.getsize(art)} bytes, "
+              f"meta {meta}", flush=True)
+        if rc != 0 or line["step"] != 3:
+            fail(f"checkpoint: export: rc {rc}, {line}")
+        f32 = dataclasses.replace(score_cfg, model=dataclasses.replace(
+            score_cfg.model, compute_dtype="float32"))
+        fn = export_lib.load_scoring_fn(art)
+        eager = export_lib.scoring_fn(f32)
+        cal = metrics.calibration_offset(f32.data)
+        errs = {}
+        for b in (4096, 1000, 1):
+            c = dataclasses.replace(f32, data=dataclasses.replace(f32.data, batch_size=b))
+            ids, dense, _ = train.batch_to_device(next(make_dataset(c, split="val", prefetch=0)),
+                                                  torch.device("cuda"))
+            with torch.inference_mode():
+                got_p = fn(params, ids, dense)
+                want_p = eager(params, ids, dense)
+                kern = torch.sigmoid(forward(params, ids, dense, f32.model,
+                                             interaction_fn=ic.make_interaction_fn()) + cal)
+            errs[b] = {"vs_eager": (got_p - want_p).abs().max().item(),
+                       "vs_kernel_route": (got_p - kern).abs().max().item()}
+            print(f"checkpoint: artifact at B={b}: shape {tuple(got_p.shape)}, "
+                  f"max_abs_err vs eager scoring_fn {errs[b]['vs_eager']:.3e} (1e-6), "
+                  f"vs score's kernel route {errs[b]['vs_kernel_route']:.3e} (1e-4)", flush=True)
+            torch.testing.assert_close(got_p, want_p, rtol=1e-6, atol=1e-6)
+            torch.testing.assert_close(got_p, kern, rtol=1e-4, atol=1e-4)
+        out["export"] = {"artifact_bytes": os.path.getsize(art), "errs": errs}
     return out
 
 
@@ -2734,7 +2978,7 @@ def phase_tools() -> dict:
 
 
 PHASES = ("parity", "parity_bwd", "parity_caps", "parity_segment", "parity_apply", "serve",
-          "time", "train", "step_vs_cpu", "time_train", "parity_segment_by_seg",
+          "time", "train", "checkpoint", "step_vs_cpu", "time_train", "parity_segment_by_seg",
           "parity_bucketed", "train_sharded", "sharded_multi", "time_sharded",
           "parity_bwd_v1", "parity_dot_probe", "tools")
 # the phases that run on the NCCL group of one
@@ -2814,6 +3058,7 @@ def _run_phases(phases, phase, mesh) -> int:
     served = phase("serve", phase_serve)
     times = phase("time", phase_time, *served[1:]) if served else None
     trained = phase("train", phase_train)
+    phase("checkpoint", phase_checkpoint)
     phase("step_vs_cpu", phase_step_vs_cpu)
     ttimes = phase("time_train", phase_time_train)
     sharded_phases = {"parity_segment_by_seg", "parity_bucketed", "time_sharded"}

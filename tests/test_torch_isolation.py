@@ -1,5 +1,5 @@
 """The port stands alone: no file of cffm_tpu_torch, nor chip_smoke.py,
-imports jax, the JAX package, the oracle or a JAX-side script (bench.py,
+imports jax, orbax, tensorflow, the JAX package, the oracle or a JAX-side script (bench.py,
 bench_input.py, bench_scaling.py, scripts/), and every port module,
 utils/ and scripts/ included, imports with those blocked."""
 
@@ -12,7 +12,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "cffm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "cffm_tpu", "oracle", "optax", "orbax")
+FORBIDDEN = ("jax", "jaxlib", "cffm_tpu", "oracle", "optax", "orbax", "tensorflow")
 # the JAX side's scripts, importable through sys.path from the repo root
 JAX_SCRIPTS = ("scripts", "bench", "bench_input", "bench_scaling",
                *sorted(p.stem for p in (ROOT / "scripts").glob("*.py")))

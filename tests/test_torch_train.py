@@ -27,6 +27,7 @@ from cffm_tpu.config import TrainConfig as JTrain
 from cffm_tpu.models.cffm import field_offsets
 from cffm_tpu.ops.interaction_conv import make_interaction_fn as jax_make_fn
 from cffm_tpu_torch import config, train
+from cffm_tpu_torch.cli import _apply_override
 from cffm_tpu_torch.cli import main as cli_main
 from cffm_tpu_torch.convert import state_from_jax
 from cffm_tpu_torch.ops import interaction_conv as ic
@@ -200,11 +201,37 @@ def test_run_ends_on_the_cpu():
     assert [s["step"] for s in steps] == [1, 2, 3]
 
 
-def test_run_refuses_what_later_slices_bring():
-    with pytest.raises(NotImplementedError, match="checkpoint slice"):
-        train.run(dataclasses.replace(_tiny_cfg(), checkpoint_dir="/x"), device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint slice"):
-        train.run(dataclasses.replace(_tiny_cfg(), tensorboard_dir="/x"), device="cpu")
+def test_run_refuses_what_later_slices_bring(tmp_path, monkeypatch):
+    """checkpoint_dir and tensorboard_dir are taken on the CPU; the
+    hierarchical exchange still raises."""
+    cfg = dataclasses.replace(_tiny_cfg(), checkpoint_dir=str(tmp_path / "ckpt"),
+                              tensorboard_dir=str(tmp_path / "tb"))
+    result = train.run(cfg, device="cpu", log_fn=lambda s: None)
+    assert np.isfinite(result["auc"])
+    assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == ["3"]
+    assert any(p.name.startswith("events.out.tfevents") for p in (tmp_path / "tb").iterdir())
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    hier = dataclasses.replace(_tiny_cfg(), sharding=dataclasses.replace(
+        _tiny_cfg().sharding, table_sharded=True, table_axis="hier"))
+    with pytest.raises(NotImplementedError, match="table_axis='hier'"):
+        train.run(hier, device="cpu")
+
+
+def test_cli_checkpoints_and_resumes(tmp_path):
+    """--checkpoint_dir and --checkpoint_every through the command line: a
+    rerun with more steps resumes from the latest checkpoint."""
+    args = ["--config=movielens", "--device=cpu", "data.batch_size=32", "data.eval_batches=1",
+            "log_every=1", f"--checkpoint_dir={tmp_path}", "--checkpoint_every=1"]
+    assert cli_main(args + ["data.num_train_steps=2"]) == 0
+    assert sorted(int(p.name) for p in tmp_path.iterdir()) == [1, 2]
+    logs = []
+    cfg = config.get_config("movielens")
+    for item in args[2:] + ["data.num_train_steps=4"]:
+        cfg = _apply_override(cfg, *item.removeprefix("--").split("=", 1))
+    train.run(cfg, device="cpu", log_fn=logs.append)
+    assert json.loads(logs[0])["resumed_from_step"] == 2
+    assert [json.loads(x)["step"] for x in logs if '"loss"' in x] == [3, 4]
+    assert sorted(int(p.name) for p in tmp_path.iterdir()) == [2, 3, 4]
 
 
 def test_run_without_cuda_raises(monkeypatch):

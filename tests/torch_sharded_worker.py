@@ -134,3 +134,103 @@ def run_train(rank: int, world: int, out_dir: str, cfg):
         _save(out_dir, rank, {"result": result, "logs": logs})
     finally:
         close_mesh(mesh)
+
+
+def ckpt_cycle(rank: int, world: int, out_dir: str, cfg, ckpt_dir: str, np_state=None,
+               save_batches=(), restore_batches=()):
+    """With np_state (a JAX sharded state as numpy): rank's share of it,
+    steps on save_batches, a save under world shards. Then restore_auto of
+    the latest checkpoint onto world shards, into a state drawn from
+    another seed, and steps on restore_batches. Saves the restored shards,
+    the meta, the losses and the final state."""
+    from cffm_tpu_torch.checkpoint import CheckpointManager
+    from cffm_tpu_torch.convert import sharded_state_from_jax
+    from cffm_tpu_torch.parallel.mesh import close_mesh
+    from cffm_tpu_torch.parallel.sharded_train import (create_sharded_state,
+                                                       make_sharded_train_step)
+
+    mesh = _mesh(rank, world, out_dir)
+    try:
+        step = make_sharded_train_step(cfg, mesh)
+        b = cfg.data.batch_size // world
+
+        def steps(state, batches):
+            losses = []
+            for ids, labels in batches:
+                state, m = step(state, torch.from_numpy(ids[rank * b:(rank + 1) * b]), None,
+                                torch.from_numpy(labels[rank * b:(rank + 1) * b]))
+                losses.append(float(m["loss"]))
+            return state, losses
+
+        mgr = CheckpointManager(ckpt_dir)
+        saved = None
+        if np_state is not None:
+            state, _ = steps(sharded_state_from_jax(np_state, rank, world), save_batches)
+            mgr.save(state.step, state, cfg, num_shards=world, wait=True)
+            saved = state
+        template = create_sharded_state(cfg, torch.Generator().manual_seed(99), mesh)
+        state, meta = mgr.restore_auto(template, cfg, world)
+        mgr.close()
+        restored = {"table": state.params["embed"]["table"].clone(),
+                    "sparse": {k: v.clone() for k, v in state.sparse_opt_state["embed"].items()},
+                    "step": state.step}
+        state, losses = steps(state, restore_batches)
+        _save(out_dir, rank, {"saved": saved, "restored": restored, "meta": meta,
+                              "losses": losses, "state": state})
+    finally:
+        close_mesh(mesh)
+
+
+def run_preempted(rank: int, world: int, out_dir: str, cfg, request_rank: int, at_sync: int):
+    """train.run on this rank with a guard that request_rank trips at its
+    at_sync-th check; the other ranks never request a stop."""
+    from cffm_tpu_torch import train
+    from cffm_tpu_torch.parallel.mesh import close_mesh
+    from cffm_tpu_torch.utils.preemption import PreemptionGuard
+
+    class Guard(PreemptionGuard):
+        checks = 0
+
+        def sync(self):
+            self.checks += 1
+            if rank == request_rank and self.checks == at_sync:
+                self.request()
+            return super().sync()
+
+    mesh = _mesh(rank, world, out_dir)
+    try:
+        result = train.run(cfg, device="cpu", log_fn=lambda s: None,
+                           preemption_guard=Guard(install=False))
+        _save(out_dir, rank, {"result": result})
+    finally:
+        close_mesh(mesh)
+
+
+def probed_step(rank: int, world: int, out_dir: str, cfg, np_state, ids, labels):
+    """One sharded step from rank's share of np_state with
+    cfg.debug_barriers off and one with it on, stdout captured."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from cffm_tpu_torch.convert import sharded_state_from_jax
+    from cffm_tpu_torch.parallel.mesh import close_mesh
+    from cffm_tpu_torch.parallel.sharded_train import make_sharded_train_step
+
+    mesh = _mesh(rank, world, out_dir)
+    try:
+        b = cfg.data.batch_size // world
+        mine = (torch.from_numpy(ids[rank * b:(rank + 1) * b]), None,
+                torch.from_numpy(labels[rank * b:(rank + 1) * b]))
+        out = {}
+        for on in (False, True):
+            c = dataclasses.replace(cfg, debug_barriers=on)
+            state = sharded_state_from_jax(np_state, rank, world)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                state, m = make_sharded_train_step(c, mesh)(state, *mine)
+            out[on] = {"loss": float(m["loss"]), "table": state.params["embed"]["table"],
+                       "printed": buf.getvalue()}
+        _save(out_dir, rank, out)
+    finally:
+        close_mesh(mesh)
