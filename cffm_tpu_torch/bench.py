@@ -1,6 +1,6 @@
 """Benchmark: CFFM train-step and forward throughput on the CUDA card.
 
-    python -m cffm_tpu_torch.bench [--feed=staged|score|sharded]
+    python -m cffm_tpu_torch.bench [--feed=staged|score|sharded|reader|prehashed]
         [--config=criteo_kaggle] [--table_dtype=bfloat16|float32]
         [--sparse_optimizer=...] [--batch=65536] [--timeout=900]
 
@@ -20,9 +20,16 @@ exit code is 1. Feeds:
   sharded  the row-sharded step (`parallel.sharded_train`) on the default
            process group if one is initialised, else on an NCCL group of one
            (each rank times its own B/T block: examples/s per card)
-  reader, prehashed
-           raise NotImplementedError: they wait on the port's data layer
-           (ROADMAP queue 1 item 3)
+  reader   batches streamed from a file: a Criteo TSV of (10 + 3) * B rows
+           written from a seed (`scripts/bench_input._write_criteo`) into a
+           temporary directory, read by `data.loader.make_dataset(prefetch=4)`
+           (the native multi-threaded reader), packed into the wire format,
+           staged by `data.loader.device_prefetch` and trained by
+           `train.train_step_wire` (the recipe of `bench.py`'s reader feed);
+           one warm step, then 10 timed by host clock ending in a synchronize
+  prehashed
+           the same, with the TSV converted to a .cfb file first
+           (`data.prehash.convert`) and read shuffled
 
 The batch ladder retries at smaller batches only on
 `torch.cuda.OutOfMemoryError`, after dropping the failed rung's tensors. A
@@ -160,15 +167,49 @@ def _run_sharded(cfg, device: torch.device, n: int) -> float:
         close_mesh(mesh)
 
 
+def _run_reader_fed(cfg, device: torch.device, n: int, prehashed: bool) -> float:
+    import tempfile
+
+    from cffm_tpu_torch import train
+    from cffm_tpu_torch.data import wire as wire_lib
+    from cffm_tpu_torch.data.loader import device_prefetch, make_dataset
+    from cffm_tpu_torch.data.prehash import convert
+    from cffm_tpu_torch.scripts.bench_input import _write_criteo
+
+    batch = cfg.data.batch_size
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "criteo.tsv")
+        _write_criteo(path, (n + 3) * batch)
+        if prehashed:
+            cfb = os.path.join(d, "criteo.cfb")
+            convert(path, cfb, cfg.model, "criteo", chunk=batch)
+            path = cfb
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, path=path, dataset="criteo", shuffle=prehashed,
+            wire_format="packed"))
+        spec = wire_lib.spec_for_model(cfg.model)
+        dev_ds = device_prefetch(make_dataset(cfg, prefetch=4), device)
+        fn = train.default_interaction_fn(cfg)
+        state = train.create_state(cfg, torch.Generator(device=device).manual_seed(0))
+        try:
+            # the warm step also fills the prefetch pipes
+            state, _ = train.train_step_wire(state, next(dev_ds), spec, cfg, fn)
+            _sync(device)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                state, m = train.train_step_wire(state, next(dev_ds), spec, cfg, fn)
+            float(m["loss"])
+            _sync(device)
+            return batch * n / (time.perf_counter() - t0)
+        finally:
+            dev_ds.close()
+
+
 def run_feed(cfg, feed: str = "staged", device=None, n: int = STEPS) -> float:
     """Examples/s of one feed at cfg's batch, on the CUDA card unless device
     says otherwise. Raises on any error (the ladder in main handles OOM)."""
     from cffm_tpu_torch import resolve_device
 
-    if feed in ("reader", "prehashed"):
-        raise NotImplementedError(
-            f"--feed={feed} streams batches from files through the data layer, which "
-            "the port does not have yet (ROADMAP queue 1 item 3)")
     if feed not in FEEDS:
         raise ValueError(f"unknown feed {feed!r}; have {FEEDS}")
     device = resolve_device(device)
@@ -176,6 +217,8 @@ def run_feed(cfg, feed: str = "staged", device=None, n: int = STEPS) -> float:
         return _run_score(cfg, device, n)
     if feed == "sharded":
         return _run_sharded(cfg, device, n)
+    if feed in ("reader", "prehashed"):
+        return _run_reader_fed(cfg, device, n, prehashed=feed == "prehashed")
     return _run_staged(cfg, device, n)
 
 

@@ -26,6 +26,7 @@ build that case; the port takes the single-device all-small branch).
 With `cfg.debug_barriers` the step prints a line before and after each
 collective region (`utils/debugging.collective_probe`, JAX's eight tags).
 
+`wrap_wire_step` gives a step the packed wire batch (`data/wire.py`).
 Only the flat exchange is ported; the hierarchical and intra-host
 exchanges come with the next slice.
 """
@@ -294,6 +295,21 @@ def make_sharded_train_step(cfg: TrainConfig, mesh: Mesh, interaction_fn=None):
                            interaction_fn=interaction_fn)
 
     return step
+
+
+def wrap_wire_step(step, wire_spec, mcfg):
+    """The (state, wire) form of a raw sharded step(state, ids, dense,
+    labels): unpack this rank's packed wire block (data/wire.py) and apply
+    the field offsets on its device, then run the step. The unpack is
+    elementwise along the batch, so the rank's block stays its own."""
+    from cffm_tpu_torch.data import wire as wire_lib
+    from cffm_tpu_torch.train import wire_offsets
+
+    def wire_step(state: TrainState, wire: Dict):
+        ids_local, dense, labels = wire_lib.unpack(wire, wire_spec)
+        return step(state, ids_local + wire_offsets(mcfg, ids_local.device), dense, labels)
+
+    return wire_step
 
 
 def make_sharded_eval_step(cfg: TrainConfig, mesh: Mesh, interaction_fn=None):

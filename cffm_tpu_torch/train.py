@@ -11,18 +11,23 @@ JAX one-hot matmul leaves it. Dense params (conv, tower, linear bias)
 take the optax chain of `make_dense_optimizer`.
 
 `train_step` updates the state's tensors IN PLACE (the JAX step donates
-its state) and returns a new TrainState that shares them. The packed
-wire-format step (`train_step_wire`) comes with the port's data slice.
-The row-sharded step lives in `parallel/sharded_train.py`; `run` takes
-it for a sharded config launched on more than one process.
+its state) and returns a new TrainState that shares them.
+`train_step_wire` takes a packed wire batch (`data/wire.py`), unpacks it
+and applies the field offsets on the device, then runs `train_step`. The
+row-sharded step lives in `parallel/sharded_train.py`; `run` takes it for
+a sharded config launched on more than one process.
 
 Usage: python -m cffm_tpu_torch.train --config=<name> [--device=cuda]
        [section.field=value ...] [--checkpoint_dir=<dir> --checkpoint_every=N]
-       torchrun --nproc_per_node=N -m cffm_tpu_torch.train --config=avazu
+       [--profile_dir=<dir>]
+       python -m cffm_tpu_torch.train --config=criteo_kaggle data.path=<tsv>
+       data.eval_batches=0   (one full pass over the held-out split)
+       torchrun --nproc_per_node=N -m cffm_tpu_torch.train --config=avazu --distributed
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import sys
@@ -198,6 +203,26 @@ def train_step(state: TrainState, ids: torch.Tensor, dense: Optional[torch.Tenso
     return new_state, {"loss": loss.detach(), "logit_mean": logits.detach().mean()}
 
 
+@functools.lru_cache(maxsize=16)
+def wire_offsets(mcfg, device) -> torch.Tensor:
+    """The field offsets as a (1, F) int32 tensor on device, made once per
+    (config, device) so that a step copies nothing from the host for them.
+    Read-only: callers add it, never write into it."""
+    return torch.from_numpy(model_lib.field_offsets(mcfg).astype(np.int32)[None, :]).to(device)
+
+
+def train_step_wire(state: TrainState, wire: Dict, spec, cfg: TrainConfig,
+                    interaction_fn=None):
+    """train_step on a packed wire batch (data/wire.py): unpack the narrow
+    columns and apply the field offsets on the wire's device, then run the
+    normal step. Returns (new_state, {"loss", "logit_mean"})."""
+    from cffm_tpu_torch.data import wire as wire_lib
+
+    ids_local, dense, labels = wire_lib.unpack(wire, spec)
+    offs = wire_offsets(cfg.model, ids_local.device)
+    return train_step(state, ids_local + offs, dense, labels, cfg, interaction_fn)
+
+
 # ---------------------------------------------------------------------------
 # Evaluation
 # ---------------------------------------------------------------------------
@@ -256,14 +281,24 @@ def default_interaction_fn(cfg: TrainConfig):
 
 def run(cfg: TrainConfig, device=None, log_fn=print, interaction_fn=None,
         preemption_guard=None) -> Dict:
-    """Train cfg.data.num_train_steps steps, then evaluate on a window of
-    the val stream. Runs on the CUDA device unless device says otherwise.
+    """Train cfg.data.num_train_steps steps, then evaluate. Runs on the
+    CUDA device unless device says otherwise.
+
+    Batches reach the device through data.loader.device_prefetch (pinned
+    buffers and a side stream on the card). With cfg.data.wire_format ==
+    "packed" they travel in the packed wire format and the step unpacks
+    them on the device. The eval takes a window of cfg.data.eval_batches
+    batches of the val stream (32 when 0 on the synthetic stream); with
+    eval_batches == 0 on a file dataset it makes ONE FULL PASS over the
+    held-out split, the last batch padded with id 0 and mask 0.
 
     With cfg.sharding.table_sharded in a group of more than one process
     (torchrun's environment, or a default group already initialised) this
     takes the row-sharded path (parallel/sharded_train.py): each rank draws
-    its own B/T block of every batch, and only rank 0 logs. Otherwise it
-    takes the single-device path, as the JAX run does on one device.
+    its own B/T block of every batch, and only rank 0 logs; a full-pass
+    eval keeps the ranks in lockstep (a rank whose split has ended feeds
+    all-masked batches until every rank's has). Otherwise it takes the
+    single-device path, as the JAX run does on one device.
 
     With cfg.checkpoint_dir set it resumes from the latest checkpoint there
     (resharding the tables if the shard count changed, and skipping the
@@ -275,7 +310,8 @@ def run(cfg: TrainConfig, device=None, log_fn=print, interaction_fn=None,
     hierarchical and intra-host exchanges raise: only the flat one is
     ported."""
     from cffm_tpu_torch.checkpoint import CheckpointManager
-    from cffm_tpu_torch.data.loader import make_dataset
+    from cffm_tpu_torch.data.loader import device_prefetch, make_dataset
+    from cffm_tpu_torch.data.readers import resolve_paths
     from cffm_tpu_torch.parallel.mesh import close_mesh, make_mesh, requested_world_size
     from cffm_tpu_torch.utils.preemption import PreemptionGuard
     from cffm_tpu_torch.utils.tb import ScalarWriter
@@ -289,11 +325,17 @@ def run(cfg: TrainConfig, device=None, log_fn=print, interaction_fn=None,
             "exchange (table_axis='global') is ported")
     if interaction_fn is None:
         interaction_fn = default_interaction_fn(cfg)
+    wire_spec = None
+    if cfg.data.wire_format == "packed":
+        from cffm_tpu_torch.data import wire as wire_lib
+
+        wire_spec = wire_lib.spec_for_model(cfg.model)
     mesh = None
     if sharded:
         from cffm_tpu_torch.parallel.sharded_train import (create_sharded_state,
                                                            make_sharded_eval_step,
-                                                           make_sharded_train_step)
+                                                           make_sharded_train_step,
+                                                           wrap_wire_step)
 
         mesh = make_mesh(backend="gloo" if device.type == "cpu" else "nccl",
                          device=device if device.type == "cpu" else None)
@@ -304,17 +346,23 @@ def run(cfg: TrainConfig, device=None, log_fn=print, interaction_fn=None,
             cfg, torch.Generator(device=device).manual_seed(cfg.data.seed), mesh)
         step_fn = make_sharded_train_step(cfg, mesh, interaction_fn)
         sharded_eval = make_sharded_eval_step(cfg, mesh, interaction_fn)
+        wire_step_fn = (wrap_wire_step(step_fn, wire_spec, cfg.model)
+                        if wire_spec is not None else None)
 
-        def eval_fn(auc_state, ids, dense, labels):
-            return sharded_eval(state, auc_state, ids, dense, labels)[0]
+        def eval_fn(auc_state, ids, dense, labels, mask=None):
+            return sharded_eval(state, auc_state, ids, dense, labels, mask)[0]
     else:
         state = create_state(cfg, torch.Generator(device=device).manual_seed(cfg.data.seed))
 
         def step_fn(state, ids, dense, labels):
             return train_step(state, ids, dense, labels, cfg, interaction_fn)
 
-        def eval_fn(auc_state, ids, dense, labels):
-            return eval_step(state, auc_state, ids, dense, labels, cfg, interaction_fn)
+        def wire_step_fn(state, wire):
+            return train_step_wire(state, wire, wire_spec, cfg, interaction_fn)
+
+        def eval_fn(auc_state, ids, dense, labels, mask=None):
+            return eval_step(state, auc_state, ids, dense, labels, cfg, interaction_fn,
+                             mask=mask)
 
     rank, world = (mesh.rank, mesh.world) if mesh else (0, 1)
     guard = PreemptionGuard() if preemption_guard is None else preemption_guard
@@ -332,26 +380,42 @@ def run(cfg: TrainConfig, device=None, log_fn=print, interaction_fn=None,
                 log_fn(json.dumps({"resumed_from_step": start_step,
                                    "checkpoint_meta": meta}))
         ds = make_dataset(cfg, rank, world, skip_batches=start_step)
-        val_ds = make_dataset(cfg, rank, world, split="val")
+        # a window of the repeat-mode val stream; a full pass (eval_batches
+        # == 0 on a file dataset) makes a fresh one-pass stream per eval. A
+        # path that matches no file takes the synthetic stream, which has
+        # no end: it gets the window (the JAX run would never finish there)
+        windowed = cfg.data.eval_batches > 0 or not (
+            cfg.data.path and resolve_paths(cfg.data.path))
+        val_ds = make_dataset(cfg, rank, world, split="val") if windowed else None
 
         def run_eval():
-            # the synthetic stream is infinite: a fixed window of val batches
             auc_state = metrics.auc_state_init(device=device)
-            for _ in range(cfg.data.eval_batches or 32):
-                auc_state = eval_fn(auc_state, *batch_to_device(next(val_ds), device))
+            if windowed:
+                # the synthetic stream is infinite: a fixed window of batches
+                for _ in range(cfg.data.eval_batches or 32):
+                    auc_state = eval_fn(auc_state, *batch_to_device(next(val_ds), device))
+            else:
+                auc_state = _full_pass_eval(cfg, eval_fn, auc_state, rank, world, device,
+                                            None if mesh is None else mesh.group)
             return {k: float(v) for k, v in metrics.auc_state_finalize(auc_state).items()}
 
         # a stop request costs at most stop_every steps of progress
         stop_every = cfg.log_every or 50
         preempted_at = None
+        dev_ds = device_prefetch(ds, device)
         t0 = time.time()
         examples = 0
         last_loss = float("nan")
         m = None
         for step in range(start_step, cfg.data.num_train_steps):
-            ids, dense, labels = batch_to_device(next(ds), device)
-            state, m = step_fn(state, ids, dense, labels)
-            examples += int(labels.shape[0]) * world
+            item = next(dev_ds)
+            if wire_spec is not None:
+                state, m = wire_step_fn(state, item)
+                examples += int(item["labels"].shape[0]) * world
+            else:
+                ids, dense, labels = item
+                state, m = step_fn(state, ids, dense, labels)
+                examples += int(labels.shape[0]) * world
             if cfg.log_every and (step + 1) % cfg.log_every == 0:
                 last_loss = float(m["loss"])
                 elapsed = time.time() - t0
@@ -377,6 +441,7 @@ def run(cfg: TrainConfig, device=None, log_fn=print, interaction_fn=None,
                 log_fn(json.dumps({"preempted_at_step": preempted_at,
                                    "checkpoint_saved": bool(ckpt_mgr)}))
                 break
+        dev_ds.close()
 
         result = run_eval()
         if math.isnan(last_loss) and m is not None:
@@ -399,6 +464,53 @@ def run(cfg: TrainConfig, device=None, log_fn=print, interaction_fn=None,
         tb.close()
         if mesh is not None:
             close_mesh(mesh)
+
+
+def _full_pass_eval(cfg: TrainConfig, eval_fn, auc_state, rank: int, world: int,
+                    device: torch.device, group=None):
+    """One pass over this rank's held-out split into auc_state. Every batch
+    goes in at the full per-rank size: the last one padded with id 0
+    (always a valid table row) and mask 0, so the padding adds nothing.
+    With more than one rank, the ranks all-reduce an "alive" flag before
+    each batch and a rank whose split has ended feeds all-masked batches
+    until every rank's has, so the collectives of the eval step stay in
+    lockstep."""
+    import torch.distributed as dist
+
+    from cffm_tpu_torch.data.loader import make_dataset
+
+    per_rank = cfg.data.batch_size // world
+    f, nd = cfg.model.num_fields, cfg.model.num_dense
+    it = make_dataset(cfg, rank, world, split="val", repeat=False)
+    while True:
+        b = next(it, None)
+        alive = b is not None
+        if world > 1:
+            flag = torch.tensor([int(alive)], dtype=torch.int32, device=device)
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+            alive_any = bool(flag.item())
+        else:
+            alive_any = alive
+        if not alive_any:
+            return auc_state
+        mask = np.ones((per_rank,), np.float32)
+        if b is None:
+            b = {"ids": np.zeros((per_rank, f), np.int32),
+                 "dense": np.zeros((per_rank, nd), np.float32) if nd else None,
+                 "labels": np.zeros((per_rank,), np.float32)}
+            mask[:] = 0.0
+        else:
+            n = len(b["labels"])
+            pad = per_rank - n
+            if pad > 0:
+                b = {"ids": np.pad(b["ids"], ((0, pad), (0, 0))),
+                     "dense": None if b["dense"] is None
+                     else np.pad(b["dense"], ((0, pad), (0, 0))),
+                     "labels": np.pad(b["labels"], (0, pad))}
+                mask[n:] = 0.0
+        ids, dense, labels = batch_to_device(b, device)
+        auc_state = eval_fn(auc_state, ids, dense, labels,
+                            torch.from_numpy(mask).to(device))
 
 
 if __name__ == "__main__":

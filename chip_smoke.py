@@ -160,7 +160,24 @@ nonzero without them, or when any phase fails. Phases, in order:
      trace_step, in
      process, launch counts set to 0 before and read after each: exit code
      0, each kernel of its path launched, and each bench line with a value
-     and the card.
+     and the card;
+ 20. data: the data layer at criteo_kaggle's B=65536: the native parser
+     built from native/cffm_native.cpp; a Criteo TSV of 13 x 65536 rows and
+     an Avazu CSV of 2 x 65536 rows written from a seed; the native-mt,
+     native and Python readers bit-equal on both (host ms per batch of
+     each); the reader's rows/s at 1, 2, 4 and 8 threads and the .cfb
+     read (scripts.bench_input); train.run on the TSV at full width for 3
+     steps with eval_batches=0 (a full pass over the held-out split, its
+     last batch padded), once with device_prefetch and once with a
+     synchronous copy in its place: kernels 1-4 launched (kernel 1 once
+     per step and per eval batch), the native-mt route's chunk parser
+     called, the eval count equal to the split's rows, and losses, eval
+     and every state leaf bit-equal between the two; the H2D bytes and ms
+     of a raw and a packed batch from pinned memory, the packed batch's
+     unpack on the card (its ids equal to the raw batch's) and its pack
+     on the host; and
+     the bench's staged, reader and prehashed feeds in one call, kernels
+     1-4 launched in each.
 
 Prints one JSON line of kernel records, then the card line, and ends
 with {"ok": true, "device": {...}}.
@@ -2977,10 +2994,260 @@ def phase_tools() -> dict:
     return out
 
 
+DATA_BATCH = 65536
+# the data phase's bench lines: (name, argv); staged beside the two file feeds
+DATA_FEEDS = (("staged", ["--feed=staged"]), ("reader", ["--feed=reader"]),
+              ("prehashed", ["--feed=prehashed"]))
+
+
+def _hold_streams(want, got, what: str) -> int:
+    """Two batch streams ((ids, dense | None, labels) numpy tuples) bit for
+    bit; returns the rows compared."""
+    import numpy as np
+
+    rows = 0
+    for i, (a, b) in enumerate(zip(want, got, strict=True)):
+        for x, y in zip(a, b):
+            if (x is None) != (y is None) or (x is not None and not (
+                    x.dtype == y.dtype and np.array_equal(x, y))):
+                fail(f"data {what}: batch {i} differs")
+        rows += len(a[0])
+    return rows
+
+
+def _h2d(batch: dict, device, reps: int = 20) -> dict:
+    """Bytes of one host batch and the ms of its copy from pinned memory to
+    the card (non_blocking, CUDA events)."""
+    import torch
+
+    from cffm_tpu_torch.data.wire import host_tensor
+
+    host = [host_tensor(v).pin_memory() for v in batch.values() if v is not None]
+    nbytes = sum(t.numel() * t.element_size() for t in host)
+    ms = cuda_ms(lambda: [t.to(device, non_blocking=True) for t in host], reps)
+    return {"bytes": nbytes, "ms": ms, "gb_s": nbytes / ms / 1e6}
+
+
+def _host_ms(fn, reps: int = 5) -> float:
+    """Host-clock ms per call of a host function, after one warm call."""
+    fn()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t) * 1e3 / reps
+
+
+def phase_data() -> dict:
+    """The data layer on the card's machine (criteo_kaggle, B=65536): the
+    native parser built, native-mt against native against Python batches
+    bit for bit (Criteo TSV and Avazu CSV written from a seed), the host
+    reader's rows/s at 1, 2, 4 and 8 threads (scripts.bench_input), train.run
+    on the TSV at full width for 3 steps with a full-pass eval, once with
+    device_prefetch and once with a synchronous copy in its place (loss,
+    eval and every state leaf bit-equal; kernels 1-4 launched; the native-mt
+    route parsed the chunks), the staged, reader and prehashed bench feeds
+    in one call, and the H2D bytes and ms of a raw and a packed batch (and
+    the host ms of the pack)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cffm_tpu_torch import bench, train
+    from cffm_tpu_torch.config import get_config
+    from cffm_tpu_torch.data import loader, native, readers
+    from cffm_tpu_torch.data import wire as wire_lib
+    from cffm_tpu_torch.scripts import bench_input
+
+    b = DATA_BATCH
+    out = {}
+    t0 = time.perf_counter()
+    if not native.available():
+        fail("data: the native parser is unavailable (no g++)")
+    print(f"data: native parser {native.lib_path().name} ready in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    mcfg = get_config("criteo_kaggle").model
+    acfg = get_config("avazu").model
+    with tempfile.TemporaryDirectory() as d:
+        tsv, csv = os.path.join(d, "criteo.tsv"), os.path.join(d, "avazu.csv")
+        t0 = time.perf_counter()
+        bench_input._write_criteo(tsv, 13 * b)
+        bench_input._write_avazu(csv, 2 * b)
+        print(f"data: wrote {os.path.getsize(tsv):,} B of Criteo TSV and "
+              f"{os.path.getsize(csv):,} B of Avazu CSV in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+
+        # the three routes, bit for bit (no split: every route sees every row)
+        for name, path, cfg_m, fns, n in (
+                ("criteo", tsv, mcfg, (readers.criteo_batches_native_mt,
+                                       readers.criteo_batches_native,
+                                       readers.criteo_batches), 3),
+                ("avazu", csv, acfg, (readers.avazu_batches_native_mt,
+                                      readers.avazu_batches_native,
+                                      readers.avazu_batches), 2)):
+            streams, secs = [], []
+            for fn in fns:
+                t = time.perf_counter()
+                it = fn(path, cfg_m, b, repeat=False)
+                streams.append([next(it) for _ in range(n)])
+                secs.append(time.perf_counter() - t)
+                it.close()
+            rows = _hold_streams(streams[0], streams[1], f"{name} native-mt vs native")
+            _hold_streams(streams[0], streams[2], f"{name} native-mt vs Python")
+            print(f"data {name}: native-mt, native and Python readers bit-equal over {rows} "
+                  f"rows ({n} batches of {b}); host ms per batch "
+                  f"{', '.join(f'{x * 1e3 / n:.1f}' for x in secs)}", flush=True)
+            out[f"{name}_reader_ms_per_batch"] = dict(zip(("native_mt", "native", "python"),
+                                                          (x * 1e3 / n for x in secs)))
+
+        # host reader rows/s by thread count, and the pre-hashed read
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = bench_input.main([f"--rows={13 * b}", "--threads=1,2,4,8", f"--batch={b}"])
+        lines = [json.loads(x) for x in buf.getvalue().splitlines()]
+        for rec in lines:
+            print(f"data bench_input: {json.dumps(rec)}", flush=True)
+        if rc != 0:
+            fail(f"data: bench_input exit code {rc}")
+        out["rows_per_s"] = {r["threads"]: r["value"] for r in lines
+                             if r["metric"] == "input_rows_per_s"}
+        out["prehashed_rows_per_s"] = next(r["value"] for r in lines
+                                           if r["metric"] == "input_rows_per_s_prehashed")
+
+        # train.run on the file at full width, with and without the prefetch
+        cfg = _run_cfg({"data.batch_size": b, "data.num_train_steps": 3,
+                        "data.eval_batches": 0, "data.path": tsv, "log_every": 1})
+        if readers.reader_route(cfg.data.reader_threads) != "native_mt":
+            fail("data: the run would not take the native-mt route")
+        val_rows = [len(x["labels"]) for x in loader.make_dataset(
+            cfg, prefetch=0, split="val", repeat=False)]
+        if not val_rows or val_rows[-1] == b:
+            fail(f"data: want a val split ending in a partial batch, got {val_rows}")
+
+        def sync_copies(batches, device, depth=2):
+            for x in batches:
+                yield train.batch_to_device(x, device)
+
+        runs = {}
+        for name in ("prefetch", "no_prefetch"):
+            states, logs, chunks = [], [], [0]
+            make_state, parse = train.create_state, readers._parse_criteo_chunk
+            prefetch = loader.device_prefetch
+
+            def capture(*a, **k):
+                states.append(make_state(*a, **k))
+                return states[-1]
+
+            def counted(*a, **k):
+                chunks[0] += 1
+                return parse(*a, **k)
+
+            train.create_state, readers._parse_criteo_chunk = capture, counted
+            if name == "no_prefetch":
+                loader.device_prefetch = sync_copies
+            try:
+                torch.cuda.synchronize()
+                _reset_counts()
+                t = time.perf_counter()
+                result = train.run(cfg, device="cuda", log_fn=logs.append)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                counts = _counts()
+            finally:
+                train.create_state, readers._parse_criteo_chunk = make_state, parse
+                loader.device_prefetch = prefetch
+            losses = [json.loads(x)["loss"] for x in logs if '"loss"' in x]
+            launched = {k: v for k, v in counts.items() if v}
+            print(f"data train.run {name}: B={b} 3 steps on the TSV, losses {losses}, "
+                  f"full-pass eval {json.dumps(result)} over {sum(val_rows)} rows in "
+                  f"{len(val_rows)} batches, launches {launched}, native-mt chunks parsed "
+                  f"{chunks[0]}, wall {wall:.1f}s", flush=True)
+            want = {"cross_conv1_lin_fm2": 3 + len(val_rows), "cross_conv1_bwd": 3,
+                    "sorted_segment_sum_compact": 3, "streamed_rowwise_apply": 3}
+            if launched != want:
+                fail(f"data train.run {name}: want launches {want}, got {launched}")
+            if not chunks[0]:
+                fail(f"data train.run {name}: the native-mt reader parsed no chunk")
+            if result["count"] != sum(val_rows):
+                fail(f"data train.run {name}: eval count {result['count']}, want "
+                     f"{sum(val_rows)}")
+            if not all(math.isfinite(x) for x in losses + [result["auc"], result["logloss"]]):
+                fail(f"data train.run {name}: loss or AUC not finite")
+            runs[name] = (losses, result, states[0])
+            out[f"train_run_{name}"] = {"losses": losses, "eval": result, "wall_s": wall,
+                                        "launches": launched}
+        (l_on, r_on, s_on), (l_off, r_off, s_off) = runs["prefetch"], runs["no_prefetch"]
+        bad = _unequal_leaves(s_on, s_off)
+        if l_on != l_off or r_on != r_off or bad:
+            fail(f"data: prefetch on and off differ: losses {l_on} vs {l_off}, eval "
+                 f"{r_on} vs {r_off}, leaves {bad[:5]}")
+        print("data: train.run with device_prefetch equals train.run without it bit for "
+              "bit (losses, full-pass eval, every state leaf)", flush=True)
+        del runs, s_on, s_off
+        torch.cuda.empty_cache()
+
+        # H2D of one batch, raw against packed, and the packed batch's unpack
+        raw = next(loader.make_dataset(cfg, prefetch=0))
+        packed = loader.make_dataset(dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, wire_format="packed")), prefetch=0)
+        packed = next(packed)["wire"]
+        spec = wire_lib.spec_for_model(cfg.model)
+        dev = {k: wire_lib.host_tensor(v).cuda() for k, v in packed.items()}
+        ids, _, labels = wire_lib.unpack(dev, spec)
+        if not torch.equal(ids.cpu() + train.wire_offsets(cfg.model, "cpu"),
+                           torch.from_numpy(raw["ids"])):
+            fail("data: the packed batch does not unpack to the raw batch's ids")
+        local = [np.asarray(raw["ids"]) - train.wire_offsets(cfg.model, "cpu").numpy(),
+                 raw["dense"], raw["labels"]]
+        out["h2d"] = {"raw": _h2d(raw, "cuda"), "packed": _h2d(packed, "cuda"),
+                      "unpack_ms": cuda_ms(lambda: wire_lib.unpack(dev, spec), 20),
+                      "pack_host_ms": _host_ms(lambda: wire_lib.pack(*local, spec))}
+        h = out["h2d"]
+        print(f"data h2d per batch of {b}: raw {h['raw']['bytes']:,} B in "
+              f"{h['raw']['ms']:.4f} ms ({h['raw']['gb_s']:.2f} GB/s), packed "
+              f"{h['packed']['bytes']:,} B in {h['packed']['ms']:.4f} ms "
+              f"({h['packed']['gb_s']:.2f} GB/s) + unpack {h['unpack_ms']:.4f} ms on the card; "
+              f"the pack takes {h['pack_host_ms']:.2f} ms of one host core", flush=True)
+
+    # the bench's staged and file feeds in one call
+    feeds = {}
+    for name, argv in DATA_FEEDS:
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        _reset_counts()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = bench.main(argv)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in _counts().items() if v}
+        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+        print(f"data bench {name}: {json.dumps(rec)} rc {rc} in "
+              f"{time.perf_counter() - t:.1f}s, launches {counts}", flush=True)
+        if rc != 0 or not rec["value"] > 0 or "error" in rec:
+            fail(f"data bench {name}: {rec}")
+        for k in ("cross_conv1_lin_fm2", "cross_conv1_bwd", "sorted_segment_sum_compact",
+                  "streamed_rowwise_apply"):
+            if not counts.get(k):
+                fail(f"data bench {name}: kernel {k} never launched ({counts})")
+        feeds[name] = rec["value"]
+        torch.cuda.empty_cache()
+    out["feeds"] = feeds
+    step_ms = b / feeds["staged"] * 1e3
+    host_ms = b / out["rows_per_s"][4] * 1e3
+    print(f"data: host ms per batch of {b} (native-mt, 4 threads) {host_ms:.2f} beside the "
+          f"staged train step's {step_ms:.2f} ms; ex/s staged {feeds['staged']:.1f}, reader "
+          f"{feeds['reader']:.1f}, prehashed {feeds['prehashed']:.1f}", flush=True)
+    out.update(host_ms_per_batch=host_ms, staged_step_ms=step_ms)
+    return out
+
+
 PHASES = ("parity", "parity_bwd", "parity_caps", "parity_segment", "parity_apply", "serve",
           "time", "train", "checkpoint", "step_vs_cpu", "time_train", "parity_segment_by_seg",
           "parity_bucketed", "train_sharded", "sharded_multi", "time_sharded",
-          "parity_bwd_v1", "parity_dot_probe", "tools")
+          "parity_bwd_v1", "parity_dot_probe", "tools", "data")
 # the phases that run on the NCCL group of one
 GROUP_PHASES = ("train_sharded", "time_sharded")
 
@@ -3071,6 +3338,7 @@ def _run_phases(phases, phase, mesh) -> int:
     v1 = phase("parity_bwd_v1", phase_parity_bwd_v1)
     probe = phase("parity_dot_probe", phase_parity_dot_probe)
     tools = phase("tools", phase_tools)
+    phase("data", phase_data)
 
     if set(phases) == set(PHASES):
         t = times[4096]

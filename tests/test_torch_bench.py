@@ -1,7 +1,7 @@
 """The port's bench (`cffm_tpu_torch.bench`) on the CPU at a tiny config:
 the staged, score and sharded feeds run end to end (sharded on a gloo
 group of one, rendezvous through a file in tmp_path), the staged batch is
-`bench.py`'s recipe, the reader feeds raise, the ladder retries only on
+`bench.py`'s recipe, the reader feeds run from written files, the ladder retries only on
 out-of-memory, and without a card `main()` prints its JSON line with an
 error and returns nonzero."""
 
@@ -84,8 +84,15 @@ def test_sharded_feed_makes_and_closes_its_own_group():
 
 @pytest.mark.parametrize("feed", ["reader", "prehashed"])
 def test_reader_feeds_wait_on_the_data_layer(feed):
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        bench.run_feed(_tiny(), feed, device="cpu")
+    """The file feeds run on the CPU at a narrow criteo-shaped config: a
+    written TSV (converted to .cfb for prehashed) through the reader, the
+    packed wire, device_prefetch and train_step_wire."""
+    cfg = dataclasses.replace(bench.bench_config("criteo_kaggle", 64, "float32"),
+                              model=config.ModelConfig(
+                                  num_fields=39, vocab_sizes=(64,) * 13 + (1000,) * 26,
+                                  embed_dim=4, conv_channels=(8,), tower_hidden=(16,),
+                                  num_dense=13, compute_dtype="float32"))
+    assert bench.run_feed(cfg, feed, device="cpu", n=2) > 0
 
 
 def test_main_without_a_card_fails_with_its_json_line(capsys, monkeypatch):

@@ -130,3 +130,41 @@ def test_run_refuses_the_exchanges_of_the_next_slice(axis, monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="next sharded slice"):
         train.run(cfg, device="cpu")
+
+
+def test_two_rank_full_pass_eval_equals_one_rank(tmp_path):
+    """A full-pass eval on 2 gloo ranks whose val splits are uneven (rank
+    0 holds two of the three held-out chunks, so rank 1 feeds all-masked
+    batches to keep the collectives in step) equals the one-rank eval of
+    the same params over the whole split; and train.run on the 2 ranks
+    with eval_batches=0 counts every held-out row once."""
+    import torch_data_files as files
+    from cffm_tpu_torch.metrics import auc_state_finalize, auc_state_init
+    from cffm_tpu_torch.scripts.bench_input import _write_criteo
+
+    path = str(tmp_path / "c.tsv")
+    _write_criteo(path, 3000)
+    _, one = files.cfg_pair("criteo_kaggle", model=files.NARROW_CRITEO, path=path,
+                            dataset="criteo", batch_size=128, val_every=4, eval_batches=0,
+                            reader_threads=1, num_train_steps=1)
+    two = dataclasses.replace(one, data=dataclasses.replace(one.data, batch_size=256),
+                              sharding=dataclasses.replace(one.sharding, table_sharded=True))
+    state = train.create_state(one, torch.Generator().manual_seed(0))
+
+    def eval_fn(auc_state, ids, dense, labels, mask=None):
+        return train.eval_step(state, auc_state, ids, dense, labels, one, mask=mask)
+
+    want = auc_state_finalize(train._full_pass_eval(one, eval_fn, auc_state_init(), 0, 1,
+                                                    torch.device("cpu")))
+    ranks = worker.run(worker.full_pass, tmp_path, 2, cfg=two, params=state.params,
+                       run_cfg=dataclasses.replace(two, log_every=0))
+    rows = [r["rows"] for r in ranks]
+    assert len(rows[0]) == len(rows[1]) and sum(rows[0]) > sum(rows[1]) > 0
+    assert rows[1][-1] == 0  # rank 1 ran out first and fed an all-masked batch
+    for r in ranks:
+        got = auc_state_finalize(r["auc"])
+        assert float(got["count"]) == float(want["count"]) == sum(map(sum, rows))
+        for key in ("auc", "logloss", "calibration"):
+            assert float(got[key]) == pytest.approx(float(want[key]), rel=1e-5), key
+        assert r["result"]["count"] == float(want["count"])
+        assert np.isfinite(r["result"]["auc"])

@@ -249,3 +249,29 @@ def test_cli_trains_with_dotted_overrides(capsys):
         cli_main(["--config=movielens", "--device=cpu", "data.bogus=1"])
     with pytest.raises(SystemExit, match="unrecognized argument"):
         cli_main(["--config=movielens", "--device=cpu", "stray"])
+
+
+def test_cli_profile_dir_writes_a_trace(tmp_path, capsys):
+    """--profile_dir, which the JAX CLI takes, wraps the run in the port's
+    torch.profiler trace."""
+    rc = cli_main(["--config=movielens", f"--profile_dir={tmp_path / 'prof'}", "--device=cpu",
+                   "data.batch_size=32", "data.num_train_steps=2", "data.eval_batches=1",
+                   "log_every=1"])
+    assert rc == 0
+    assert '"eval"' in capsys.readouterr().out
+    trace = tmp_path / "prof" / "trace.json"
+    assert trace.exists() and json.loads(trace.read_text())["traceEvents"]
+
+
+def test_cli_distributed_needs_torchrun(monkeypatch):
+    """--distributed without torchrun's environment exits non-zero and
+    says how to launch; with it, the flag is taken."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(SystemExit) as exc:
+        cli_main(["--config=movielens", "--distributed", "--device=cpu"])
+    assert "torchrun" in str(exc.value.code) and exc.value.code != 0
+    calls = []
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setattr(train, "run", lambda cfg, device=None: calls.append(device) or {"auc": 0.5})
+    assert cli_main(["--config=movielens", "--distributed", "--device=cpu"]) == 0
+    assert calls == ["cpu"]

@@ -234,3 +234,38 @@ def probed_step(rank: int, world: int, out_dir: str, cfg, np_state, ids, labels)
         _save(out_dir, rank, out)
     finally:
         close_mesh(mesh)
+
+
+def full_pass(rank: int, world: int, out_dir: str, cfg, params, run_cfg):
+    """A full-pass eval of this rank's held-out split with the sharded eval
+    step, from rank's mod-shard of the natural-order params (local row l is
+    global row l * world + rank); then train.run(run_cfg) in the same group
+    (its own sharded state). Saves the AUC state and run's result."""
+    from cffm_tpu_torch import train
+    from cffm_tpu_torch.metrics import auc_state_init
+    from cffm_tpu_torch.parallel.mesh import close_mesh
+    from cffm_tpu_torch.parallel.sharded_train import make_sharded_eval_step
+
+    mesh = _mesh(rank, world, out_dir)
+    try:
+        def shard(table):
+            pad = -len(table) % world
+            return torch.cat([table, table.new_zeros((pad, table.shape[1]))])[rank::world]
+
+        params = dict(params, embed={"table": shard(params["embed"]["table"])})
+        if "table" in params.get("linear", {}):
+            params["linear"] = dict(params["linear"], table=shard(params["linear"]["table"]))
+        state = train.TrainState(0, params, {}, {})
+        step = make_sharded_eval_step(cfg, mesh, train.default_interaction_fn(cfg))
+        batches = []
+
+        def eval_fn(auc_state, ids, dense, labels, mask=None):
+            batches.append(int(mask.sum()))
+            return step(state, auc_state, ids, dense, labels, mask)[0]
+
+        auc = train._full_pass_eval(cfg, eval_fn, auc_state_init(), rank, world,
+                                    torch.device("cpu"), mesh.group)
+        result = train.run(run_cfg, device="cpu", log_fn=lambda *_: None)
+        _save(out_dir, rank, {"auc": auc, "rows": batches, "result": result})
+    finally:
+        close_mesh(mesh)
