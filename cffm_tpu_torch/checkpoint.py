@@ -8,9 +8,9 @@ checkpoint is one directory per step:
     <directory>/<step>/dense.pt        rank 0: the step, the dense params
                                        and the dense optimizer's state, and
                                        the sparse state's counters
-    <directory>/<step>/shard00000.pt   rank r: its table shard, its linear
-    ...                                table shard, and its rows of every
-                                       per-row optimizer leaf (accum, m, v)
+    <directory>/<step>/shard00000.pt   table shard s: the table, linear
+    ...                                table and every per-row optimizer
+                                       leaf (accum, m, v) of shard s
 
 Every file is written with `torch.save`. A save writes under
 `<step>.partial`; after a barrier on the group, rank 0 writes meta.json
@@ -22,11 +22,15 @@ The mod-sharded layout of the tables depends on the shard count T
 (`parallel/sharded_embedding.py`: global id g at shard g % T, local row
 g // T). In the JAX package the sharded state is one global array in
 that layout; in the port each rank holds its own (Vs, W) block. Either
-way the saved rows are the same: rank r's file holds rows
-[r*Vs, (r+1)*Vs) of JAX's global storage. `restore_auto` onto another
-shard count reads every shard file, rebuilds the natural row order and
-keeps this rank's rows of the new layout, as JAX's `reshard_tables`
-does.
+way the saved rows are the same: shard s's file holds rows
+[s*Vs, (s+1)*Vs) of JAX's global storage. Rank r holds table shard
+r % num_shards: the rank itself on the flat and hierarchical engines,
+its chip index on the intra-host engine (rank h*C + c of a group of H
+hosts of C cards, the tables sharded over C and replicated over the
+hosts). Only the ranks r < num_shards (host 0's) write shard files.
+`restore_auto` onto another shard count reads every shard file,
+rebuilds the natural row order and keeps this rank's shard of the new
+layout, as JAX's `reshard_tables` does.
 """
 
 from __future__ import annotations
@@ -110,6 +114,11 @@ def _group() -> tuple:
     return 0, 1
 
 
+def _table_shard(num_shards: int) -> int:
+    """The table shard this rank holds under num_shards shards."""
+    return _group()[0] % num_shards
+
+
 def _barrier() -> None:
     if _group()[1] > 1:
         if dist.get_backend() == "nccl":
@@ -162,8 +171,9 @@ class CheckpointManager:
 
     def save(self, step: int, state: TrainState, cfg: TrainConfig,
              num_shards: int = 1, wait: bool = False) -> bool:
-        """Save state as step. num_shards: how many ranks hold table
-        shards (1 for a replicated table). The tensors are copied to the
+        """Save state as step. num_shards: how many table shards the group
+        holds (1 for a replicated table; ranks r and r + num_shards hold
+        the same one). The tensors are copied to the
         host before this returns; with wait=False the files are written
         on a thread and committed by the next save, wait_until_finished()
         or close(). A step at or below the latest committed one is not
@@ -184,7 +194,7 @@ class CheckpointManager:
         files = {}
         if rank == 0:
             files[_DENSE] = {p: host(x) for p, x in flat.items() if p not in tables}
-        if rank < num_shards:
+        if rank < num_shards:  # one writer a shard: the first host's ranks
             files[_shard_file(rank)] = {p: host(flat[p]) for p in tables}
         partial = self._step_dir(step) + _PARTIAL
         if rank == 0:
@@ -242,13 +252,15 @@ class CheckpointManager:
     def restore(self, state_like: TrainState, step: Optional[int] = None
                 ) -> tuple[TrainState, dict]:
         """Restore into the structure, devices and dtypes of state_like,
-        saved under the shard count this group restores with: rank r
-        reads its own shard file."""
+        saved under the shard count this group restores with: rank r reads
+        the file of its shard, r % num_table_shards."""
         step = self._resolve(step)
         d = self._step_dir(step)
+        meta = self.restore_meta(step)
         flat = _load(os.path.join(d, _DENSE))
-        flat.update(_load(os.path.join(d, _shard_file(_group()[0]))))
-        return _state_from_flat(state_like, flat), self.restore_meta(step)
+        shard = _table_shard(int(meta.get("num_table_shards", 1)))
+        flat.update(_load(os.path.join(d, _shard_file(shard))))
+        return _state_from_flat(state_like, flat), meta
 
     def restore_auto(self, state_like: TrainState, cfg: TrainConfig, num_shards: int,
                      step: Optional[int] = None) -> tuple[TrainState, dict]:
@@ -267,12 +279,12 @@ class CheckpointManager:
         d = self._step_dir(step)
         flat = _load(os.path.join(d, _DENSE))
         shards = [_load(os.path.join(d, _shard_file(r))) for r in range(from_shards)]
-        rank, v = _group()[0], cfg.model.total_vocab
+        shard, v = _table_shard(num_shards), cfg.model.total_vocab
         for path in shards[0]:
             storage = torch.cat([s[path] for s in shards])
             new = _remap(storage, v, from_shards, num_shards)
             vs = new.shape[0] // num_shards
-            flat[path] = new[rank * vs:(rank + 1) * vs]
+            flat[path] = new[shard * vs:(shard + 1) * vs]
         return _state_from_flat(state_like, flat), meta
 
     def close(self) -> None:

@@ -23,8 +23,11 @@ and returns the port's `train.TrainState`. The step counters ("count",
 `sharded_state_from_jax(np_state, rank, world, device)` does the same
 for a state of JAX's `create_sharded_state` (the same tree, tables and
 per-row state in mod-sharded global storage) and returns rank's share
-for the port's sharded step. `natural_from_shards` puts the ranks'
-shards of one table back into the natural row order.
+for the port's sharded step (the flat and the hierarchical engine:
+shard h*C + c is rank h*C + c). `sharded_state_2d_from_jax` does it for
+a state of JAX's `create_sharded_state_2d` (tables sharded over the C
+chips of a host, the same rows on every host). `natural_from_shards`
+puts the ranks' shards of one table back into the natural row order.
 """
 
 from __future__ import annotations
@@ -99,6 +102,13 @@ def sharded_state_from_jax(np_state, rank: int, world: int, device="cpu"):
         "dense_opt_state": np_state["dense_opt_state"],
         "sparse_opt_state": _shard_rows(np_state["sparse_opt_state"], rank, world)},
         device)
+
+
+def sharded_state_2d_from_jax(np_state, rank: int, chips_per_host: int, device="cpu"):
+    """Rank's share of a JAX intra-host (2D) sharded TrainState given as
+    numpy: the rows of its chip index, rank % chips_per_host, of the
+    global storage sharded over chips_per_host; the same on every host."""
+    return sharded_state_from_jax(np_state, rank % chips_per_host, chips_per_host, device)
 
 
 def natural_from_shards(shards, num_rows: int) -> torch.Tensor:

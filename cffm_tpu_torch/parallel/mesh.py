@@ -7,6 +7,11 @@ that axis is a `torch.distributed` process group with one process per
 device: NCCL between CUDA cards, gloo between CPU processes (the tests).
 A process's rank is its shard index.
 
+The hierarchical and intra-host engines see the group as a (host, chip)
+grid (`make_mesh_2d`): rank r is host r // C, chip r % C (host-major, as
+torchrun numbers ranks), with a sub-`Mesh` over the ranks of this host
+("chip") and one over the ranks with this chip index ("host").
+
 Build a `Mesh` with `make_mesh()`:
   - under torchrun (or any launcher that sets RANK, WORLD_SIZE and
     MASTER_ADDR/MASTER_PORT), with no arguments;
@@ -93,3 +98,76 @@ def requested_world_size() -> int:
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size()
     return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+class Mesh2D(NamedTuple):
+    """This process's place in the (host, chip) grid of the flat group:
+    rank r = host * C + chip. `chip` is the sub-mesh of this host's ranks
+    (its rank is the chip index, its world C), `host` the sub-mesh of the
+    ranks with this chip index (its rank is the host index, its world H).
+    A sub-mesh that spans the whole group is the flat group itself."""
+    flat: Mesh
+    chip: Mesh
+    host: Mesh
+
+    @property
+    def num_hosts(self) -> int:
+        return self.host.world
+
+    @property
+    def chips_per_host(self) -> int:
+        return self.chip.world
+
+
+def grid_shape(world: int, num_hosts: Optional[int] = None,
+               chips_per_host: Optional[int] = None) -> tuple:
+    """(H, C) of a group of world ranks: C from chips_per_host, else from
+    num_hosts, else torchrun's LOCAL_WORLD_SIZE, else world (one host).
+    Raises unless H * C == world."""
+    if chips_per_host is None:
+        chips_per_host = (world // num_hosts if num_hosts
+                          else int(os.environ.get("LOCAL_WORLD_SIZE", world)))
+    h = num_hosts or (world // chips_per_host if chips_per_host > 0 else 0)
+    if chips_per_host < 1 or h * chips_per_host != world:
+        raise ValueError(f"a group of {world} ranks is not a whole number of hosts of "
+                         f"{chips_per_host} chips (num_hosts={num_hosts})")
+    return h, chips_per_host
+
+
+def make_mesh_2d(num_hosts: Optional[int] = None, chips_per_host: Optional[int] = None,
+                 init_method: Optional[str] = None, rank: Optional[int] = None,
+                 world_size: Optional[int] = None, backend: Optional[str] = None,
+                 device=None) -> Mesh2D:
+    """The (host, chip) grid of the flat group (`make_mesh`'s arguments
+    build or join it). By default C is torchrun's LOCAL_WORLD_SIZE and H
+    the world over C; tests pass both. The grid is checked against the
+    world size before the group is joined when the size is known. Every
+    rank builds every subgroup in the same order (`new_group` is
+    collective)."""
+    known = world_size or (dist.get_world_size() if dist.is_initialized()
+                           else os.environ.get("WORLD_SIZE"))
+    if known:
+        grid_shape(int(known), num_hosts, chips_per_host)
+    flat = make_mesh(init_method, rank, world_size, backend, device)
+    try:
+        h, c = grid_shape(flat.world, num_hosts, chips_per_host)
+        hi, ci = divmod(flat.rank, c)
+
+        def sub(ranks_of, count, mine):
+            group = None
+            for i in range(count):
+                ranks = ranks_of(i)
+                if len(ranks) == flat.world:
+                    continue  # the whole group: the flat group itself
+                g = dist.new_group(ranks=ranks)
+                if i == mine:
+                    group = g
+            return group
+
+        chip_group = sub(lambda i: [i * c + j for j in range(c)], h, hi)
+        host_group = sub(lambda i: [j * c + i for j in range(h)], c, ci)
+    except BaseException:
+        close_mesh(flat)
+        raise
+    return Mesh2D(flat, Mesh(chip_group, ci, c, flat.device, False),
+                  Mesh(host_group, hi, h, flat.device, False))

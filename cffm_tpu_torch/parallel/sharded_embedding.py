@@ -64,19 +64,32 @@ def all_to_all(x: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def build_routing(ids_flat: torch.Tensor, capacity: int, mesh,
-                  rows_per_shard: int | None = None) -> Routing:
+                  rows_per_shard: int | None = None,
+                  keys: torch.Tensor | None = None) -> Routing:
     """Dedup, bucket by owner and exchange the ids. Per-shard view.
 
     ids_flat: (n,) int32 global ids of this shard's batch, n > 0.
     capacity: per-peer bucket size C. rows_per_shard: the shards' local
-    row count Vs (without it a conservative 2^31/T key stride is used)."""
+    row count Vs (without it a conservative 2^31/T key stride is used).
+    keys: optional sort keys in place of the mod-sharding formula, equal
+    to owner * stride + local with owner in [0, T] and local in [0,
+    stride); rows_per_shard is then required (it is the stride). Owner T
+    marks sentinel entries: they sort last, fall past the last owner
+    boundary and are never bucketed; their exchange slots point past the
+    (T, C) buffer, as JAX's do, and every gather fed by them clamps. The
+    hierarchical exchange (parallel/hier_embedding.py) routes both of its
+    stages through this."""
     n = ids_flat.shape[0]
     t = mesh.world
     dev = ids_flat.device
+    if keys is not None and not rows_per_shard:
+        raise ValueError("keys= requires rows_per_shard (the key stride)")
     stride = int(rows_per_shard) if rows_per_shard else (1 << 31) // t
 
-    ids = ids_flat.long()
-    sk, order = torch.sort((ids % t) * stride + ids // t, stable=True)
+    if keys is None:
+        ids = ids_flat.long()
+        keys = (ids % t) * stride + ids // t
+    sk, order = torch.sort(keys.long(), stable=True)
     is_first = torch.ones((n,), dtype=torch.int32, device=dev)
     is_first[1:] = (sk[1:] != sk[:-1]).to(torch.int32)
     seg = torch.cumsum(is_first, 0, dtype=torch.int32) - 1
@@ -90,7 +103,8 @@ def build_routing(ids_flat: torch.Tensor, capacity: int, mesh,
     counts = start[1:] - start[:-1]
     overflow = torch.clamp(counts - capacity, min=0).sum().to(torch.int32)
 
-    rank_pos = seg - start[owner_pos]
+    # sentinels (owner T) count from owner T-1's start, as in JAX
+    rank_pos = seg - start[owner_pos.clamp(max=t - 1)]
     slot_of_sorted = torch.where(rank_pos < capacity, owner_pos * capacity + rank_pos,
                                  torch.full_like(rank_pos, -1))
     idx_of_pos = torch.empty_like(slot_of_sorted)

@@ -26,9 +26,12 @@ build that case; the port takes the single-device all-small branch).
 With `cfg.debug_barriers` the step prints a line before and after each
 collective region (`utils/debugging.collective_probe`, JAX's eight tags).
 
-`wrap_wire_step` gives a step the packed wire batch (`data/wire.py`).
-Only the flat exchange is ported; the hierarchical and intra-host
-exchanges come with the next slice.
+The exchange is the router's: `FlatRouter` (one all-to-all over the
+group) or `HierRouter` (the two-stage host-level dedup of
+`parallel/hier_embedding.py` over a (host, chip) grid, the same table
+layout and state). The intra-host engine's router (`parallel/dcn_mesh.py`)
+also replaces the per-row apply. `wrap_wire_step` gives any of their
+steps the packed wire batch (`data/wire.py`).
 """
 
 from __future__ import annotations
@@ -45,11 +48,20 @@ from cffm_tpu_torch.optim.rowwise import (bucketed_rowwise_update, dense_rowwise
                                           fold_in, make_dense_optimizer, rowwise_init,
                                           scale_updates, schedule_factor, sr_keys,
                                           tree_leaves, tree_unflatten, unique_bound)
+from cffm_tpu_torch.parallel import hier_embedding as he
 from cffm_tpu_torch.parallel import sharded_embedding as se
-from cffm_tpu_torch.parallel.mesh import Mesh
+from cffm_tpu_torch.parallel.mesh import Mesh, Mesh2D
 from cffm_tpu_torch.train import (TrainState, _prefix_grad, merge_dense_params,
                                   split_dense_params)
 from cffm_tpu_torch.utils.debugging import collective_probe
+
+
+# A shard whose f32 draw passes INIT_DRAW_BYTES is drawn INIT_ROWS rows a
+# randn call: one draw holds two f32 copies beside the table, more than an
+# 80 GB card has past 24 GiB (multihost's 26M x 640 rows on 1 or 2 shards).
+# Smaller shards keep the one draw, and with it their random stream.
+INIT_DRAW_BYTES = 24 << 30
+INIT_ROWS = 1 << 18
 
 
 def _round_up(x: int, m: int) -> int:
@@ -62,11 +74,20 @@ class FlatRouter:
     The capacity is fixed at construction (it sizes the exchange
     buffers); the distinct-id bound and the overflow-mask elision follow
     the batch each build() sees, so a batch larger than configured is
-    masked and counted instead of gathering garbage."""
+    masked and counted instead of gathering garbage.
 
-    def __init__(self, mesh: Mesh, capacity: int, rows_per_shard: int, vocab_sizes):
+    mesh is the whole group (the loss and dense-grad all-reduce, the
+    hybrid prefix gather); exchange the group the table is sharded over
+    (the whole group unless given; `dcn_mesh` passes the host's cards).
+    hybrid: whether the small-field prefix route may be taken."""
+
+    hybrid = True
+
+    def __init__(self, mesh: Mesh, capacity: int, rows_per_shard: int, vocab_sizes,
+                 exchange: Mesh | None = None):
         self.mesh = mesh
-        self.num_shards = mesh.world
+        self.exchange = exchange or mesh
+        self.num_shards = self.exchange.world
         self.capacity = capacity
         self.rows_per_shard = rows_per_shard
         self.vocab_sizes = vocab_sizes
@@ -80,18 +101,70 @@ class FlatRouter:
         self.batch_unique = unique_bound(vocabs, n // len(vocabs))
         # the capacity covers the bound: no overflow, no masks
         self.no_ovf = self.capacity >= min(n, self.batch_unique)
-        return se.build_routing(flat_ids, self.capacity, self.mesh,
+        return se.build_routing(flat_ids, self.capacity, self.exchange,
                                 rows_per_shard=self.rows_per_shard)
 
     def lookup(self, table_local, routing, out_dtype):
-        return se.routed_lookup(table_local, routing, self.mesh, out_dtype=out_dtype,
+        return se.routed_lookup(table_local, routing, self.exchange, out_dtype=out_dtype,
                                 assume_no_overflow=self.no_ovf)
 
     def grad(self, drows_flat, routing):
-        return se.grad_return(drows_flat, routing, self.mesh, max_unique=self.batch_unique)
+        return se.grad_return(drows_flat, routing, self.exchange, max_unique=self.batch_unique)
+
+    def overflow(self, routing) -> torch.Tensor:
+        return routing.overflow
 
     def shard_index(self) -> int:
-        return self.mesh.rank
+        """This rank's table shard (the stochastic-rounding fold, the prefix rows)."""
+        return self.exchange.rank
+
+    def apply(self, table, state, row_ids, grads, opt, lr_scale, sr_key) -> None:
+        """The per-row update of this shard from grad()'s buckets, in place;
+        cross-peer duplicates are summed inside the apply (kernel 7)."""
+        bucketed_rowwise_update(table, state, row_ids, grads, opt, lr_scale=lr_scale,
+                                sr_key=sr_key)
+
+
+class HierRouter(FlatRouter):
+    """Exchange strategy: the two-stage host-level dedup exchange over the
+    (host, chip) grid (`parallel/hier_embedding.py`). The table layout,
+    state and apply are the flat router's: shard h * C + c is rank h * C +
+    c. `mesh` is the whole group; mesh2d.chip and mesh2d.host carry the
+    two stages. Capacities are fixed; the bounds and the mask elision
+    follow each batch, as in FlatRouter."""
+
+    def __init__(self, mesh2d: Mesh2D, cap1: int, cap2: int, rows_per_shard: int,
+                 vocab_sizes):
+        super().__init__(mesh2d.flat, cap1, rows_per_shard, vocab_sizes)
+        self.mesh2d = mesh2d
+        self.cap1, self.cap2 = cap1, cap2
+        self.host_unique = None
+        self.no_ovf = (False, False)
+        self.stage_overflow = None  # build()'s (stage 1, stage 2) drops on this rank
+
+    def build(self, flat_ids: torch.Tensor, vocab_sizes=None) -> he.HierRouting:
+        vocabs = self.vocab_sizes if vocab_sizes is None else vocab_sizes
+        n = flat_ids.shape[0]
+        b_loc, c = n // len(vocabs), self.mesh2d.chips_per_host
+        self.batch_unique = unique_bound(vocabs, b_loc)
+        self.host_unique = unique_bound(vocabs, b_loc * c)
+        self.no_ovf = (self.cap1 >= min(n, self.batch_unique),
+                       self.cap2 >= min(c * self.cap1, self.host_unique))
+        hr = he.build_routing_hier(flat_ids, self.cap1, self.cap2, self.mesh2d,
+                                   self.rows_per_shard)
+        self.stage_overflow = torch.stack([hr.r1.overflow, hr.r2.overflow])
+        return hr
+
+    def lookup(self, table_local, routing, out_dtype):
+        return he.hier_routed_lookup(table_local, routing, self.mesh2d, out_dtype=out_dtype,
+                                     assume_no_overflow=self.no_ovf)
+
+    def grad(self, drows_flat, routing):
+        return he.hier_grad_return(drows_flat, routing, self.mesh2d,
+                                   max_unique1=self.batch_unique, max_unique2=self.host_unique)
+
+    def overflow(self, routing) -> torch.Tensor:
+        return he.hier_overflow(routing)
 
 
 def _make_flat_router(cfg: TrainConfig, mesh: Mesh) -> FlatRouter:
@@ -105,6 +178,19 @@ def _make_flat_router(cfg: TrainConfig, mesh: Mesh) -> FlatRouter:
     return FlatRouter(mesh, capacity, v_pad // t, cfg.model.vocab_sizes)
 
 
+def _make_hier_router(cfg: TrainConfig, mesh2d: Mesh2D) -> HierRouter:
+    h, c = mesh2d.num_hosts, mesh2d.chips_per_host
+    t = h * c
+    b_loc = cfg.data.batch_size // t
+    v_pad = _round_up(cfg.model.total_vocab, t)
+    vocabs = cfg.model.vocab_sizes
+    cap1, cap2 = he.pick_capacities_hier(
+        b_loc * cfg.model.num_fields, h, c, cfg.sharding.id_capacity_factor, v_pad // t,
+        unique_bound(vocabs, b_loc), unique_bound(vocabs, b_loc * c),
+        cap_rows=cfg.sharding.cap_rows, cap_rows_host=cfg.sharding.cap_rows_host)
+    return HierRouter(mesh2d, cap1, cap2, v_pad // t, vocabs)
+
+
 def create_sharded_state(cfg: TrainConfig, generator: torch.Generator, mesh: Mesh
                          ) -> TrainState:
     """This rank's state: its (Vs, W) table shard and per-row optimizer
@@ -112,7 +198,10 @@ def create_sharded_state(cfg: TrainConfig, generator: torch.Generator, mesh: Mes
     the dense params and their optimizer state, drawn from generator (seed
     it the same on every rank so that they agree). The shard's rows come
     from a generator of its own, derived from generator's seed and the
-    rank; init is i.i.d., so the layout does not change the distribution."""
+    rank; init is i.i.d., so the layout does not change the distribution.
+    The hierarchical engine takes this state on its grid's flat mesh (shard
+    h * C + c is rank h * C + c), so flat and hier states interchange; the
+    intra-host engine takes it on the chip sub-mesh (`dcn_mesh`)."""
     mcfg = cfg.model
     t = mesh.world
     vs = _round_up(mcfg.total_vocab, t) // t
@@ -123,7 +212,13 @@ def create_sharded_state(cfg: TrainConfig, generator: torch.Generator, mesh: Mes
     tdt = model_lib.torch_dtype(mcfg.table_dtype)
 
     def shard(width):
-        return (0.01 * torch.randn((vs, width), generator=rows, device=dev)).to(tdt)
+        if vs * width * 4 <= INIT_DRAW_BYTES:
+            return (0.01 * torch.randn((vs, width), generator=rows, device=dev)).to(tdt)
+        out = torch.empty((vs, width), dtype=tdt, device=dev)
+        for r in range(0, vs, INIT_ROWS):
+            n = min(INIT_ROWS, vs - r)
+            out[r:r + n] = 0.01 * torch.randn((n, width), generator=rows, device=dev)
+        return out
 
     params["embed"]["table"] = shard(mcfg.table_width)
     sparse = {"embed": rowwise_init(params["embed"]["table"], cfg.optim)}
@@ -154,22 +249,35 @@ def _all_reduce_flat(tensors, mesh: Mesh):
     return out
 
 
+def routed_ids(ids, params, cfg: TrainConfig, router: FlatRouter, interaction_fn):
+    """(fm, fs, flat ids, their fields' vocab sizes or None) of the train
+    step's exchange for this rank's block ids (B/T, F): fm, the field-major
+    full-rows route (ids transposed before the routing, so the rows come
+    back (F, B, W) as the fm kernel entries read them); fs, the hybrid
+    small-field prefix, taken off the exchange (its dense-form update exists
+    for adagrad/sgd only)."""
+    mcfg = cfg.model
+    fm = model_lib.wants_field_major(params, mcfg, interaction_fn)
+    fs = (mcfg.small_field_prefix
+          if router.hybrid and fm and cfg.optim.sparse_optimizer in ("adagrad", "sgd") else 0)
+    if fs:
+        return fm, fs, ids.t()[fs:].reshape(-1), mcfg.vocab_sizes[fs:]
+    return fm, fs, (ids.t() if fm else ids).reshape(-1), None
+
+
 def _local_step(state: TrainState, ids, dense, labels, *, cfg: TrainConfig,
                 router: FlatRouter, interaction_fn):
-    """The per-rank step body on this rank's batch block ids (B/T, F)."""
+    """The per-rank step body on this rank's batch block ids (B/T, F); the
+    router decides the exchange and the per-row apply."""
     params = state.params
     mcfg, opt = cfg.model, cfg.optim
     mesh = router.mesh
     b_loc, f = ids.shape
     w = mcfg.table_width
     cdt = model_lib.torch_dtype(mcfg.compute_dtype)
-    t_all, rank = router.num_shards, router.shard_index()
+    t_all, shard = router.num_shards, router.shard_index()
     table_local = params["embed"]["table"]
-    # the field-major full-rows route: ids transposed before the routing,
-    # so the rows come back (F, B, W) as the fm kernel entries read them
-    fm = model_lib.wants_field_major(params, mcfg, interaction_fn)
-    # hybrid small-field prefix: its dense-form update exists for adagrad/sgd only
-    fs = mcfg.small_field_prefix if fm and opt.sparse_optimizer in ("adagrad", "sgd") else 0
+    fm, fs, flat_ids, route_vocabs = routed_ids(ids, params, cfg, router, interaction_fn)
     routed = fs < f
     separate_linear = not fm and mcfg.use_first_order and not mcfg.fused_linear
     dense_p = split_dense_params(params)
@@ -177,19 +285,17 @@ def _local_step(state: TrainState, ids, dense, labels, *, cfg: TrainConfig,
     full = merge_dense_params(params, tree_unflatten(dense_p, leaves))
 
     def dbg(tag):
-        collective_probe(tag, rank, cfg.debug_barriers)
+        collective_probe(tag, mesh.rank, cfg.debug_barriers)
 
     with torch.no_grad():
         ids_fm = ids.t()
         if fs:
-            flat_ids, route_vocabs = ids_fm[fs:].reshape(-1), mcfg.vocab_sizes[fs:]
             srows = mcfg.small_rows
             ls = -(-srows // t_all)  # the padded local slice of the prefix
             table_small = _gather_prefix(table_local, mesh, ls, srows)
             row_leaves = [model_lib.onehot_lookup_fm(table_small, ids_fm[:fs], mcfg,
                                                      out_dtype=cdt)]
         else:
-            flat_ids, route_vocabs = (ids_fm if fm else ids).reshape(-1), None
             row_leaves = []
         routing = None
         if routed:
@@ -218,12 +324,12 @@ def _local_step(state: TrainState, ids, dense, labels, *, cfg: TrainConfig,
                                                  lin_rows, dense, mcfg,
                                                  interaction_fn=interaction_fn)
         # the global mean logloss: local sum over the global batch
-        loss = metrics.sigmoid_bce_with_logits(logits, labels).sum() / (b_loc * t_all)
+        loss = metrics.sigmoid_bce_with_logits(logits, labels).sum() / (b_loc * mesh.world)
         grads = torch.autograd.grad(loss, leaves + row_leaves)
     dgrads, row_grads = list(grads[: len(leaves)]), list(grads[len(leaves):])
 
     with torch.no_grad():
-        overflow = (routing.overflow if routed
+        overflow = (router.overflow(routing) if routed
                     else torch.zeros((), dtype=torch.int32, device=ids.device))
         summed = [loss.detach(), overflow.float()] + dgrads
         if fs:
@@ -247,21 +353,19 @@ def _local_step(state: TrainState, ids, dense, labels, *, cfg: TrainConfig,
         sk_emb, sk_lin = sr_keys(mcfg.table_dtype, opt, state.step, cfg.data.seed)
         if sk_emb is not None:
             # decorrelate the shards' stochastic-rounding dither
-            sk_emb, sk_lin = fold_in(sk_emb, rank), fold_in(sk_lin, rank)
+            sk_emb, sk_lin = fold_in(sk_emb, shard), fold_in(sk_lin, shard)
         if routed:
-            # the reverse all-to-all, then the per-row update on this shard's
-            # rows; cross-peer duplicates are summed inside the apply
+            # the reverse all-to-all, then the per-row update on this shard's rows
             dbg("grad-return-a2a:enter")
             row_ids, bucket_grads = router.grad(row_grads[1 if fs else 0].reshape(-1, w),
                                                 routing)
             dbg("grad-return-a2a:exit")
-            bucketed_rowwise_update(table_local, sparse["embed"], row_ids, bucket_grads, opt,
-                                    lr_scale=lrf, sr_key=sk_emb)
+            router.apply(table_local, sparse["embed"], row_ids, bucket_grads, opt, lrf, sk_emb)
         if fs:
             # this shard's own prefix rows: local row l holds global id l*T +
             # rank; rows past srows get a zero gradient, an exact no-op
             dtab_small = summed[-1]
-            lidx = torch.arange(ls, device=ids.device) * t_all + rank
+            lidx = torch.arange(ls, device=ids.device) * t_all + shard
             g_small = torch.where((lidx < srows)[:, None],
                                   dtab_small[lidx.clamp(max=srows - 1)],
                                   torch.zeros((), device=ids.device))
@@ -276,25 +380,38 @@ def _local_step(state: TrainState, ids, dense, labels, *, cfg: TrainConfig,
                     state_rows[k][:ls] = v
         if separate_linear:
             lrow_ids, lrow_grads = router.grad(row_grads[1].reshape(-1, 1).float(), routing)
-            bucketed_rowwise_update(params["linear"]["table"], sparse["linear"], lrow_ids,
-                                    lrow_grads, opt, lr_scale=lrf, sr_key=sk_lin)
+            router.apply(params["linear"]["table"], sparse["linear"], lrow_ids, lrow_grads, opt,
+                         lrf, sk_lin)
 
     new_state = TrainState(state.step + 1, params, new_dense_opt, sparse)
     return new_state, {"loss": loss, "overflow": overflow}
 
 
-def make_sharded_train_step(cfg: TrainConfig, mesh: Mesh, interaction_fn=None):
+def router_step(cfg: TrainConfig, router: FlatRouter, interaction_fn=None):
     """step(state, ids, dense, labels) -> (new_state, {"loss", "overflow"})
     on this rank's batch block ids (B/T, F) int32 global, dense
-    (B/T, num_dense) | None, labels (B/T,). The loss is the global mean
-    and the overflow the group's total; both are the same on every rank."""
-    router = _make_flat_router(cfg, mesh)
-
+    (B/T, num_dense) | None, labels (B/T,), exchanging through router.
+    The loss is the global mean and the overflow the group's total; both
+    are the same on every rank. step.router is router, whose reports
+    (`HierRouter.stage_overflow`) a caller may read after a step."""
     def step(state: TrainState, ids, dense, labels):
         return _local_step(state, ids, dense, labels, cfg=cfg, router=router,
                            interaction_fn=interaction_fn)
 
+    step.router = router
     return step
+
+
+def make_sharded_train_step(cfg: TrainConfig, mesh: Mesh, interaction_fn=None):
+    """The flat engine's step (`router_step`) over the group of mesh."""
+    return router_step(cfg, _make_flat_router(cfg, mesh), interaction_fn)
+
+
+def make_sharded_train_step_hier(cfg: TrainConfig, mesh2d: Mesh2D, interaction_fn=None):
+    """The hierarchical engine's step over the (host, chip) grid: the flat
+    step's state and math, each host-distinct row crossing hosts once a
+    way (`HierRouter`)."""
+    return router_step(cfg, _make_hier_router(cfg, mesh2d), interaction_fn)
 
 
 def wrap_wire_step(step, wire_spec, mcfg):
@@ -312,13 +429,12 @@ def wrap_wire_step(step, wire_spec, mcfg):
     return wire_step
 
 
-def make_sharded_eval_step(cfg: TrainConfig, mesh: Mesh, interaction_fn=None):
+def router_eval_step(cfg: TrainConfig, router: FlatRouter, interaction_fn=None):
     """step(state, auc_state, ids, dense, labels, mask=None) -> (auc_state,
     overflow) on this rank's batch block: the group's AUC histograms are
     summed into auc_state on every rank, and overflow is the group's count
     of distinct ids that the capacity dropped (they score as zero rows).
-    The JAX eval step drops that count; the port returns it."""
-    router = _make_flat_router(cfg, mesh)
+    The JAX eval steps drop that count; the port returns it."""
     mcfg = cfg.model
 
     @torch.inference_mode()
@@ -340,8 +456,18 @@ def make_sharded_eval_step(cfg: TrainConfig, mesh: Mesh, interaction_fn=None):
         upd = metrics.auc_state_update(zeros, logits, labels, mask=mask)
         keys = sorted(upd)
         *summed, overflow = _all_reduce_flat([upd[k] for k in keys]
-                                             + [routing.overflow.float()], mesh)
+                                             + [router.overflow(routing).float()], router.mesh)
         new = {k: auc_state[k] + u for k, u in zip(keys, summed)}
         return new, overflow.round().to(torch.int32)
 
     return step
+
+
+def make_sharded_eval_step(cfg: TrainConfig, mesh: Mesh, interaction_fn=None):
+    """The flat engine's eval step (`router_eval_step`)."""
+    return router_eval_step(cfg, _make_flat_router(cfg, mesh), interaction_fn)
+
+
+def make_sharded_eval_step_hier(cfg: TrainConfig, mesh2d: Mesh2D, interaction_fn=None):
+    """The hierarchical engine's eval step (`router_eval_step`)."""
+    return router_eval_step(cfg, _make_hier_router(cfg, mesh2d), interaction_fn)

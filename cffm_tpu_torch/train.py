@@ -306,23 +306,27 @@ def run(cfg: TrainConfig, device=None, log_fn=print, interaction_fn=None,
     at the end. preemption_guard (a utils.preemption.PreemptionGuard; by
     default one on SIGTERM) is checked every log_every (or 50) steps: on a
     stop the run saves, logs {"preempted_at_step"} and goes on to the eval.
-    cfg.tensorboard_dir mirrors the logged scalars into event files. The
-    hierarchical and intra-host exchanges raise: only the flat one is
-    ported."""
+    cfg.tensorboard_dir mirrors the logged scalars into event files.
+
+    cfg.sharding.table_axis picks the sharded engine: "global" the flat
+    exchange, "hier" the two-stage host-level dedup exchange (the same
+    state and checkpoints) and "intra_host" the tables sharded over a
+    host's cards and replicated across hosts (checkpointed as C shards);
+    the latter two see the group as a (host, chip) grid, C from torchrun's
+    LOCAL_WORLD_SIZE (`parallel/mesh.make_mesh_2d`)."""
     from cffm_tpu_torch.checkpoint import CheckpointManager
     from cffm_tpu_torch.data.loader import device_prefetch, make_dataset
     from cffm_tpu_torch.data.readers import resolve_paths
-    from cffm_tpu_torch.parallel.mesh import close_mesh, make_mesh, requested_world_size
+    from cffm_tpu_torch.parallel.mesh import (close_mesh, make_mesh, make_mesh_2d,
+                                              requested_world_size)
     from cffm_tpu_torch.utils.preemption import PreemptionGuard
     from cffm_tpu_torch.utils.tb import ScalarWriter
 
     device = resolve_device(device)
     sharded = cfg.sharding.table_sharded and requested_world_size() > 1
-    if sharded and cfg.sharding.table_axis != "global":
-        raise NotImplementedError(
-            f"table_axis={cfg.sharding.table_axis!r}: the hierarchical and intra-host "
-            "exchanges arrive with the port's next sharded slice; only the flat "
-            "exchange (table_axis='global') is ported")
+    axis = cfg.sharding.table_axis
+    if sharded and axis not in ("global", "hier", "intra_host"):
+        raise ValueError(f"unknown table_axis {axis!r}")
     if interaction_fn is None:
         interaction_fn = default_interaction_fn(cfg)
     wire_spec = None
@@ -331,22 +335,37 @@ def run(cfg: TrainConfig, device=None, log_fn=print, interaction_fn=None,
 
         wire_spec = wire_lib.spec_for_model(cfg.model)
     mesh = None
+    num_shards = 1
     if sharded:
-        from cffm_tpu_torch.parallel.sharded_train import (create_sharded_state,
-                                                           make_sharded_eval_step,
-                                                           make_sharded_train_step,
-                                                           wrap_wire_step)
+        from cffm_tpu_torch.parallel import dcn_mesh
+        from cffm_tpu_torch.parallel import sharded_train as st
 
-        mesh = make_mesh(backend="gloo" if device.type == "cpu" else "nccl",
-                         device=device if device.type == "cpu" else None)
+        group = dict(backend="gloo" if device.type == "cpu" else "nccl",
+                     device=device if device.type == "cpu" else None)
+        if axis == "global":
+            mesh = make_mesh(**group)
+        else:
+            mesh2d = make_mesh_2d(**group)
+            mesh = mesh2d.flat
         device = mesh.device
         if mesh.rank != 0:
             log_fn = lambda *_: None  # noqa: E731  (one rank logs)
-        state = create_sharded_state(
-            cfg, torch.Generator(device=device).manual_seed(cfg.data.seed), mesh)
-        step_fn = make_sharded_train_step(cfg, mesh, interaction_fn)
-        sharded_eval = make_sharded_eval_step(cfg, mesh, interaction_fn)
-        wire_step_fn = (wrap_wire_step(step_fn, wire_spec, cfg.model)
+        gen = torch.Generator(device=device).manual_seed(cfg.data.seed)
+        if axis == "global":
+            state = st.create_sharded_state(cfg, gen, mesh)
+            step_fn = st.make_sharded_train_step(cfg, mesh, interaction_fn)
+            sharded_eval = st.make_sharded_eval_step(cfg, mesh, interaction_fn)
+        elif axis == "hier":
+            state = st.create_sharded_state(cfg, gen, mesh)
+            step_fn = st.make_sharded_train_step_hier(cfg, mesh2d, interaction_fn)
+            sharded_eval = st.make_sharded_eval_step_hier(cfg, mesh2d, interaction_fn)
+        else:
+            state = dcn_mesh.create_sharded_state_2d(cfg, gen, mesh2d)
+            step_fn = dcn_mesh.make_sharded_train_step_2d(cfg, mesh2d, interaction_fn)
+            sharded_eval = dcn_mesh.make_sharded_eval_step_2d(cfg, mesh2d, interaction_fn)
+        # the intra-host tables are C shards, replicated over the hosts
+        num_shards = mesh2d.chips_per_host if axis == "intra_host" else mesh.world
+        wire_step_fn = (st.wrap_wire_step(step_fn, wire_spec, cfg.model)
                         if wire_spec is not None else None)
 
         def eval_fn(auc_state, ids, dense, labels, mask=None):
@@ -375,7 +394,7 @@ def run(cfg: TrainConfig, device=None, log_fn=print, interaction_fn=None,
         if cfg.checkpoint_dir:
             ckpt_mgr = CheckpointManager(cfg.checkpoint_dir)
             if ckpt_mgr.latest_step() is not None:
-                state, meta = ckpt_mgr.restore_auto(state, cfg, world)
+                state, meta = ckpt_mgr.restore_auto(state, cfg, num_shards)
                 start_step = state.step
                 log_fn(json.dumps({"resumed_from_step": start_step,
                                    "checkpoint_meta": meta}))
@@ -431,13 +450,13 @@ def run(cfg: TrainConfig, device=None, log_fn=print, interaction_fn=None,
                 log_fn(json.dumps({"step": step + 1, "eval": ev}))
                 tb.scalars(step + 1, {f"eval/{k}": v for k, v in ev.items()})
             if ckpt_mgr and cfg.checkpoint_every and (step + 1) % cfg.checkpoint_every == 0:
-                ckpt_mgr.save(step + 1, state, cfg, num_shards=world)
+                ckpt_mgr.save(step + 1, state, cfg, num_shards=num_shards)
             if (step + 1) % stop_every == 0 and guard.sync():
                 # every rank agrees (sync is a collective): stop at this
                 # step, save, and go on to the eval
                 preempted_at = step + 1
                 if ckpt_mgr:
-                    ckpt_mgr.save(step + 1, state, cfg, num_shards=world, wait=True)
+                    ckpt_mgr.save(step + 1, state, cfg, num_shards=num_shards, wait=True)
                 log_fn(json.dumps({"preempted_at_step": preempted_at,
                                    "checkpoint_saved": bool(ckpt_mgr)}))
                 break
@@ -455,7 +474,7 @@ def run(cfg: TrainConfig, device=None, log_fn=print, interaction_fn=None,
             if preempted_at is None:
                 # a preempted run saved at its stop step; a save at
                 # num_train_steps would make the resume think the run was done
-                ckpt_mgr.save(cfg.data.num_train_steps, state, cfg, num_shards=world,
+                ckpt_mgr.save(cfg.data.num_train_steps, state, cfg, num_shards=num_shards,
                               wait=True)
             ckpt_mgr.close()
         return result

@@ -128,11 +128,35 @@ nonzero without them, or when any phase fails. Phases, in order:
      against the single-device train_step from the same state and batch;
  15. sharded_multi: with more than one card, the sharded step on
      min(cards, 4) NCCL ranks against the single-device step (two adagrad
-     steps); with one card it prints that it was not run;
+     steps); with 4, as 2 hosts of 2 cards, also the hier step from the
+     same shards against the flat step, the intra-host (2D) step against
+     the single-device step with the hosts' replicas bit-equal, and the
+     hier routing's overflow of each stage at multihost's own caps
+     (cap_rows 8192, cap_rows_host 16384, B=32768); with one card it
+     prints that it was not run;
  16. time kernels 6 and 7 at the T=1 and T=4 rank-0 shapes (kernel, plain,
      library yardstick: index_add_ of the sgd step, beside the kernel in
      sgd mode; bound) and the sharded step end to end with a
      torch.profiler breakdown;
+ 16b. train_hier: multihost at full width (26,000,832 x 640 bf16 table,
+     adagrad, stochastic rounding, B=32768, kernel 7's apply forced on)
+     through the hierarchical step on the NCCL group of one (H = C = 1): 2
+     steps and 2 eval batches, launch counts set to 0 before and read
+     after (kernels 1, 2 and 7 once a step, kernel 6 twice, kernel 1 once
+     an eval batch), finite losses and AUC, each stage's overflow 0; then
+     one criteo_kaggle adagrad step (f32 table, B=65536) of the hier step
+     against the flat step from the same state and batch (loss rtol 1e-5,
+     moved rows within 1e-2*max|delta|, other rows bit-equal, accumulator
+     1e-6);
+ 16c. train_2d: criteo_kaggle with table_axis="intra_host" (H = C = 1,
+     B=65536, f32 table, adagrad): 2 steps and an eval batch with launch
+     counts (kernels 1, 2 and 6 once a step, 3, 4, 5 and 7 never), then
+     one step against the single-device train_step at train_sharded's
+     tolerances;
+ 16d. time_hier: the hier step end to end (multihost B=32768; criteo_kaggle
+     B=65536 beside the flat step in turns), its profile, kernel 6 at the
+     stage-2 input shape (kernel, plain, index_add_ yardstick, bound), and
+     the intra-host step end to end with its profile;
  17. parity_bwd_v1: kernel 8a (ops.bwd_variants.bwd_v1) at criteo_kaggle
      shapes against its plain version and against kernel 2 (bwd_v0), and
      row 8b (bwd_v2, kernel 2 from the variants' weights) against the
@@ -156,8 +180,9 @@ nonzero without them, or when any phase fails. Phases, in order:
      lane's, torch.matmul as the yardstick;
  19. tools: main(argv) of `python -m cffm_tpu_torch.bench` (--feed=staged,
      score, sharded), of the scripts bench_kernel, bench_bwd_variants
-     --check, probe_dot_orient, bench_apply, profile_step full and
-     trace_step, in
+     --check, probe_dot_orient, bench_apply, profile_step full,
+     trace_step, measure_id_stats (multihost's hier stage occupancy at
+     B=32768 on 1, 2x2 and 2x8 cards) and bench_scaling --hier=1x1, in
      process, launch counts set to 0 before and read after each: exit code
      0, each kernel of its path launched, and each bench line with a value
      and the card;
@@ -1134,12 +1159,13 @@ def phase_parity_apply(seg_out) -> dict:
     return errs
 
 
-def _run_cfg(overrides: dict):
-    """criteo_kaggle with dotted overrides, as the command line takes them."""
+def _run_cfg(overrides: dict, name: str = "criteo_kaggle"):
+    """A named config (criteo_kaggle) with dotted overrides, as the command
+    line takes them."""
     from cffm_tpu_torch.cli import _apply_override
     from cffm_tpu_torch.config import get_config
 
-    cfg = get_config("criteo_kaggle")
+    cfg = get_config(name)
     for dotted, value in overrides.items():
         cfg = _apply_override(cfg, dotted, str(value))
     return cfg
@@ -2382,24 +2408,49 @@ def phase_parity_bucketed(ids_np) -> float:
     return worst
 
 
-def _sharded_run(cfg, mesh, steps: int, eval_batches: int, seed: int = 0):
-    """create_sharded_state, `steps` train steps and `eval_batches` eval
-    batches through make_sharded_train_step / make_sharded_eval_step, with
-    the batches staged first; returns (losses, overflows, eval, eval
-    overflow, wall seconds) and the launch counts of that run."""
+def _grid_of_one(mesh):
+    """The (host, chip) grid of the group of one: H = C = 1, both sub-meshes
+    the group itself."""
+    from cffm_tpu_torch.parallel.mesh import make_mesh_2d
+
+    return make_mesh_2d(1, 1, device=mesh.device)
+
+
+def _engine(cfg, mesh, engine: str, fn, seed: int):
+    """(state drawn from seed, train step, eval step) of one sharded engine
+    ("flat", "hier" or "2d") on the group of mesh."""
+    import torch
+
+    from cffm_tpu_torch.parallel import dcn_mesh
+    from cffm_tpu_torch.parallel import sharded_train as st
+
+    gen = torch.Generator(device=mesh.device).manual_seed(seed)
+    if engine == "flat":
+        return (st.create_sharded_state(cfg, gen, mesh), st.make_sharded_train_step(cfg, mesh, fn),
+                st.make_sharded_eval_step(cfg, mesh, fn))
+    grid = _grid_of_one(mesh)
+    if engine == "hier":
+        return (st.create_sharded_state(cfg, gen, mesh),
+                st.make_sharded_train_step_hier(cfg, grid, fn),
+                st.make_sharded_eval_step_hier(cfg, grid, fn))
+    return (dcn_mesh.create_sharded_state_2d(cfg, gen, grid),
+            dcn_mesh.make_sharded_train_step_2d(cfg, grid, fn),
+            dcn_mesh.make_sharded_eval_step_2d(cfg, grid, fn))
+
+
+def _sharded_run(cfg, mesh, steps: int, eval_batches: int, seed: int = 0,
+                 engine: str = "flat"):
+    """`_engine`'s state, `steps` train steps and `eval_batches` eval
+    batches, with the batches staged first; returns (losses, overflows,
+    eval, eval overflow, wall seconds, train step) and the launch counts of
+    that run."""
     import torch
 
     from cffm_tpu_torch import metrics, train
     from cffm_tpu_torch.data.loader import make_dataset
-    from cffm_tpu_torch.parallel.sharded_train import (create_sharded_state,
-                                                       make_sharded_eval_step,
-                                                       make_sharded_train_step)
 
     dev = mesh.device
-    fn = train.default_interaction_fn(cfg)
-    state = create_sharded_state(cfg, torch.Generator(device=dev).manual_seed(seed), mesh)
-    step = make_sharded_train_step(cfg, mesh, fn)
-    ev = make_sharded_eval_step(cfg, mesh, fn)
+    state, step, ev = _engine(cfg, mesh, engine, train.default_interaction_fn(cfg), seed)
     data = make_dataset(cfg, mesh.rank, mesh.world, prefetch=0)
     val = make_dataset(cfg, mesh.rank, mesh.world, split="val", prefetch=0)
     batches = [train.batch_to_device(next(data), dev) for _ in range(steps)]
@@ -2419,7 +2470,7 @@ def _sharded_run(cfg, mesh, steps: int, eval_batches: int, seed: int = 0):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     result = {k: float(v) for k, v in metrics.auc_state_finalize(auc).items()}
-    return (losses, overflows, result, eval_ovf, wall), _counts()
+    return (losses, overflows, result, eval_ovf, wall, step), _counts()
 
 
 def phase_train_sharded(mesh) -> dict:
@@ -2429,7 +2480,6 @@ def phase_train_sharded(mesh) -> dict:
     import torch
 
     from cffm_tpu_torch import train
-    from cffm_tpu_torch.data.loader import make_dataset
     from cffm_tpu_torch.parallel.sharded_train import (create_sharded_state,
                                                        make_sharded_train_step)
 
@@ -2450,7 +2500,7 @@ def phase_train_sharded(mesh) -> dict:
     out = {}
     for name, (steps, extra, want) in runs.items():
         cfg = _sharded_cfg(extra)
-        (losses, ovfs, result, eval_ovf, wall), counts = _sharded_run(cfg, mesh, steps, ev)
+        (losses, ovfs, result, eval_ovf, wall, _), counts = _sharded_run(cfg, mesh, steps, ev)
         per_step = {fn: n / steps for fn, n in counts.items() if n and fn != k["flat"]}
         print(f"train_sharded {name}: B=65536, T={mesh.world}, {steps} steps, losses {losses}, "
               f"overflow {ovfs}, eval {json.dumps(result)} (eval overflow {eval_ovf}), "
@@ -2467,56 +2517,130 @@ def phase_train_sharded(mesh) -> dict:
     # one adagrad step, sharded (T=1: the natural layout) vs single-device
     cfg = _sharded_cfg()
     fn = train.default_interaction_fn(cfg)
-    sharded = create_sharded_state(cfg, torch.Generator(device="cuda").manual_seed(5), mesh)
-    single = train.TrainState(0, _tree_clone(sharded.params),
-                              _tree_clone(sharded.dense_opt_state),
-                              _tree_clone(sharded.sparse_opt_state))
-    table0 = sharded.params["embed"]["table"].clone()
+    _steps_agree(cfg, create_sharded_state(cfg, torch.Generator(device="cuda").manual_seed(5),
+                                           mesh),
+                 make_sharded_train_step(cfg, mesh, fn), _single_step(cfg, fn),
+                 "train_sharded step vs single-device criteo_kaggle adagrad B=65536",
+                 ("sharded", "single"))
+    return out
+
+
+def _single_step(cfg, fn):
+    """train.train_step as a (state, ids, dense, labels) step."""
+    from cffm_tpu_torch import train
+
+    return lambda state, ids, dense, labels: train.train_step(state, ids, dense, labels, cfg,
+                                                              fn)
+
+
+def _steps_agree(cfg, state, step_a, step_b, what: str, names=("a", "b")):
+    """One step of step_a from state and one of step_b from a copy of it,
+    on one train batch of cfg: the losses within rtol 1e-5, the table rows
+    step_b moved within 1e-2 of its largest move and the other rows
+    bit-equal, the accumulator within 1e-6 on the moved rows and equal
+    elsewhere, the dense params within 1e-5. Prints one line; fails the run
+    when they disagree."""
+    import torch
+
+    from cffm_tpu_torch import train
+    from cffm_tpu_torch.data.loader import make_dataset
+
+    other = train.TrainState(state.step, _tree_clone(state.params),
+                             _tree_clone(state.dense_opt_state),
+                             _tree_clone(state.sparse_opt_state))
+    table0 = state.params["embed"]["table"].clone()
     ids, dense, labels = train.batch_to_device(next(make_dataset(cfg, prefetch=0)),
                                                torch.device("cuda"))
-    sharded, m_sh = make_sharded_train_step(cfg, mesh, fn)(sharded, ids, dense, labels)
-    single, m_si = train.train_step(single, ids, dense, labels, cfg, fn)
-    l_sh, l_si = float(m_sh["loss"]), float(m_si["loss"])
-    t_sh, t_si = sharded.params["embed"]["table"], single.params["embed"]["table"]
-    moved = (t_si != table0).any(dim=1)
-    delta = max((t_si[sl] - table0[sl]).abs().max().item()
-                for sl in (slice(r, r + (1 << 18)) for r in range(0, t_si.shape[0], 1 << 18)))
-    terr, untouched = _rows_apart(t_si, t_sh, moved)
-    aerr, aequal = _rows_apart(single.sparse_opt_state["embed"]["accum"],
-                               sharded.sparse_opt_state["embed"]["accum"], moved)
-    dense_err = max((a - b).abs().max().item() for a, b in zip(
-        train.tree_leaves(train.split_dense_params(single.params)),
-        train.tree_leaves(train.split_dense_params(sharded.params))))
-    print(f"train_sharded step vs single-device criteo_kaggle adagrad B=65536: loss sharded "
-          f"{l_sh} single {l_si} (relative err {abs(l_sh - l_si) / abs(l_si):.2e}, rtol 1e-5); "
-          f"{int(moved.sum())} moved rows, max |delta| {delta:.3e}, table max_abs_err "
-          f"{terr:.2e} (atol 1e-2*max|delta|), other rows bit-equal {untouched}; accum "
-          f"max_abs_err {aerr:.2e} (atol 1e-6), equal elsewhere {aequal}; dense params "
+    a, m_a = step_a(state, ids, dense, labels)
+    b, m_b = step_b(other, ids, dense, labels)
+    l_a, l_b = float(m_a["loss"]), float(m_b["loss"])
+    t_a, t_b = a.params["embed"]["table"], b.params["embed"]["table"]
+    moved = (t_b != table0).any(dim=1)
+    delta = max((t_b[sl] - table0[sl]).abs().max().item()
+                for sl in (slice(r, r + (1 << 18)) for r in range(0, t_b.shape[0], 1 << 18)))
+    terr, untouched = _rows_apart(t_b, t_a, moved)
+    aerr, aequal = _rows_apart(b.sparse_opt_state["embed"]["accum"],
+                               a.sparse_opt_state["embed"]["accum"], moved)
+    dense_err = max((x - y).abs().max().item() for x, y in zip(
+        train.tree_leaves(train.split_dense_params(b.params)),
+        train.tree_leaves(train.split_dense_params(a.params))))
+    na, nb = names
+    print(f"{what}: loss {na} {l_a} {nb} {l_b} (relative err {abs(l_a - l_b) / abs(l_b):.2e}, "
+          f"rtol 1e-5); {int(moved.sum())} moved rows, max |delta| {delta:.3e}, table "
+          f"max_abs_err {terr:.2e} (atol 1e-2*max|delta|), other rows bit-equal {untouched}; "
+          f"accum max_abs_err {aerr:.2e} (atol 1e-6), equal elsewhere {aequal}; dense params "
           f"max_abs_err {dense_err:.2e} (atol 1e-5)", flush=True)
-    if (abs(l_sh - l_si) > 1e-5 * abs(l_si) or terr > 1e-2 * delta or not untouched
+    if (abs(l_a - l_b) > 1e-5 * abs(l_b) or terr > 1e-2 * delta or not untouched
             or aerr > 1e-6 or not aequal or dense_err > 1e-5):
-        fail("train_sharded: the sharded step and the single-device step disagree")
-    return out
+        fail(f"{what}: the {na} step and the {nb} step disagree")
+
+
+def _gather_natural(x, mesh, shards: int, v: int):
+    """The natural-order table of the first `shards` ranks' (Vs, n) shards
+    x, on rank 0 (None elsewhere), and whether each later rank's shard
+    equals the one of its rank % shards (the replicas of the 2D engine)."""
+    import torch
+    import torch.distributed as dist
+
+    from cffm_tpu_torch.parallel import sharded_embedding as se
+
+    parts = [torch.empty_like(x) for _ in range(mesh.world)]
+    dist.all_gather(parts, x.contiguous())
+    same = all(torch.equal(p, parts[i % shards]) for i, p in enumerate(parts))
+    out = se.from_mod_sharded(torch.cat(parts[:shards]), shards, v) if mesh.rank == 0 else None
+    return out, same
+
+
+def _held(want: dict, got: dict, table0, losses_want, losses_got, dense_want, dense_got,
+          dense0) -> dict:
+    """The checks of sharded_multi, got against want (natural tables and
+    accumulators, losses, dense leaves from dense0): the losses within rtol
+    1e-5 then 1e-4, the dense step within 1e-3 relative L2, the moved table
+    rows within 1e-2 of the largest move and the others bit-equal, the
+    accumulator within 1e-6 there and equal elsewhere."""
+    moved = (want["table"] != table0).any(dim=1)
+    delta = (want["table"] - table0).abs().max().item()
+    terr, untouched = _rows_apart(want["table"], got["table"], moved)
+    aerr, aequal = _rows_apart(want["accum"], got["accum"], moved)
+    pairs = list(zip(dense_want, dense_got, dense0))
+    dense_rel = (math.sqrt(sum(float(((a - b) ** 2).sum()) for a, b, _ in pairs))
+                 / math.sqrt(sum(float(((a - c) ** 2).sum()) for a, _, c in pairs)))
+    lerr = [abs(a - b) / abs(b) for a, b in zip(losses_got, losses_want)]
+    ok = (lerr[0] <= 1e-5 and lerr[1] <= 1e-4 and dense_rel <= 1e-3
+          and terr <= 1e-2 * delta and untouched and aerr <= 1e-6 and aequal)
+    return {"ok": ok, "loss_relative_err": lerr, "dense_step_relative_l2": dense_rel,
+            "moved_rows": int(moved.sum()), "max_delta": delta, "table_max_abs_err": terr,
+            "untouched_equal": untouched, "accum_max_abs_err": aerr,
+            "accum_untouched_equal": aequal}
 
 
 def _multi_rank(rank: int, world: int, port: int, out_dir: str):
     """One rank of sharded_multi: two sharded adagrad steps on this rank's
     block of two B=65536 batches; rank 0 then runs the single-device step
-    on the whole batches from the same state and compares."""
+    on the whole batches from the same state and compares. With 4 ranks,
+    as 2 hosts of 2 cards, also the hier step from the same shards against
+    the flat step, the 2D step (tables over 2 cards, replicated on the 2
+    hosts) against the single-device step, and the hier routing's overflow
+    of each stage at multihost's own caps (B=32768)."""
     import torch
     import torch.distributed as dist
 
     from cffm_tpu_torch import train
     from cffm_tpu_torch.data.loader import make_dataset
+    from cffm_tpu_torch.models import cffm as model_lib
+    from cffm_tpu_torch.parallel import dcn_mesh
     from cffm_tpu_torch.parallel import sharded_embedding as se
-    from cffm_tpu_torch.parallel.mesh import close_mesh, make_mesh
-    from cffm_tpu_torch.parallel.sharded_train import make_sharded_train_step
+    from cffm_tpu_torch.parallel.mesh import close_mesh, make_mesh, make_mesh_2d
+    from cffm_tpu_torch.parallel.sharded_train import (make_sharded_train_step,
+                                                       make_sharded_train_step_hier,
+                                                       routed_ids)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", rank)
     mesh = make_mesh(init_method=f"tcp://localhost:{port}", rank=rank, world_size=world,
                      backend="nccl", device=dev)
+    grid = world == 4
     try:
         # f32 compute, as step_vs_cpu: in bf16 the ranks' partial dense grads
         # round apart from the whole batch's, which Adam magnifies
@@ -2526,16 +2650,22 @@ def _multi_rank(rank: int, world: int, port: int, out_dir: str):
         # the same natural-layout state on every rank, from one seed
         full = train.create_state(cfg, torch.Generator(device=dev).manual_seed(3))
 
-        def shard(x):
-            storage = se.to_mod_sharded(x, world)
-            vs = storage.shape[0] // world
-            return storage[rank * vs:(rank + 1) * vs].clone()
+        def sharded_state(t, i):
+            """Shard i of t of full: its tables and accumulator rows."""
+            def shard(x):
+                storage = se.to_mod_sharded(x, t)
+                vs = storage.shape[0] // t
+                return storage[i * vs:(i + 1) * vs].clone()
 
-        params = {k: _tree_clone(x) for k, x in full.params.items() if k != "embed"}
-        params["embed"] = {"table": shard(full.params["embed"]["table"])}
-        accum = shard(full.sparse_opt_state["embed"]["accum"])
-        state = train.TrainState(0, params, _tree_clone(full.dense_opt_state),
-                                 {"embed": {"accum": accum}})
+            params = {k: _tree_clone(x) for k, x in full.params.items() if k != "embed"}
+            params["embed"] = {"table": shard(full.params["embed"]["table"])}
+            return train.TrainState(0, params, _tree_clone(full.dense_opt_state),
+                                    {"embed": {"accum": shard(
+                                        full.sparse_opt_state["embed"]["accum"])}})
+
+        state = sharded_state(world, rank)
+        hstate = sharded_state(world, rank) if grid else None
+        dstate = sharded_state(2, rank % 2) if grid else None
         dense0 = [x.clone() for x in train.tree_leaves(train.split_dense_params(full.params))]
         table0 = full.params["embed"]["table"].clone() if rank == 0 else None
         if rank != 0:
@@ -2543,44 +2673,66 @@ def _multi_rank(rank: int, world: int, port: int, out_dir: str):
         data = make_dataset(cfg, prefetch=0)
         batches = [train.batch_to_device(next(data), dev) for _ in range(2)]
         b = cfg.data.batch_size // world
-        step = make_sharded_train_step(cfg, mesh, fn)
-        losses = []
-        for ids, dense, labels in batches:
-            blk = slice(rank * b, (rank + 1) * b)
-            state, m = step(state, ids[blk], dense[blk], labels[blk])
-            losses.append(float(m["loss"]))
-        gathered = {}
-        for name, x in (("table", state.params["embed"]["table"]),
-                        ("accum", state.sparse_opt_state["embed"]["accum"])):
-            parts = [torch.empty_like(x) for _ in range(world)]
-            dist.all_gather(parts, x.contiguous())
-            gathered[name] = se.from_mod_sharded(torch.cat(parts), world, v) if rank == 0 else None
-            del parts
+
+        def run(step, state, shards=world):
+            losses = []
+            for ids, dense, labels in batches:
+                blk = slice(rank * b, (rank + 1) * b)
+                state, m = step(state, ids[blk], dense[blk], labels[blk])
+                losses.append(float(m["loss"]))
+            nat = {}
+            same = True
+            for name, x in (("table", state.params["embed"]["table"]),
+                            ("accum", state.sparse_opt_state["embed"]["accum"])):
+                nat[name], eq = _gather_natural(x, mesh, shards, v)
+                same &= eq
+            dleaves = train.tree_leaves(train.split_dense_params(state.params))
+            return losses, nat, same, dleaves
+
+        legs = {"flat": run(make_sharded_train_step(cfg, mesh, fn), state)}
+        del state
+        overflow = None
+        if grid:
+            mesh2d = make_mesh_2d(2, 2, device=dev)
+            legs["hier"] = run(make_sharded_train_step_hier(cfg, mesh2d, fn), hstate)
+            del hstate
+            legs["2d"] = run(dcn_mesh.make_sharded_train_step_2d(cfg, mesh2d, fn), dstate, 2)
+            del dstate
+            # the hier routing of multihost's B=32768 at its own caps on this
+            # grid: this rank's block routed by the step's router as the step
+            # routes it (no table needed)
+            mh = _run_cfg(MULTIHOST, "multihost")
+            mh_fn = train.default_interaction_fn(mh)
+            ids = torch.from_numpy(next(make_dataset(mh, rank, world, prefetch=0))["ids"])
+            params = model_lib.init_params(mh.model, torch.Generator(device=dev).manual_seed(0),
+                                           skip_tables=True)
+            router = make_sharded_train_step_hier(mh, mesh2d, mh_fn).router
+            router.build(*routed_ids(ids.to(dev), params, mh, router, mh_fn)[2:])
+            s1, s2 = _stage_overflows(router, mesh.group)
+            overflow = {"stage1": s1, "stage2": s2, "cap1": router.cap1, "cap2": router.cap2,
+                        "cap_rows": mh.sharding.cap_rows,
+                        "cap_rows_host": mh.sharding.cap_rows_host,
+                        "ids_per_rank": int(ids.numel())}
         if rank == 0:
             single, single_losses = full, []
             for ids, dense, labels in batches:
                 single, m = train.train_step(single, ids, dense, labels, cfg, fn)
                 single_losses.append(float(m["loss"]))
-            t_si = single.params["embed"]["table"]
-            moved = (t_si != table0).any(dim=1)
-            delta = (t_si - table0).abs().max().item()
-            terr, untouched = _rows_apart(t_si, gathered["table"], moved)
-            aerr, aequal = _rows_apart(single.sparse_opt_state["embed"]["accum"],
-                                       gathered["accum"], moved)
-            pairs = list(zip(train.tree_leaves(train.split_dense_params(single.params)),
-                             train.tree_leaves(train.split_dense_params(state.params)), dense0))
-            dense_rel = (math.sqrt(sum(float(((a - b) ** 2).sum()) for a, b, _ in pairs))
-                         / math.sqrt(sum(float(((a - c) ** 2).sum()) for a, _, c in pairs)))
-            lerr = [abs(a - b) / abs(b) for a, b in zip(losses, single_losses)]
-            ok = (lerr[0] <= 1e-5 and lerr[1] <= 1e-4 and dense_rel <= 1e-3
-                  and terr <= 1e-2 * delta and untouched and aerr <= 1e-6 and aequal)
+            want = {"table": single.params["embed"]["table"],
+                    "accum": single.sparse_opt_state["embed"]["accum"]}
+            dense_single = train.tree_leaves(train.split_dense_params(single.params))
+            res = {"world": world}
+            for name, (losses, nat, same, dleaves) in legs.items():
+                # hier is held to the flat step, the others to the single-device step
+                ref = legs["flat"] if name == "hier" else (single_losses, want, True, dense_single)
+                r = _held(ref[1], nat, table0, ref[0], losses, ref[3], dleaves, dense0)
+                r.update(losses=losses, losses_ref=ref[0], replicas_equal=same)
+                r["ok"] &= same
+                res[name] = r
+            res["ok"] = all(r["ok"] for k, r in res.items() if k in legs)
+            res["multihost_overflow"] = overflow
             with open(f"{out_dir}/multi.json", "w") as f:
-                json.dump({"ok": ok, "world": world, "losses_sharded": losses,
-                           "losses_single": single_losses, "loss_relative_err": lerr,
-                           "dense_step_relative_l2": dense_rel, "moved_rows": int(moved.sum()),
-                           "max_delta": delta, "table_max_abs_err": terr,
-                           "untouched_equal": untouched, "accum_max_abs_err": aerr,
-                           "accum_untouched_equal": aequal}, f)
+                json.dump(res, f)
         dist.barrier()
     finally:
         close_mesh(mesh)
@@ -2588,7 +2740,8 @@ def _multi_rank(rank: int, world: int, port: int, out_dir: str):
 
 def phase_sharded_multi():
     """The sharded step on min(cards, 4) NCCL ranks against the
-    single-device step, when the machine has more than one card."""
+    single-device step, when the machine has more than one card; with 4,
+    the hier and 2D legs too (`_multi_rank`)."""
     import os
 
     import torch
@@ -2600,22 +2753,28 @@ def phase_sharded_multi():
     if n < 2:
         print(f"sharded_multi: not run: {n} CUDA card visible, and the multi-rank NCCL step "
               f"needs at least 2 (on a machine with more cards this phase spawns "
-              f"min(cards, 4) ranks)", flush=True)
+              f"min(cards, 4) ranks); its hier and 2D legs (2 hosts of 2 cards) need 4",
+              flush=True)
         return None
     world = min(n, 4)
+    if world != 4:
+        print(f"sharded_multi: the hier and 2D legs not run: they need 4 ranks (2 hosts of 2 "
+              f"cards), {world} here", flush=True)
     out_dir = os.path.join("build", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
     mp.spawn(_multi_rank, args=(world, free_port(), out_dir), nprocs=world, join=True)
     with open(os.path.join(out_dir, "multi.json")) as f:
         res = json.load(f)
-    print(f"sharded_multi: criteo_kaggle adagrad f32 B=65536 on {world} NCCL ranks, 2 steps vs the "
-          f"single-device step: {json.dumps(res)} (rtol 1e-5 then 1e-4 on the losses, 1e-3 "
+    print(f"sharded_multi: criteo_kaggle adagrad f32 B=65536 on {world} NCCL ranks, 2 steps of "
+          f"the flat and (4 ranks as 2x2) 2D steps vs the single-device step, of the hier step "
+          f"vs the flat step; multihost's stage overflows at its caps (B=32768): "
+          f"{json.dumps(res)} (rtol 1e-5 then 1e-4 on the losses, 1e-3 "
           f"on the dense step's relative L2, 1e-2*max|delta| on the moved table rows, 1e-6 "
           f"on the accumulator; other rows bit-equal); {time.perf_counter() - t0:.1f}s",
           flush=True)
     if not res["ok"]:
-        fail("sharded_multi: the multi-rank step and the single-device step disagree")
+        fail("sharded_multi: a multi-rank step and its reference disagree")
     return res
 
 
@@ -2682,32 +2841,260 @@ def phase_time_sharded(mesh, ids_np) -> dict:
 
     # the sharded step end to end: bf16 compute, f32 table, adagrad, T=1
     fn = train.default_interaction_fn(cfg)
-    box = [create_sharded_state(cfg, torch.Generator(device="cuda").manual_seed(0), mesh)]
+    state = create_sharded_state(cfg, torch.Generator(device="cuda").manual_seed(0), mesh)
     step = make_sharded_train_step(cfg, mesh, fn)
-    ids, dense, labels = train.batch_to_device(next(make_dataset(cfg, prefetch=0)),
-                                               torch.device("cuda"))
-
-    def one():
-        box[0], _ = step(box[0], ids, dense, labels)
-
+    batch = train.batch_to_device(next(make_dataset(cfg, prefetch=0)), torch.device("cuda"))
     torch.cuda.reset_peak_memory_stats()
-    one()
-    torch.cuda.synchronize()
-    reps = 3
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        one()
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / reps
-    out["sharded_step_ms_65536"] = step_ms
+    out["sharded_step_ms_65536"] = step_ms = _step_ms(step, state, batch)
     print(f"time sharded train step criteo_kaggle B=65536 T={mesh.world} bf16 compute, f32 "
           f"table, adagrad (zipf ids, staged batch): {step_ms:.3f} ms = "
           f"{65536 / step_ms * 1e3:.1f} ex/s; peak allocated "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
 
+    out["profile"] = _profile(lambda: step(state, *batch), "sharded step B=65536")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The hierarchical and intra-host engines
+# ---------------------------------------------------------------------------
+
+# multihost at full width on one card, as configured: the auto gate's 8%
+# rule leaves its 26M-row table to the scatter path at B=32768 (852,864
+# touched rows; in the JAX package as here), so kernel 7 runs only with
+# the apply forced on (MULTIHOST_K7), the check of kernel 7 on this path
+MULTIHOST = {"data.batch_size": 32768}
+MULTIHOST_K7 = {**MULTIHOST, "optim.streamed_update": "on"}
+
+
+def _stage_overflows(router, group) -> list:
+    """The (stage 1, stage 2) distinct ids that a HierRouter's last routing
+    dropped, summed over group."""
+    import torch.distributed as dist
+
+    o = router.stage_overflow.float()
+    dist.all_reduce(o, group=group)
+    return [int(x) for x in o]
+
+
+def phase_train_hier(mesh) -> dict:
+    """multihost at full width through the hierarchical step on the NCCL
+    group of one (H = C = 1: both stages' all-to-alls are copies, the two
+    sorts and the two kernel-6 sums are real), as configured and with the
+    kernel-7 apply forced on: 2 steps and 2 eval batches each, launch
+    counts set to 0 before and read after; then one criteo_kaggle adagrad
+    step (f32 table, B=65536) against the flat step from the same state and
+    batch."""
+    import torch
+
+    from cffm_tpu_torch import train
+
+    steps, ev = 2, 2
+    base = {"cross_conv1_lin_fm2": steps, "cross_conv1_bwd": steps,
+            "sorted_segment_sum_by_seg": 2 * steps, "cross_conv1_lin": ev}
+    out = {}
+    for name, extra, want in (("auto", MULTIHOST, base),
+                              ("k7_on", MULTIHOST_K7, {**base, "bucketed_rowwise_apply": steps})):
+        cfg = _run_cfg(extra, "multihost")
+        torch.cuda.reset_peak_memory_stats()
+        (losses, ovfs, result, eval_ovf, wall, step), counts = _sharded_run(
+            cfg, mesh, steps, ev, engine="hier")
+        stages = _stage_overflows(step.router, mesh.group)
+        v, w, tdt = cfg.model.total_vocab, cfg.model.table_width, cfg.model.table_dtype
+        print(f"train_hier multihost streamed_update={cfg.optim.streamed_update}: {v} x {w} "
+              f"{tdt} table ({v * w * getattr(torch, tdt).itemsize / 1e9:.2f} GB), adagrad, stochastic rounding, B=32768, H=C=1, caps "
+              f"{step.router.cap1}/{step.router.cap2} (cap_rows {cfg.sharding.cap_rows}/"
+              f"{cfg.sharding.cap_rows_host} ignored at one shard), {steps} steps, losses "
+              f"{losses}, overflow {ovfs} (stage 1 {stages[0]}, stage 2 {stages[1]} as the "
+              f"last step routed), eval {json.dumps(result)} (eval overflow {eval_ovf}), "
+              f"launches { {k: v for k, v in counts.items() if v} }, wall {wall:.2f}s, peak "
+              f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+        if not all(math.isfinite(x) for x in losses + [result["auc"], result["logloss"]]):
+            fail(f"train_hier multihost {name}: loss or AUC not finite")
+        if any(ovfs) or eval_ovf or any(stages):
+            fail(f"train_hier multihost {name}: ids overflowed at one shard")
+        if any(n != want.get(k, 0) for k, n in counts.items()):
+            fail(f"train_hier multihost {name}: want launches {want}, got {counts}")
+        out[name] = {"counts": counts, "overflow": stages, "losses": losses}
+        del step
+        torch.cuda.empty_cache()
+
+    cfg = _sharded_cfg()
+    fn = train.default_interaction_fn(cfg)
+    state, hier, _ = _engine(cfg, mesh, "hier", fn, 7)
+    _steps_agree(cfg, state, hier, _engine(cfg, mesh, "flat", fn, 7)[1],
+                 "train_hier step vs flat step criteo_kaggle adagrad B=65536", ("hier", "flat"))
+    return out
+
+
+def phase_train_2d(mesh) -> dict:
+    """criteo_kaggle with table_axis="intra_host" at full width on the NCCL
+    group of one (H = C = 1), B=65536, f32 table, adagrad: 2 steps and one
+    eval batch, launch counts set to 0 before and read after (kernels 1, 2
+    and 6 once a step, no kernel 3, 4, 5 or 7: the dense apply replaces
+    them); then one step against the single-device train_step."""
+    import torch
+
+    from cffm_tpu_torch import train
+
+    steps, ev = 2, 1
+    cfg = _sharded_cfg({"sharding.table_axis": "intra_host"})
+    torch.cuda.reset_peak_memory_stats()
+    (losses, ovfs, result, eval_ovf, wall, _), counts = _sharded_run(cfg, mesh, steps, ev,
+                                                                  engine="2d")
+    want = {"cross_conv1_lin_fm": steps, "cross_conv1_bwd": steps,
+            "sorted_segment_sum_by_seg": steps, "cross_conv1_lin": ev}
+    print(f"train_2d criteo_kaggle intra_host: B=65536, H=C=1, {steps} steps, losses {losses}, "
+          f"overflow {ovfs}, eval {json.dumps(result)} (eval overflow {eval_ovf}), launches "
+          f"{ {k: v for k, v in counts.items() if v} }, wall {wall:.2f}s, peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    if not all(math.isfinite(x) for x in losses + [result["auc"], result["logloss"]]):
+        fail("train_2d: loss or AUC not finite")
+    if any(ovfs) or eval_ovf:
+        fail("train_2d: ids overflowed the capacity")
+    if any(n != want.get(k, 0) for k, n in counts.items()):
+        fail(f"train_2d: want launches {want}, got {counts}")
+    torch.cuda.empty_cache()
+
+    fn = train.default_interaction_fn(cfg)
+    state, step, _ = _engine(cfg, mesh, "2d", fn, 5)
+    _steps_agree(cfg, state, step, _single_step(cfg, fn),
+                 "train_2d step vs single-device criteo_kaggle adagrad B=65536", ("2d", "single"))
+    return {"counts": counts, "losses": losses}
+
+
+def _step_ms(step, state, batch, reps: int = 3) -> float:
+    """Host-clock ms per step over reps after a warm step, ending in a
+    synchronize (the step updates state in place)."""
+    import torch
+
+    step(state, *batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step(state, *batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def phase_time_hier(mesh) -> dict:
+    """The hierarchical step end to end (multihost B=32768 as configured
+    beside the kernel-7 apply forced on, in turns auto, on, on, auto, and
+    the profile of the configured one; criteo_kaggle B=65536 beside the flat step, in turns flat, hier, hier,
+    flat), its profile, kernel 6 at the stage-2 input shape (held against
+    its plain version and the exact sums; kernel, plain version, index_add_
+    yardstick, bound), and the intra-host step end to end."""
+    import torch
+
+    from cffm_tpu_torch import train
+    from cffm_tpu_torch.data.loader import make_dataset
+    from cffm_tpu_torch.ops import sorted_segment as ss
+    from cffm_tpu_torch.parallel.sharded_embedding import EB
+    from cffm_tpu_torch.parallel.sharded_train import make_sharded_train_step_hier, routed_ids
+
+    out, dev = {}, mesh.device
+    grid = _grid_of_one(mesh)
+
+    def batch_of(cfg):
+        return train.batch_to_device(next(make_dataset(cfg, prefetch=0)), dev)
+
+    def turns(steps, state, batch, order):
+        times = {k: [] for k in steps}
+        for name in order:
+            times[name].append(_step_ms(steps[name], state, batch))
+        return times, {k: sum(v) / len(v) for k, v in times.items()}
+
+    # multihost: one state for both applies (the same layout, updated in place)
+    cfg = _run_cfg(MULTIHOST, "multihost")
+    fn = train.default_interaction_fn(cfg)
+    state, auto, _ = _engine(cfg, mesh, "hier", fn, 0)
+    on = make_sharded_train_step_hier(_run_cfg(MULTIHOST_K7, "multihost"), grid, fn)
+    batch = batch_of(cfg)
+    times, mean = turns({"auto": auto, "on": on}, state, batch, ("auto", "on", "on", "auto"))
+    out["hier_multihost_turns_ms"] = times
+    out["hier_multihost_ms_32768"] = mean["auto"]
+    out["hier_multihost_k7_ms_32768"] = mean["on"]
+    print(f"time hier step multihost B=32768 H=C=1 (bf16 table, stochastic rounding, zipf "
+          f"ids, staged batch) in turns auto, on, on, auto: as configured (streamed_update "
+          f"auto: the scatter apply) {times['auto']} ms, mean {mean['auto']:.3f} ms = "
+          f"{32768 / mean['auto'] * 1e3:.1f} ex/s; kernel 7 forced on {times['on']} ms, mean "
+          f"{mean['on']:.3f} ms = {32768 / mean['on'] * 1e3:.1f} ex/s", flush=True)
+    out["hier_multihost_profile"] = _profile(lambda: auto(state, *batch),
+                                             "hier step multihost as configured B=32768")
+    del state, auto, on
+    torch.cuda.empty_cache()
+
+    # flat and hier share the state: the same layout, both update it in place
+    cfg = _sharded_cfg()
+    fn = train.default_interaction_fn(cfg)
+    state, flat, _ = _engine(cfg, mesh, "flat", fn, 0)
+    hier = make_sharded_train_step_hier(cfg, grid, fn)
+    batch = batch_of(cfg)
+    times, mean = turns({"flat": flat, "hier": hier}, state, batch,
+                        ("flat", "hier", "hier", "flat"))
+    out.update({f"{k}_step_ms_65536": v for k, v in mean.items()})
+    out["turns_ms"] = times
+    print(f"time criteo_kaggle B=65536 T=1 (bf16 compute, f32 table, adagrad, zipf ids, staged "
+          f"batch) in turns flat, hier, hier, flat: flat {times['flat']} ms, hier "
+          f"{times['hier']} ms; mean flat {mean['flat']:.3f} ms = "
+          f"{65536 / mean['flat'] * 1e3:.1f} ex/s, hier {mean['hier']:.3f} ms = "
+          f"{65536 / mean['hier'] * 1e3:.1f} ex/s", flush=True)
+    out["profile"] = _profile(lambda: hier(state, *batch), "hier step B=65536")
+
+    # kernel 6 at the stage-2 input shape: the gateway's (C * cap1, W) slots,
+    # routed by the step's own router as the step routes them
+    router = hier.router
+    hr = router.build(*routed_ids(batch[0], state.params, cfg, router, fn)[2:])
+    seg, w = hr.r2.seg, cfg.model.table_width
+    n, count = seg.numel(), int(seg[-1]) + 1
+    m = min(n, router.host_unique)
+    m_pad = -(-m // EB) * EB + -(-router.cap2 // EB) * EB
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    grads = (torch.randn((n, w), generator=gen, device="cuda") * 0.01).to(torch.bfloat16)
+    gsum = ss.sorted_segment_sum_by_seg(seg, grads, m_pad)
+    plain = ss.sorted_segment_by_seg_reference(seg, grads, m_pad)
+    err = (gsum.float() - plain.float()).abs().max().item()
+    _check_sums("time_hier k6_stage2", gsum, seg, grads, count,
+                f"criteo_kaggle B=65536 H=C=1: n={n} count={count} m_pad={m_pad} (kernel vs "
+                f"plain max_abs_err={err:.3e}):")
+    del gsum, plain
+    ms = cuda_ms(lambda: ss.sorted_segment_sum_by_seg(seg, grads, m_pad), 5)
+    plain_ms = cuda_ms(lambda: ss.sorted_segment_by_seg_reference(seg, grads, m_pad), 3)
+    seg_l, grads_f = seg.long(), grads.float()
+    acc = torch.zeros((m_pad, w), dtype=torch.float32, device="cuda")
+    library_ms = cuda_ms(lambda: acc.index_add_(0, seg_l, grads_f), 5)
+    valid = int((hr.r1.recv_ids < hr.r1.sentinel).sum())
+    out["k6_stage2"] = r = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                            "max_abs_err": err,
+                            **_bound(n * 4 + n * w * 2 + m_pad * w * 2, n * w),
+                            "n": n, "valid": valid, "count": count, "m_pad": m_pad}
+    print(f"time k6_stage2 criteo_kaggle B=65536 H=C=1: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}: {r['bytes'] / 1e9:.3f} GB, {r['ops'] / 1e9:.2f} GOP), n {n} "
+          f"(stage-1 slots, {valid} of them live), count {count}, m_pad {m_pad}",
+          flush=True)
+    del state, flat, hier, router, grads, grads_f, acc, seg_l, hr, seg
+    torch.cuda.empty_cache()
+
+    cfg = _sharded_cfg({"sharding.table_axis": "intra_host"})
+    state, step, _ = _engine(cfg, mesh, "2d", fn, 0)
+    torch.cuda.reset_peak_memory_stats()
+    out["2d_step_ms_65536"] = ms = _step_ms(step, state, batch)
+    print(f"time intra_host step criteo_kaggle B=65536 H=C=1 (f32 table, adagrad; the dense "
+          f"apply over the whole shard): {ms:.3f} ms = {65536 / ms * 1e3:.1f} ex/s; peak "
+          f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    out["2d_profile"] = _profile(lambda: step(state, *batch), "intra_host step B=65536")
+    return out
+
+
+def _profile(one, what: str, reps: int = 2, top: int = 16) -> dict:
+    """torch.profiler over reps calls of one(): the device's busy ms against
+    the wall ms per call, and the top kernels by device time, printed."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
-    reps = 2
+    one()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -2717,14 +3104,18 @@ def phase_time_sharded(mesh, ids_np) -> dict:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
-    out["profile"] = {"busy_ms": busy_ms, "wall_ms": wall_ms}
-    print(f"profile sharded step B=65536: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms "
-          f"wall per step (idle share {1 - busy_ms / wall_ms:.3f}, profiler on)", flush=True)
-    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:16]:
+    print(f"profile {what}: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall per step "
+          f"(idle share {1 - busy_ms / wall_ms:.3f}, profiler on)", flush=True)
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
         ms = e.self_device_time_total / 1e3 / reps
         print(f"profile   {ms:8.3f} ms {ms / busy_ms:6.1%} x{e.count // reps} "
               f"{e.key[:90]}", flush=True)
-    return out
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms}
+
+
+# ---------------------------------------------------------------------------
+# The measurement entry points: kernels 8a and 9, the bench and the scripts
+# ---------------------------------------------------------------------------
 
 
 # ---------------------------------------------------------------------------
@@ -2947,6 +3338,12 @@ TOOLS = (
       "streamed_rowwise_apply")),
     ("trace_step", "cffm_tpu_torch.scripts.trace_step", [],
      ("cross_conv1_lin_fm2", "cross_conv1_bwd")),
+    # the hier stages' occupancy at multihost's batch on 1, 2x2 and 2x8 cards
+    ("measure_id_stats", "cffm_tpu_torch.scripts.measure_id_stats",
+     ["--config=multihost", "--batch=32768", "--steps=2", "--topologies=1x1,2x2,2x8"], ()),
+    ("bench_scaling", "cffm_tpu_torch.scripts.bench_scaling", ["--hier=1x1", "--n=5"],
+     ("cross_conv1_lin_fm2", "cross_conv1_bwd", "sorted_segment_sum_by_seg",
+      "bucketed_rowwise_apply")),
 )
 
 
@@ -3246,10 +3643,10 @@ def phase_data() -> dict:
 
 PHASES = ("parity", "parity_bwd", "parity_caps", "parity_segment", "parity_apply", "serve",
           "time", "train", "checkpoint", "step_vs_cpu", "time_train", "parity_segment_by_seg",
-          "parity_bucketed", "train_sharded", "sharded_multi", "time_sharded",
-          "parity_bwd_v1", "parity_dot_probe", "tools", "data")
+          "parity_bucketed", "train_sharded", "sharded_multi", "time_sharded", "train_hier",
+          "train_2d", "time_hier", "parity_bwd_v1", "parity_dot_probe", "tools", "data")
 # the phases that run on the NCCL group of one
-GROUP_PHASES = ("train_sharded", "time_sharded")
+GROUP_PHASES = ("train_sharded", "time_sharded", "train_hier", "train_2d", "time_hier")
 
 
 def main(argv=None) -> int:
@@ -3335,6 +3732,9 @@ def _run_phases(phases, phase, mesh) -> int:
     strained = phase("train_sharded", phase_train_sharded, mesh)
     phase("sharded_multi", phase_sharded_multi)
     stimes = phase("time_sharded", phase_time_sharded, mesh, ids_np)
+    htrained = phase("train_hier", phase_train_hier, mesh)
+    trained_2d = phase("train_2d", phase_train_2d, mesh)
+    htimes = phase("time_hier", phase_time_hier, mesh)
     v1 = phase("parity_bwd_v1", phase_parity_bwd_v1)
     probe = phase("parity_dot_probe", phase_parity_dot_probe)
     tools = phase("tools", phase_tools)
@@ -3396,6 +3796,18 @@ def _run_phases(phases, phase, mesh) -> int:
                 "replaces": rep, "launches": launches, "max_abs_err": err,
                 **{k: stimes[f"{tk}_t1"][k] for k in keys}, "batch": 65536, "shards": 1,
                 "at_t4_rank0": {k: stimes[f"{tk}_t4"][k] for k in keys}})
+        # kernel 6 twice a hier step (the second on the stage-2 sums), once a
+        # 2D step; kernel 7 once a hier step with the apply forced on (none
+        # as multihost is configured) and never in 2D
+        k6, k7 = records[-2], records[-1]
+        hauto, hon = htrained["auto"]["counts"], htrained["k7_on"]["counts"]
+        k6["hier_launches_per_step"] = hauto["sorted_segment_sum_by_seg"] / 2
+        k6["2d_launches_per_step"] = trained_2d["counts"]["sorted_segment_sum_by_seg"] / 2
+        k6["at_hier_stage2"] = {k: htimes["k6_stage2"][k]
+                                for k in keys + ("max_abs_err", "n", "m_pad")}
+        k7["hier_launches_per_step"] = hauto["bucketed_rowwise_apply"] / 2
+        k7["hier_k7_on_launches_per_step"] = hon["bucketed_rowwise_apply"] / 2
+        k7["2d_launches_per_step"] = trained_2d["counts"]["bucketed_rowwise_apply"] / 2
         records[-1]["sgd_ms"] = stimes["k7_t1"]["sgd_ms"]
         records[-1]["at_t4_rank0"]["sgd_ms"] = stimes["k7_t4"]["sgd_ms"]
         records[-1]["sharded_step_ms_65536"] = stimes["sharded_step_ms_65536"]

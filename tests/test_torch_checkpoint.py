@@ -307,3 +307,47 @@ def test_jax_sharded_checkpoint_carried_across_and_continued(tmp_path):
                                              "tower": want["params"]["tower"],
                                              "linear_bias": want["params"]["linear"]["bias"]})):
             np.testing.assert_allclose(got.numpy(), exp, rtol=1e-5, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def grid(tmp_path_factory):
+    """4 gloo ranks as 2 hosts of 2 cards (`worker.grid_ckpt`): a hier
+    save restored into the flat engine and back, and an intra-host save
+    under 2 shards restored on every rank."""
+    _, cfg = _cfgs(sharded=True)
+    out = tmp_path_factory.mktemp("grid")
+    return worker.run(worker.grid_ckpt, out, 4, num_hosts=2, cfg=cfg, cfg_2d=cfg,
+                      ckpt_dir=str(out / "ckpt"), batches=[_batch(s) for s in (1, 2, 3)])
+
+
+def test_hier_checkpoint_restores_into_flat_and_back(grid):
+    """The twin of tests/test_hier_checkpoint.py: the hier state is the
+    flat state, so a hier checkpoint restores into the flat engine bit for
+    bit, and the flat step from it matches the hier step from the saved
+    state (JAX's tolerances there); the flat engine's next save restores
+    into a hier state bit for bit."""
+    for r in grid:
+        assert r["hier_meta"]["num_table_shards"] == 4
+        for k in ("table", "accum"):
+            assert torch.equal(r["flat_restored"][k], r["hier_saved"][k])
+            assert torch.equal(r["hier_restored"][k], r["flat_next"][k])
+        assert r["flat_restored"]["step"] == 2 and r["hier_restored"]["step"] == 3
+        np.testing.assert_allclose(*r["losses_next"], rtol=1e-6)
+        np.testing.assert_allclose(r["flat_next"]["table"].numpy(),
+                                   r["hier_next"]["table"].numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_2d_checkpoint_saved_on_two_hosts_restores_on_every_rank(grid):
+    """An intra-host state (tables over 2 chips, replicated on 2 hosts)
+    saves 2 shard files, host 0's; rank h*2 + c restores shard c, and the
+    same files reshard onto the 4-rank flat layout."""
+    _, cfg = _cfgs(sharded=True)
+    v = cfg.model.total_vocab
+    assert grid[0]["2d_files"] == ["dense.pt", "meta.json", "shard00000.pt", "shard00001.pt"]
+    for r in grid:
+        assert r["2d_meta"]["num_table_shards"] == 2 and r["2d_restored"]["step"] == 2
+        for k in ("table", "accum"):
+            assert torch.equal(r["2d_restored"][k], r["2d_saved"][k])
+    for k in ("table", "accum"):
+        saved = natural_from_shards([r["2d_saved"][k] for r in grid[:2]], v)
+        assert torch.equal(natural_from_shards([r["2d_as_flat"][k] for r in grid], v), saved)

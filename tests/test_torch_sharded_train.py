@@ -91,11 +91,12 @@ def _np_state(s):
         "sparse_opt_state": s.sparse_opt_state})
 
 
-def _natural(np_state, v):
-    """A JAX sharded state as numpy, its row-sharded leaves in natural order."""
+def _natural(np_state, v, t=T):
+    """A JAX sharded state as numpy (t shards), its row-sharded leaves in
+    natural order."""
     def nat(a):
         a = np.asarray(a)
-        return np.asarray(jse.from_mod_sharded(jnp.asarray(a), T, v)) if a.ndim == 2 else a
+        return np.asarray(jse.from_mod_sharded(jnp.asarray(a), t, v)) if a.ndim == 2 else a
 
     out = dict(np_state, params=dict(np_state["params"]))
     out["params"]["embed"] = {"table": nat(np_state["params"]["embed"]["table"])}
@@ -136,9 +137,11 @@ def _gathered(ranks, group, key, v):
     return natural_from_shards([r["state"].params[group][key] for r in ranks], v).numpy()
 
 
-def _assert_close(initial, want, ranks, cfg, bf16):
+def _assert_close(initial, want, ranks, cfg, bf16, t=T):
+    """The ranks' states against JAX's want from initial (t table shards:
+    the first t ranks' shards are gathered)."""
     v = cfg.model.total_vocab
-    initial, want = _natural(initial, v), _natural(want, v)
+    initial, want = _natural(initial, v, t), _natural(want, v, t)
     dense_tol = dict(rtol=1e-4, atol=1e-5 if bf16 else 1e-6)
     got0 = ranks[0]["state"]
     for r in ranks[1:]:  # dense params stay identical on every rank
@@ -153,7 +156,7 @@ def _assert_close(initial, want, ranks, cfg, bf16):
                                      if "table" in want["params"]["linear"] else [])
     for group, key in tables:
         step_want = want["params"][group][key] - initial["params"][group][key]
-        step_got = _gathered(ranks, group, key, v) - initial["params"][group][key]
+        step_got = _gathered(ranks[:t], group, key, v) - initial["params"][group][key]
         np.testing.assert_allclose(step_got, step_want, atol=1e-2 * np.abs(step_want).max())
         untouched = (step_want == 0).all(axis=1)
         np.testing.assert_array_equal(step_got[untouched], 0.0)
@@ -162,7 +165,8 @@ def _assert_close(initial, want, ranks, cfg, bf16):
             if np.ndim(w) == 0:
                 assert all(int(r["state"].sparse_opt_state[group][k]) == int(w) for r in ranks)
                 continue
-            got = natural_from_shards([r["state"].sparse_opt_state[group][k] for r in ranks], v)
+            got = natural_from_shards([r["state"].sparse_opt_state[group][k]
+                                       for r in ranks[:t]], v)
             np.testing.assert_allclose(got.numpy(), w, rtol=1e-3, atol=1e-3 * np.abs(w).max())
 
 

@@ -203,7 +203,8 @@ def test_run_ends_on_the_cpu():
 
 def test_run_refuses_what_later_slices_bring(tmp_path, monkeypatch):
     """checkpoint_dir and tensorboard_dir are taken on the CPU; the
-    hierarchical exchange still raises."""
+    hierarchical exchange runs now, and refuses a group that is no whole
+    number of hosts (2 ranks of 4-card hosts) before any rendezvous."""
     cfg = dataclasses.replace(_tiny_cfg(), checkpoint_dir=str(tmp_path / "ckpt"),
                               tensorboard_dir=str(tmp_path / "tb"))
     result = train.run(cfg, device="cpu", log_fn=lambda s: None)
@@ -211,9 +212,10 @@ def test_run_refuses_what_later_slices_bring(tmp_path, monkeypatch):
     assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == ["3"]
     assert any(p.name.startswith("events.out.tfevents") for p in (tmp_path / "tb").iterdir())
     monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "4")
     hier = dataclasses.replace(_tiny_cfg(), sharding=dataclasses.replace(
         _tiny_cfg().sharding, table_sharded=True, table_axis="hier"))
-    with pytest.raises(NotImplementedError, match="table_axis='hier'"):
+    with pytest.raises(ValueError, match="2 ranks is not a whole number of hosts"):
         train.run(hier, device="cpu")
 
 

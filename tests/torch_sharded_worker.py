@@ -269,3 +269,220 @@ def full_pass(rank: int, world: int, out_dir: str, cfg, params, run_cfg):
         _save(out_dir, rank, {"auc": auc, "rows": batches, "result": result})
     finally:
         close_mesh(mesh)
+
+
+def _mesh2d(rank: int, world: int, out_dir: str, num_hosts: int):
+    """The (host, chip) grid of a gloo group of world ranks, num_hosts hosts."""
+    from cffm_tpu_torch.parallel.mesh import make_mesh_2d
+
+    torch.set_num_threads(1)
+    return make_mesh_2d(num_hosts, world // num_hosts,
+                        init_method=f"file://{os.path.join(out_dir, 'rdzv')}", rank=rank,
+                        world_size=world, backend="gloo", device="cpu")
+
+
+def _bf16(a):
+    """A numpy array (bf16 carried as int16 bits) as a tensor."""
+    t = torch.from_numpy(a)
+    return t.view(torch.bfloat16) if t.dtype == torch.int16 else t
+
+
+def hier_engine(rank: int, world: int, out_dir: str, num_hosts: int, keyed, hier):
+    """keyed: build_routing(keys=) on the flat group, on this rank's block
+    of keyed["keys"]. hier: for each case, build_routing_hier,
+    hier_routed_lookup and hier_grad_return on this rank's block of ids,
+    its rows of the storage and its block of the row grads."""
+    from cffm_tpu_torch.parallel import hier_embedding as he
+    from cffm_tpu_torch.parallel import sharded_embedding as se
+    from cffm_tpu_torch.parallel.mesh import close_mesh
+
+    mesh2d = _mesh2d(rank, world, out_dir, num_hosts)
+    try:
+        n = len(keyed["keys"]) // world
+        k = torch.from_numpy(keyed["keys"][rank * n:(rank + 1) * n])
+        r = se.build_routing(k.int(), keyed["capacity"], mesh2d.flat,
+                             rows_per_shard=keyed["stride"], keys=k)
+        out = {"keyed": {name: getattr(r, name) for name in
+                         ("order", "seg", "idx_of_pos", "start", "recv_ids", "overflow")}}
+        for name, case in hier.items():
+            n = len(case["ids"]) // world
+            vs = case["rows_per_shard"]
+            ids = torch.from_numpy(case["ids"][rank * n:(rank + 1) * n])
+            table = torch.from_numpy(case["storage"][rank * vs:(rank + 1) * vs])
+            hr = he.build_routing_hier(ids, case["cap1"], case["cap2"], mesh2d, vs)
+            rows = he.hier_routed_lookup(table, hr, mesh2d)
+            g = _bf16(case["drows"][rank * n:(rank + 1) * n])
+            row_ids, grads = he.hier_grad_return(g, hr, mesh2d, *case["max_unique"])
+            out[name] = {"r1_recv_ids": hr.r1.recv_ids, "r2_recv_ids": hr.r2.recv_ids,
+                         "r1_idx_of_pos": hr.r1.idx_of_pos, "r2_idx_of_pos": hr.r2.idx_of_pos,
+                         "overflow": he.hier_overflow(hr), "rows": rows,
+                         "row_ids": row_ids, "grads": grads.float()}
+        _save(out_dir, rank, out)
+    finally:
+        close_mesh(mesh2d.flat)
+
+
+def grid_train(rank: int, world: int, out_dir: str, num_hosts: int, jobs):
+    """Each job {"engine": "flat" | "hier" | "2d", "cfg", "np_state" (a JAX
+    sharded state as numpy: the flat layout over world for flat and hier,
+    the intra-host layout for 2d; None for 2d: create_sharded_state_2d
+    from seed 0), "batches" [(ids, dense | None, labels)]
+    global, "use_kernel", "eval_batches"} on the (host, chip) grid:
+    rank's share of the state, the engine's steps, then its eval steps.
+    Saves per job the losses, overflows (and for hier the router's
+    per-stage report of each step), state and evals."""
+    from cffm_tpu_torch.convert import sharded_state_2d_from_jax, sharded_state_from_jax
+    from cffm_tpu_torch.metrics import auc_state_init
+    from cffm_tpu_torch.ops.interaction_conv import make_interaction_fn
+    from cffm_tpu_torch.parallel import dcn_mesh
+    from cffm_tpu_torch.parallel import sharded_train as st
+    from cffm_tpu_torch.parallel.mesh import close_mesh
+
+    mesh2d = _mesh2d(rank, world, out_dir, num_hosts)
+    try:
+        out = {}
+        for name, job in jobs.items():
+            cfg, engine = job["cfg"], job["engine"]
+            fn = make_interaction_fn() if job["use_kernel"] else None
+            if engine == "2d":
+                state = (dcn_mesh.create_sharded_state_2d(
+                    cfg, torch.Generator().manual_seed(0), mesh2d) if job["np_state"] is None
+                    else sharded_state_2d_from_jax(job["np_state"], rank, mesh2d.chips_per_host))
+                step = dcn_mesh.make_sharded_train_step_2d(cfg, mesh2d, fn)
+                ev = dcn_mesh.make_sharded_eval_step_2d(cfg, mesh2d, fn)
+            elif engine == "hier":
+                state = sharded_state_from_jax(job["np_state"], rank, world)
+                step = st.make_sharded_train_step_hier(cfg, mesh2d, fn)
+                ev = st.make_sharded_eval_step_hier(cfg, mesh2d, fn)
+            else:
+                state = sharded_state_from_jax(job["np_state"], rank, world)
+                step = st.make_sharded_train_step(cfg, mesh2d.flat, fn)
+                ev = st.make_sharded_eval_step(cfg, mesh2d.flat, fn)
+            b = cfg.data.batch_size // world
+
+            def mine(a):
+                return None if a is None else torch.from_numpy(a[rank * b:(rank + 1) * b])
+
+            initial = state.params["embed"]["table"].clone()
+            losses, overflows, stages = [], [], []
+            for ids, dense, labels in job["batches"]:
+                state, m = step(state, mine(ids), mine(dense), mine(labels))
+                losses.append(float(m["loss"]))
+                overflows.append(int(m["overflow"]))
+                if engine == "hier":  # the router's report of this rank's two stages
+                    stages.append(step.router.stage_overflow.tolist())
+            evals = []
+            for ids, dense, labels in job.get("eval_batches", ()):
+                auc, ovf = ev(state, auc_state_init(), mine(ids), mine(dense), mine(labels))
+                evals.append(({k: v.numpy() for k, v in auc.items()}, int(ovf)))
+            out[name] = {"losses": losses, "overflows": overflows, "stages": stages,
+                         "state": state, "evals": evals, "initial_table": initial}
+        _save(out_dir, rank, out)
+    finally:
+        close_mesh(mesh2d.flat)
+
+
+def grid_ckpt(rank: int, world: int, out_dir: str, num_hosts: int, cfg, cfg_2d, ckpt_dir: str,
+              batches):
+    """Checkpoints across the engines on the (host, chip) grid. Hier: two
+    steps, a save under world shards, restore_auto into a flat state drawn
+    from another seed, one flat step and a save; restore_auto of that into
+    a hier state, and one hier step from the saved hier state beside it.
+    2d (cfg_2d): two steps, a save under C shards (host 0's ranks write),
+    restore_auto into a 2d state and into a flat state over world shards.
+    Saves the states along the way."""
+    from cffm_tpu_torch.checkpoint import CheckpointManager
+    from cffm_tpu_torch.parallel import dcn_mesh
+    from cffm_tpu_torch.parallel import sharded_train as st
+    from cffm_tpu_torch.parallel.mesh import close_mesh
+
+    mesh2d = _mesh2d(rank, world, out_dir, num_hosts)
+    flat, c = mesh2d.flat, mesh2d.chips_per_host
+    b = cfg.data.batch_size // world
+
+    def run(step, state, batch):
+        ids, labels = batch
+        return step(state, torch.from_numpy(ids[rank * b:(rank + 1) * b]), None,
+                    torch.from_numpy(labels[rank * b:(rank + 1) * b]))
+
+    def snap(state):
+        return {"table": state.params["embed"]["table"].clone(),
+                "accum": state.sparse_opt_state["embed"]["accum"].clone(), "step": state.step}
+
+    def fresh_flat(c_, seed):
+        return st.create_sharded_state(c_, torch.Generator().manual_seed(seed), flat)
+
+    def fresh_2d(seed):
+        return dcn_mesh.create_sharded_state_2d(cfg_2d, torch.Generator().manual_seed(seed),
+                                                mesh2d)
+
+    try:
+        out = {}
+        hstep = st.make_sharded_train_step_hier(cfg, mesh2d)
+        fstep = st.make_sharded_train_step(cfg, flat)
+        mgr = CheckpointManager(os.path.join(ckpt_dir, "hier"))
+        state = fresh_flat(cfg, 9)
+        for batch in batches[:2]:
+            state, _ = run(hstep, state, batch)
+        mgr.save(2, state, cfg, num_shards=world, wait=True)
+        out["hier_saved"] = snap(state)
+        restored, meta = mgr.restore_auto(fresh_flat(cfg, 0), cfg, world)
+        out["flat_restored"], out["hier_meta"] = snap(restored), meta
+        cont_f, mf = run(fstep, restored, batches[2])
+        cont_h, mh = run(hstep, state, batches[2])
+        out["flat_next"], out["hier_next"] = snap(cont_f), snap(cont_h)
+        out["losses_next"] = (float(mf["loss"]), float(mh["loss"]))
+        mgr.save(3, cont_f, cfg, num_shards=world, wait=True)
+        back, _ = mgr.restore_auto(fresh_flat(cfg, 1), cfg, world)
+        out["hier_restored"] = snap(back)
+        mgr.close()
+
+        step2 = dcn_mesh.make_sharded_train_step_2d(cfg_2d, mesh2d)
+        mgr = CheckpointManager(os.path.join(ckpt_dir, "2d"))
+        state = fresh_2d(4)
+        for batch in batches[:2]:
+            state, _ = run(step2, state, batch)
+        mgr.save(2, state, cfg_2d, num_shards=c, wait=True)
+        out["2d_saved"] = snap(state)
+        out["2d_files"] = sorted(os.listdir(os.path.join(ckpt_dir, "2d", "2")))
+        restored, meta = mgr.restore_auto(fresh_2d(5), cfg_2d, c)
+        out["2d_restored"], out["2d_meta"] = snap(restored), meta
+        restored, _ = mgr.restore_auto(fresh_flat(cfg_2d, 6), cfg_2d, world)
+        out["2d_as_flat"] = snap(restored)
+        mgr.close()
+        _save(out_dir, rank, out)
+    finally:
+        close_mesh(flat)
+
+
+def run_train_grid(rank: int, world: int, out_dir: str, cfgs, chips_per_host: int):
+    """train.run of each config in turn inside one gloo group, with
+    torchrun's LOCAL_WORLD_SIZE set to chips_per_host."""
+    from cffm_tpu_torch import train
+    from cffm_tpu_torch.parallel.mesh import close_mesh
+
+    os.environ["LOCAL_WORLD_SIZE"] = str(chips_per_host)
+    mesh = _mesh(rank, world, out_dir)
+    try:
+        out = []
+        for cfg in cfgs:
+            logs = []
+            out.append({"result": train.run(cfg, device="cpu", log_fn=logs.append),
+                        "logs": logs})
+        _save(out_dir, rank, out)
+    finally:
+        close_mesh(mesh)
+
+
+def bench_scaling(rank: int, world: int, out_dir: str, cfg, batch: int, hier, np_state):
+    """scripts.bench_scaling.run on the group from the natural-order state
+    np_state (a JAX state as numpy), one timed step each."""
+    from cffm_tpu_torch.convert import state_from_jax
+    from cffm_tpu_torch.parallel.mesh import close_mesh
+    from cffm_tpu_torch.scripts import bench_scaling as bs
+
+    mesh = _mesh(rank, world, out_dir)
+    try:
+        _save(out_dir, rank, bs.run(cfg, batch, mesh, hier, n=1, state=state_from_jax(np_state)))
+    finally:
+        close_mesh(mesh)
