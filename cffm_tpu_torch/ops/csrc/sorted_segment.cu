@@ -9,8 +9,8 @@
 //   changes up to e), computed by the caller with a cumsum, so segment s
 //   holds the entries with seg == s; grads (n, W) bf16, W % 128 == 0.
 //   uids[s] = the id of segment s, -1 in the empty slots [count, m_pad);
-//   gsum[s] = the f32 sum of segment s's rows, stored as bf16, and zero
-//   rows in the empty slots.
+//   gsum[s] = the f32 sum of segment s's rows, rounded once to bf16, and
+//   zero rows in the empty slots. Segments at or past m_pad are dropped.
 //
 // Kernel 6, `cffm_sorted_segment_sum_by_seg`, replaces `_kernel_seg` of
 // the same file (launched by `sorted_segment_sum_by_seg`, the dedup of the
@@ -18,200 +18,308 @@
 // in steps of at most 1 (the routing's segment index, read directly);
 // grads (n, W) bf16, W % 128 == 0; gsum as above, with no uids.
 //
-// Design: a segmented reduction with no atomics and no one-hot products.
-// The TPU kernel walked the stream once, in order, depositing each block's
-// entries with one-hot MXU matmuls. Here the stream is cut into fixed
-// chunks of kChunk entries, so a hot segment (the synthetic zipf ids fill
-// tens of thousands of entries with one id) spreads over many blocks
-// instead of serialising one:
-//   pass 1, one block per (chunk, 128-column tile): each thread owns two
-//     columns and sums the chunk's entries in order. A segment that both
-//     starts and ends in the chunk is complete and is written at once. The
-//     chunk's first segment, when it started in an earlier chunk, leaves
-//     its part in head[chunk]; the chunk's last segment, when it started in
-//     this chunk and may go on, leaves its part in tail[chunk] and its id in
-//     tail_seg[chunk].
-//   pass 2, one block per (chunk, tile) with a tail: the segment's total is
-//     tail[chunk] plus the head parts of the following chunks, in order,
-//     until a chunk starts a new segment. Sums are in a fixed order, so the
-//     result is the same from run to run.
-//   fill: the empty slots get zero rows (and -1 uids for kernel 3), the TPU
-//     kernel's sweep. The empty rows are one contiguous block of gsum, so
-//     the fill is a flat 16-byte-per-thread store over it.
+// Bound on the H100: memory. The reduction reads n * W bf16 grads once and
+// writes m_pad * W bf16 sums; it does one add per element read. Kernel 6
+// at criteo_kaggle, B = 65536, T = 1: n = 1,703,936, W = 640, 2.18 GB read
+// and 4.36 GB written (3,407,872 slots, nearly all of them the zero rows
+// the contract asks for), 1.96 ms at 3.35 TB/s. Kernel 3 there writes
+// about half as many slots. The TPU kernel walked the stream once, in
+// order, depositing each block's entries with one-hot MXU matmuls and a
+// carry from one grid step to the next; here blocks run in no order, and
+// a segment may be one entry or (the sentinel slots of the hier step's
+// second stage) 1.57M entries. Nothing here may wait on a segment's length.
 //
-// Bound on the H100: reading n*W bf16 grads and writing m_pad*W bf16 sums
-// is memory-bound. Kernel 3 at criteo_kaggle, B = 65536: n = 1,703,936,
-// W = 640, 2.18 GB read, 2.2 GB written. Kernel 6 there at T = 1 writes
-// m_pad = 3,407,872 slots (4.36 GB), nearly all of them the zero fill the
-// contract asks for. Each warp reads 128 contiguous bytes per entry; left
-// on the table are wider loads and reading the grads through the sort
-// permutation (the caller's gather copy of the grads costs as much again).
+// Design: a tree of chunked passes, with no atomics, in a fixed order.
+//   Level 0: the stream is cut into chunks of kChunk0 entries; one thread
+//     per (chunk, 8 columns) walks its chunk in order with 16-byte loads
+//     (kU rows in flight, neighbouring threads on neighbouring columns),
+//     summing in f32. A segment that starts and ends in the chunk is
+//     complete and its sum is stored at once. The chunk's first segment,
+//     when it began in an earlier chunk, leaves its part in head[chunk];
+//     its last segment, when it began in this chunk, leaves its part in
+//     tail[chunk] (each 0 when there is no such part).
+//   Level l + 1: the same pass over the chunks of level l, entry j being
+//     tail[j] + head[j + 1] with the label of chunk j's last entry, in
+//     chunks of kChunkN. A segment's entries there are its tail and the
+//     heads of the chunks it runs through, so it is summed by a tree of
+//     these passes: the depth is log(n) / log(kChunkN), whatever the
+//     segment lengths (n = 1.7M: four passes, 13,312, 416 and 13 entries
+//     above the first). The level with one chunk stores every segment it
+//     holds.
+//   Fill: the empty slots get zero rows (and -1 uids for kernel 3, which
+//     also writes each segment's id at its first entry here), a flat
+//     16-byte store over the contiguous rows [count, m_pad).
+// Each segment is stored once, from the pass that holds all of it; the
+// sums are taken in a fixed order, so the result is the same from run to
+// run. Segments that fit a chunk are summed in stream order.
+// kChunk0 and kU were chosen on the card at the T = 1 and stage-2 shapes.
+// What keeps it above the bound is level 0's reads, not the fill's stores
+// (`python -m cffm_tpu_torch.scripts.ablate_bwd --kernel=6`).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kChunk = 256;   // entries per pass-1 block
-constexpr int kTileCols = 128;
-constexpr int kThreads = kTileCols / 2;
+constexpr int kChunk0 = 128;  // entries per chunk at level 0
+constexpr int kChunkN = 32;   // entries per chunk at the levels above
+constexpr int kThreads = 256;
+constexpr int kU = 8;         // entries a thread loads before it sums them
 
-struct Args {
-  const int* sid;             // (n,), or null for kernel 6
+// One pass of the tree.
+struct Level {
   const int* seg;
-  const __nv_bfloat162* g;    // (n, W/2)
-  int* uids;                  // (m_pad,), or null for kernel 6
-  __nv_bfloat162* gsum;       // (m_pad, W/2)
-  float2* head;               // (chunks, W/2)
-  float2* tail;               // (chunks, W/2)
-  int* tail_seg;              // (chunks,)
-  long long n, m_pad;
-  int w2, chunks;
+  long long n;                // seg's length
+  long long stride;           // entry i's label is seg[min((i + 1) * stride, n) - 1]
+  long long count;            // entries at this level
+  long long chunks;
+  int len;                    // entries per chunk
+  int w8;                     // W / 8: 16-byte column groups per row
+  uint4* gsum;                // (m_pad, W) bf16
+  long long m_pad;
+  float4* head;               // (chunks, W) f32, when chunks > 1
+  float4* tail;
 };
 
-__device__ __forceinline__ bool starts(const Args& a, long long e) {
-  return e == 0 || a.seg[e] != a.seg[e - 1];
+__device__ __forceinline__ int label(const Level& a, long long i) {
+  return __ldg(a.seg + (min((i + 1) * a.stride, a.n) - 1));
 }
 
-__device__ __forceinline__ void store(const Args& a, long long s, int col, float2 v) {
-  if (s < a.m_pad) a.gsum[s * a.w2 + col] = __floats2bfloat162_rn(v.x, v.y);
+// Level 0: the bf16 gradient rows, read once.
+struct Rows {
+  const uint4* g;
+  using Raw = uint4;
+  __device__ __forceinline__ Raw load(const Level& a, long long i, int c) const {
+    return __ldg(g + i * a.w8 + c);
+  }
+  __device__ __forceinline__ static void add(float (&acc)[8], const Raw& v) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(h[k]);
+      acc[2 * k] += f.x;
+      acc[2 * k + 1] += f.y;
+    }
+  }
+};
+
+// The levels above: entry i is tail[i] + head[i + 1] of the level below.
+struct Partials {
+  const float4* tail;
+  const float4* head;
+  struct Raw {
+    float4 t[2], h[2];
+  };
+  __device__ __forceinline__ Raw load(const Level& a, long long i, int c) const {
+    Raw r;
+    const long long o = i * 2 * a.w8 + 2 * c;
+    r.t[0] = tail[o];
+    r.t[1] = tail[o + 1];
+    if (i + 1 < a.count) {
+      r.h[0] = head[o + 2 * a.w8];
+      r.h[1] = head[o + 2 * a.w8 + 1];
+    } else {
+      r.h[0] = r.h[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return r;
+  }
+  __device__ __forceinline__ static void add(float (&acc)[8], const Raw& r) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      acc[4 * k] += r.t[k].x + r.h[k].x;
+      acc[4 * k + 1] += r.t[k].y + r.h[k].y;
+      acc[4 * k + 2] += r.t[k].z + r.h[k].z;
+      acc[4 * k + 3] += r.t[k].w + r.h[k].w;
+    }
+  }
+};
+
+// A complete segment's sum, rounded once to bf16, into its slot.
+__device__ __forceinline__ void store_sum(const Level& a, int s, int c, const float (&v)[8]) {
+  if (s < a.m_pad) {
+    uint4 o;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+    a.gsum[static_cast<long long>(s) * a.w8 + c] = o;
+  }
 }
 
-__global__ void __launch_bounds__(kThreads) pass1_kernel(Args a) {
-  __shared__ int seg_s[kChunk];
-  const int chunk = blockIdx.x;
-  const int col = blockIdx.y * kThreads + threadIdx.x;
-  const long long e0 = static_cast<long long>(chunk) * kChunk;
-  const int len = static_cast<int>(min(static_cast<long long>(kChunk), a.n - e0));
-  for (int u = threadIdx.x; u < len; u += kThreads) seg_s[u] = a.seg[e0 + u];
-  __syncthreads();
+// A chunk's partial (head or tail) in f32.
+__device__ __forceinline__ void store_part(const Level& a, float4* p, long long chunk, int c,
+                                           const float (&v)[8]) {
+  float4* q = p + chunk * 2 * a.w8 + 2 * c;
+  q[0] = make_float4(v[0], v[1], v[2], v[3]);
+  q[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
 
-  const bool first_starts = starts(a, e0);
-  int cur = seg_s[0];
-  bool cur_here = first_starts;
-  float2 acc = make_float2(0.f, 0.f);
-  const __nv_bfloat162* row = a.g + e0 * a.w2 + col;
-  for (int u = 0; u < len; ++u) {
-    const int s = seg_s[u];
-    if (s != cur) {
-      if (cur_here) {
-        store(a, cur, col, acc);
-      } else {
-        a.head[static_cast<long long>(chunk) * a.w2 + col] = acc;
+template <class Src>
+__global__ void __launch_bounds__(kThreads) reduce_kernel(const Src src, const Level a) {
+  const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (t >= a.chunks * a.w8) return;
+  const long long chunk = t / a.w8;
+  const int c = static_cast<int>(t - chunk * a.w8);
+  const long long e0 = chunk * a.len;
+  const long long e1 = min(e0 + a.len, a.count);
+  const bool top = a.chunks == 1;
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  int cur = label(a, e0);
+  // `here`: the current segment began in this chunk
+  bool here = e0 == 0 || label(a, e0 - 1) != cur;
+  if (here && !top) store_part(a, a.head, chunk, c, acc);
+  for (long long e = e0; e < e1; e += kU) {
+    typename Src::Raw v[kU];
+    int s[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      s[u] = cur;
+      if (e + u < e1) {
+        v[u] = src.load(a, e + u, c);
+        s[u] = label(a, e + u);
       }
-      cur = s;
-      cur_here = true;
-      acc = make_float2(0.f, 0.f);
     }
-    const float2 v = __bfloat1622float2(row[static_cast<long long>(u) * a.w2]);
-    acc.x += v.x;
-    acc.y += v.y;
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (e + u < e1) {
+        if (s[u] != cur) {
+          if (here) {
+            store_sum(a, cur, c, acc);
+          } else {
+            store_part(a, a.head, chunk, c, acc);
+          }
+#pragma unroll
+          for (int k = 0; k < 8; ++k) acc[k] = 0.f;
+          cur = s[u];
+          here = true;
+        }
+        Src::add(acc, v[u]);
+      }
+    }
   }
-  const long long o = static_cast<long long>(chunk) * a.w2 + col;
-  if (cur_here) {
-    a.tail[o] = acc;
+  if (top) {
+    store_sum(a, cur, c, acc);
+  } else if (here) {
+    store_part(a, a.tail, chunk, c, acc);
   } else {
-    a.head[o] = acc;
-  }
-  if (blockIdx.y == 0) {
-    if (threadIdx.x == 0) a.tail_seg[chunk] = cur_here ? cur : -1;
-    // every segment start in the chunk names its slot's id
-    for (int u = threadIdx.x; a.uids != nullptr && u < len; u += kThreads) {
-      const long long e = e0 + u;
-      const int s = seg_s[u];
-      if ((u == 0 ? first_starts : s != seg_s[u - 1]) && s < a.m_pad) a.uids[s] = a.sid[e];
-    }
+    store_part(a, a.head, chunk, c, acc);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[k] = 0.f;
+    store_part(a, a.tail, chunk, c, acc);
   }
 }
 
-__global__ void __launch_bounds__(kThreads) pass2_kernel(Args a) {
-  const int chunk = blockIdx.x;
-  const int s = a.tail_seg[chunk];
-  if (s < 0) return;
-  const int col = blockIdx.y * kThreads + threadIdx.x;
-  float2 acc = a.tail[static_cast<long long>(chunk) * a.w2 + col];
-  for (int c = chunk + 1; c < a.chunks; ++c) {
-    if (starts(a, static_cast<long long>(c) * kChunk)) break;
-    const float2 h = a.head[static_cast<long long>(c) * a.w2 + col];
-    acc.x += h.x;
-    acc.y += h.y;
-    if (a.tail_seg[c] >= 0) break;  // the segment ended inside chunk c
-  }
-  store(a, s, col, acc);
-}
+struct Fill {
+  const int* sid;             // (n,), or null for kernel 6
+  const int* seg;
+  int* uids;                  // (m_pad,), or null for kernel 6
+  uint4* gsum;
+  long long n, m_pad;
+  int w8;
+};
 
-__global__ void fill_kernel(Args a) {
-  const long long count = a.n > 0 ? static_cast<long long>(a.seg[a.n - 1]) + 1 : 0;
-  if (count >= a.m_pad) return;
+__global__ void fill_kernel(const Fill f) {
+  const long long count = f.n > 0 ? static_cast<long long>(f.seg[f.n - 1]) + 1 : 0;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (a.uids != nullptr)
-    for (long long s = count + first; s < a.m_pad; s += stride) a.uids[s] = -1;
-  // rows [count, m_pad) of gsum: W/8 16-byte words each (W % 128 == 0)
-  uint4* z = reinterpret_cast<uint4*>(a.gsum + count * a.w2);
-  const long long words = (a.m_pad - count) * (a.w2 / 4);
+  if (f.uids != nullptr) {
+    // each segment's id, from its first entry
+    for (long long e = first; e < f.n; e += stride) {
+      const int s = f.seg[e];
+      if ((e == 0 || f.seg[e - 1] != s) && s < f.m_pad) f.uids[s] = f.sid[e];
+    }
+    for (long long s = count + first; s < f.m_pad; s += stride) f.uids[s] = -1;
+  }
+  if (count >= f.m_pad) return;
+  // rows [count, m_pad) of gsum: W/8 16-byte words each
+  uint4* z = f.gsum + count * f.w8;
+  const long long words = (f.m_pad - count) * f.w8;
   for (long long i = first; i < words; i += stride) z[i] = make_uint4(0u, 0u, 0u, 0u);
 }
 
-int launch(const Args& a, cudaStream_t s) {
-  if (a.chunks > 0) {
-    const dim3 grid(a.chunks, a.w2 * 2 / kTileCols);
-    pass1_kernel<<<grid, kThreads, 0, s>>>(a);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    pass2_kernel<<<grid, kThreads, 0, s>>>(a);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+// Rows of (W,) f32 scratch the tree needs for n entries: a head and a tail
+// row per chunk of every level with more than one chunk
+// (`sorted_segment.scratch_rows` in the wrapper; a launch with less is
+// refused).
+long long scratch_rows(long long n) {
+  long long rows = 0;
+  for (long long count = n, len = kChunk0; count > 0;) {
+    const long long chunks = (count + len - 1) / len;
+    if (chunks == 1) break;
+    rows += 2 * chunks;
+    count = chunks;
+    len = kChunkN;
   }
-  if (a.m_pad > 0) fill_kernel<<<1056, 256, 0, s>>>(a);  // 8 blocks per SM
-  return cudaGetLastError();
+  return rows;
 }
 
-Args make_args(const int* sid, const int* seg, const void* grads, long long n, int w,
-               int* uids, void* gsum, long long m_pad, float* head, float* tail,
-               int* tail_seg) {
-  Args a;
-  a.sid = sid;
-  a.seg = seg;
-  a.g = static_cast<const __nv_bfloat162*>(grads);
-  a.uids = uids;
-  a.gsum = static_cast<__nv_bfloat162*>(gsum);
-  a.head = reinterpret_cast<float2*>(head);
-  a.tail = reinterpret_cast<float2*>(tail);
-  a.tail_seg = tail_seg;
-  a.n = n;
-  a.m_pad = m_pad;
-  a.w2 = w / 2;
-  a.chunks = static_cast<int>((n + kChunk - 1) / kChunk);
-  return a;
+int launch(const int* sid, const int* seg, const void* grads, long long n, int w, int* uids,
+           void* gsum, long long m_pad, float* scratch, long long rows, cudaStream_t st) {
+  if (w % 128 != 0 || n < 0 || m_pad < 0 || rows < scratch_rows(n))
+    return cudaErrorInvalidValue;
+  Level lv;
+  lv.seg = seg;
+  lv.n = n;
+  lv.stride = 1;
+  lv.count = n;
+  lv.len = kChunk0;
+  lv.w8 = w / 8;
+  lv.gsum = static_cast<uint4*>(gsum);
+  lv.m_pad = m_pad;
+  float4* next = reinterpret_cast<float4*>(scratch);  // the next level's head rows
+  Partials below{nullptr, nullptr};  // the level below's partials, from level 1 on
+  for (int level = 0; lv.count > 0; ++level) {
+    lv.chunks = (lv.count + lv.len - 1) / lv.len;
+    lv.head = lv.tail = nullptr;
+    if (lv.chunks > 1) {
+      lv.head = next;
+      lv.tail = next + lv.chunks * 2 * lv.w8;
+      next += 2 * lv.chunks * 2 * lv.w8;
+    }
+    const long long blocks = (lv.chunks * lv.w8 + kThreads - 1) / kThreads;
+    if (level == 0) {
+      reduce_kernel<Rows><<<blocks, kThreads, 0, st>>>(Rows{static_cast<const uint4*>(grads)},
+                                                       lv);
+    } else {
+      reduce_kernel<Partials><<<blocks, kThreads, 0, st>>>(below, lv);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    if (lv.chunks == 1) break;
+    below = Partials{lv.tail, lv.head};
+    lv.stride *= lv.len;
+    lv.count = lv.chunks;
+    lv.len = kChunkN;
+  }
+  if (m_pad > 0) {
+    const Fill f{sid, seg, uids, static_cast<uint4*>(gsum), n, m_pad, w / 8};
+    fill_kernel<<<1056, 256, 0, st>>>(f);  // 8 blocks per SM
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Pass-1 chunk length: the caller sizes head/tail (chunks, W) f32 and
-// tail_seg (chunks,) int32 scratch with chunks = ceil(n / chunk).
-int cffm_sorted_segment_chunk() { return kChunk; }
+// Chunk length at level 0 (level 0) and at the levels above (level 1).
+int cffm_sorted_segment_chunk(int level) { return level == 0 ? kChunk0 : kChunkN; }
 
-// Kernel 3. Returns a cudaError_t; 0 means the three kernels were launched.
-int cffm_sorted_segment_sum(const int* sid, const int* seg, const void* grads,
-                            long long n, int w, int* uids, void* gsum, long long m_pad,
-                            float* head, float* tail, int* tail_seg, void* stream) {
-  if (w % kTileCols != 0 || n < 0 || m_pad < 0 || sid == nullptr || uids == nullptr)
-    return cudaErrorInvalidValue;
-  return launch(make_args(sid, seg, grads, n, w, uids, gsum, m_pad, head, tail, tail_seg),
+// Kernel 3. Returns a cudaError_t; 0 means the kernels were launched.
+int cffm_sorted_segment_sum(const int* sid, const int* seg, const void* grads, long long n,
+                            int w, int* uids, void* gsum, long long m_pad, float* scratch,
+                            long long rows, void* stream) {
+  // an empty tensor's pointer may be null
+  if ((n > 0 && sid == nullptr) || (m_pad > 0 && uids == nullptr)) return cudaErrorInvalidValue;
+  return launch(sid, seg, grads, n, w, uids, gsum, m_pad, scratch, rows,
                 static_cast<cudaStream_t>(stream));
 }
 
 // Kernel 6: the same reduction from seg alone, with no uids. Returns a
 // cudaError_t; 0 means the kernels were launched.
 int cffm_sorted_segment_sum_by_seg(const int* seg, const void* grads, long long n, int w,
-                                   void* gsum, long long m_pad, float* head, float* tail,
-                                   int* tail_seg, void* stream) {
-  if (w % kTileCols != 0 || n < 0 || m_pad < 0) return cudaErrorInvalidValue;
-  return launch(make_args(nullptr, seg, grads, n, w, nullptr, gsum, m_pad, head, tail,
-                          tail_seg),
+                                   void* gsum, long long m_pad, float* scratch,
+                                   long long rows, void* stream) {
+  return launch(nullptr, seg, grads, n, w, nullptr, gsum, m_pad, scratch, rows,
                 static_cast<cudaStream_t>(stream));
 }
 

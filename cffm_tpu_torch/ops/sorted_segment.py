@@ -4,10 +4,11 @@ The port's counterpart of `cffm_tpu/ops/sorted_segment.py`: kernel 3
 (`sorted_segment_sum_compact`, the single-device dedup) and kernel 6
 (`sorted_segment_sum_by_seg`, the dedup of the sharded gradient return,
 which starts from the routing's segment index and returns no ids). Both
-are entries of `csrc/sorted_segment.cu`, a chunked segmented reduction;
-its design note says how it deals with hot segments. Segment starts come
-from the id-change flags and `torch.cumsum`, outside the kernel, as the
-JAX package computes them.
+are entries of `csrc/sorted_segment.cu`, a tree of chunked passes whose
+depth follows n, not the segment lengths; its design note says how.
+Segment starts come from the id-change flags and `torch.cumsum`, outside
+the kernel, as the JAX package computes them. `scratch_rows` sizes the
+tree's f32 scratch, as the kernel's own rule does.
 
 A wrapper launches the CUDA kernel for a CUDA tensor and takes the plain
 PyTorch version (`sorted_segment_sum_reference`,
@@ -24,6 +25,22 @@ import torch
 from cffm_tpu_torch.ops import _build
 
 _SOURCE = "sorted_segment"
+# entries per chunk of the kernel's tree: level 0, and every level above
+CHUNK0, CHUNK_N = 128, 32
+
+
+def scratch_rows(n: int) -> int:
+    """Rows of (W,) f32 scratch the kernel takes for n entries: a head and
+    a tail row per chunk of every level of its tree with more than one
+    chunk (the level with one chunk ends it)."""
+    rows, count, length = 0, n, CHUNK0
+    while count > 0:
+        chunks = -(-count // length)
+        if chunks == 1:
+            break
+        rows += 2 * chunks
+        count, length = chunks, CHUNK_N
+    return rows
 
 
 def segments(sid: torch.Tensor):
@@ -66,12 +83,16 @@ def _library() -> ctypes.CDLL:
     fn = lib.cffm_sorted_segment_sum
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, ll, i, p, p, ll, p, p, p, p]
-        fn.restype = ctypes.c_int
-        lib.cffm_sorted_segment_sum_by_seg.argtypes = [p, p, ll, i, p, ll, p, p, p, p]
-        lib.cffm_sorted_segment_sum_by_seg.restype = ctypes.c_int
-        lib.cffm_sorted_segment_chunk.argtypes = []
-        lib.cffm_sorted_segment_chunk.restype = ctypes.c_int
+        lib.cffm_sorted_segment_chunk.argtypes = [i]
+        lib.cffm_sorted_segment_chunk.restype = i
+        chunks = (lib.cffm_sorted_segment_chunk(0), lib.cffm_sorted_segment_chunk(1))
+        if chunks != (CHUNK0, CHUNK_N):
+            raise RuntimeError(f"sorted_segment library chunks {chunks} differ from "
+                               f"{(CHUNK0, CHUNK_N)}: scratch_rows would size it wrong")
+        lib.cffm_sorted_segment_sum_by_seg.argtypes = [p, p, ll, i, p, ll, p, ll, p]
+        lib.cffm_sorted_segment_sum_by_seg.restype = i
+        fn.argtypes = [p, p, p, ll, i, p, p, ll, p, ll, p]
+        fn.restype = i
     return lib
 
 
@@ -79,24 +100,24 @@ def _launch(sid, seg, grads, m_pad: int):
     """Kernel 3 when sid is given, else kernel 6: (uids | None, gsum)."""
     n, w = grads.shape
     dev = grads.device
+    if grads.data_ptr() % 16:  # the kernel reads rows in 16-byte words
+        grads = grads.clone()
     lib = _library()
-    chunks = -(-n // lib.cffm_sorted_segment_chunk())
     gsum = torch.empty((m_pad, w), dtype=torch.bfloat16, device=dev)
-    head = torch.empty((chunks, w), dtype=torch.float32, device=dev)
-    tail = torch.empty((chunks, w), dtype=torch.float32, device=dev)
-    tail_seg = torch.empty((chunks,), dtype=torch.int32, device=dev)
+    rows = scratch_rows(n)
+    scratch = torch.empty((rows, w), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    scratch = (head.data_ptr(), tail.data_ptr(), tail_seg.data_ptr(), stream)
     uids = None
     with torch.cuda.device(dev):
         if sid is None:
             err = lib.cffm_sorted_segment_sum_by_seg(
-                seg.data_ptr(), grads.data_ptr(), n, w, gsum.data_ptr(), m_pad, *scratch)
+                seg.data_ptr(), grads.data_ptr(), n, w, gsum.data_ptr(), m_pad,
+                scratch.data_ptr(), rows, stream)
         else:
             uids = torch.empty((m_pad,), dtype=torch.int32, device=dev)
             err = lib.cffm_sorted_segment_sum(
                 sid.data_ptr(), seg.data_ptr(), grads.data_ptr(), n, w,
-                uids.data_ptr(), gsum.data_ptr(), m_pad, *scratch)
+                uids.data_ptr(), gsum.data_ptr(), m_pad, scratch.data_ptr(), rows, stream)
     if err != 0:
         raise RuntimeError(f"sorted_segment kernel launch failed: CUDA error {err}")
     return uids, gsum

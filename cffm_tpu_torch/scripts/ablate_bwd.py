@@ -1,13 +1,14 @@
 """Ablate a kernel on the card: where its time goes.
 
-    python -m cffm_tpu_torch.scripts.ablate_bwd [--kernel=2|8a|4] [--batch=65536] [--reps=10]
-        [variant ...]
+    python -m cffm_tpu_torch.scripts.ablate_bwd [--kernel=2|8a|4|6] [--batch=65536]
+        [--reps=10] [variant ...]
 
 Builds the kernel's source as it ships and variants of it, each with one
 part of the work taken out or changed, so that their results may be
 wrong by design, and times each at criteo_kaggle's shapes in bf16, in
 the order shipped, variants, shipped. CUDA events per call; one line per
-run, then the card. The variants (all of the kernel's by default):
+run (and shape), then the card. The variants (all of the kernel's by
+default):
 
 Kernel 2 (`ops/csrc/cross_conv1_bwd.cu`, the default), timed through
 `interaction_conv.cross_conv1_bwd` in the split field-major layout:
@@ -41,6 +42,23 @@ bench shape; --batch is not read):
   id_per_row       each row's id is read on its own before its loads, not 32 at a time
   rows_in_f32      the rows' gradients are held in f32 registers, not as read (bf16)
   no_division      adagrad multiplies by its denominator instead of dividing
+
+Kernel 6 (`ops/csrc/sorted_segment.cu`, the sorted-segment sum of the
+sharded gradient return), timed through
+`sorted_segment.sorted_segment_sum_by_seg` at two shapes of criteo_kaggle
+at --batch on one card: `t1`, the flat step's segment stream (the batch's
+big-field ids sorted), and `stage2`, the hier step's second stage (each
+distinct id once, then the stage-1 sentinel slots as one segment):
+
+  no_fill          the empty slots are not zeroed
+  no_carry         the chunks' partials are not combined (the passes
+                   above the first are not launched)
+  no_pass1_stores  the reduction stores no sums and no partials
+
+The same variants apply to the source as it was before the tree (pass
+1, a serial pass 2 and the fill), so that another checkout's kernel 6
+is ablated with `PYTHONPATH=<checkout> python <path of this file>
+--kernel=6`.
 
 Exits nonzero without a CUDA card or nvcc.
 """
@@ -128,6 +146,33 @@ VARIANTS_APPLY = {
 }
 
 
+# kernel 6's variants, on the tree of chunked passes
+VARIANTS_SEG = {
+    "no_fill": [("  if (m_pad > 0) {\n    const Fill f{",
+                 "  if (m_pad < 0) {\n    const Fill f{")],
+    "no_carry": [("    if (lv.chunks == 1) break;\n", "    break;\n")],
+    "no_pass1_stores": [
+        ("  if (s < a.m_pad) {\n    uint4 o;", "  if (s < a.m_pad && a.m_pad < 0) {\n    uint4 o;"),
+        ("  float4* q = p + chunk * 2 * a.w8 + 2 * c;\n",
+         "  if (a.m_pad >= 0) return;\n  float4* q = p + chunk * 2 * a.w8 + 2 * c;\n"),
+    ],
+}
+
+# the same on the source before the tree (pass 1, the serial pass 2, fill)
+VARIANTS_SEG_SERIAL = {
+    "no_fill": [("  if (a.m_pad > 0) fill_kernel<<<", "  if (a.m_pad < 0) fill_kernel<<<")],
+    "no_carry": [("    pass2_kernel<<<grid, kThreads, 0, s>>>(a);\n", "")],
+    "no_pass1_stores": [
+        ("      if (cur_here) {\n        store(a, cur, col, acc);\n      } else {\n"
+         "        a.head[static_cast<long long>(chunk) * a.w2 + col] = acc;\n      }",
+         "      if (a.m_pad < 0) {\n        store(a, cur, col, acc);\n"
+         "        a.head[static_cast<long long>(chunk) * a.w2 + col] = acc;\n      }"),
+        ("  if (cur_here) {\n    a.tail[o] = acc;\n  } else {\n    a.head[o] = acc;\n  }",
+         "  if (a.m_pad < 0) {\n    a.tail[o] = acc;\n    a.head[o] = acc;\n  }"),
+    ],
+}
+
+
 def _kernel2_call(batch: int):
     """Kernel 2's timed call at criteo_kaggle's training shapes."""
     import torch
@@ -181,10 +226,80 @@ def _kernel4_call(batch: int):
                                              sr_seed=1234)
 
 
-# kernel -> (source, variants, the timed call's maker)
+def segment_streams(batch: int, device="cuda") -> dict:
+    """Kernel 6's inputs at criteo_kaggle B=batch on one card: {"t1": (seg,
+    m_pad), "stage2": (seg, m_pad)}. t1 is the flat step's stream, the
+    batch's big-field ids sorted (at T=1 each id is its own storage key);
+    stage2 the hier step's second stage at H = C = 1: its cap1 stage-1
+    slots, each distinct id once and then the sentinel slots, one segment.
+    m_pad as the steps size it (`sharded_embedding.grad_return`)."""
+    import dataclasses
+
+    import torch
+
+    from cffm_tpu_torch.config import get_config
+    from cffm_tpu_torch.data.loader import make_dataset
+    from cffm_tpu_torch.optim.rowwise import unique_bound
+    from cffm_tpu_torch.ops.sorted_segment import segments
+    from cffm_tpu_torch.parallel.hier_embedding import pick_capacities_hier
+    from cffm_tpu_torch.parallel.mesh import Mesh
+    from cffm_tpu_torch.parallel.sharded_embedding import EB
+    from cffm_tpu_torch.parallel.sharded_train import _make_flat_router
+
+    cfg = get_config("criteo_kaggle")
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, batch_size=batch))
+    mcfg, fs = cfg.model, cfg.model.small_field_prefix
+    ids = torch.from_numpy(next(make_dataset(cfg, prefetch=0))["ids"]).to(device)
+    cfg = dataclasses.replace(cfg, sharding=dataclasses.replace(cfg.sharding,
+                                                                table_sharded=True))
+    seg, count = segments(torch.sort(ids.t()[fs:].reshape(-1)).values)
+    live = int(count)
+
+    def pad(m):
+        return -(-m // EB) * EB
+
+    n = seg.numel()
+    big_unique = unique_bound(mcfg.vocab_sizes[fs:], batch)
+    cap = _make_flat_router(cfg, Mesh(None, 0, 1, torch.device(device), False)).capacity
+    cap1, cap2 = pick_capacities_hier(
+        batch * mcfg.num_fields, 1, 1, cfg.sharding.id_capacity_factor, mcfg.total_vocab,
+        unique_bound(mcfg.vocab_sizes, batch), unique_bound(mcfg.vocab_sizes, batch),
+        cap_rows=cfg.sharding.cap_rows, cap_rows_host=cfg.sharding.cap_rows_host)
+    seg2 = torch.clamp(torch.arange(cap1, device=device, dtype=torch.int32), max=live)
+    return {"t1": (seg, pad(min(n, big_unique)) + pad(cap)),
+            "stage2": (seg2, pad(min(cap1, big_unique)) + pad(cap2))}
+
+
+def _kernel6_call(batch: int) -> dict:
+    """Kernel 6's timed calls at the t1 and stage2 shapes."""
+    import torch
+
+    from cffm_tpu_torch.ops import sorted_segment as ss
+
+    from cffm_tpu_torch.config import get_config
+
+    w = get_config("criteo_kaggle").model.table_width
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    calls = {}
+    for shape, (seg, m_pad) in segment_streams(batch).items():
+        g = (torch.randn((seg.numel(), w), generator=gen, device="cuda") * 0.01).to(
+            torch.bfloat16)
+        print(f"ablate_bwd kernel 6 {shape}: n={seg.numel()} count={int(seg[-1]) + 1} "
+              f"m_pad={m_pad}", flush=True)
+        calls[shape] = lambda seg=seg, g=g, m_pad=m_pad: ss.sorted_segment_sum_by_seg(
+            seg, g, m_pad)
+    return calls
+
+
+# kernel -> (source, variants, the timed call's maker: one call, or
+# {shape: call})
 KERNELS = {"2": (SOURCE, VARIANTS, _kernel2_call),
            "8a": ("cross_conv1_bwd_v1", VARIANTS_V1, _kernel8a_call),
-           "4": ("streamed_update", VARIANTS_APPLY, _kernel4_call)}
+           "4": ("streamed_update", VARIANTS_APPLY, _kernel4_call),
+           "6": ("sorted_segment", VARIANTS_SEG, _kernel6_call)}
+# the same variants on a kernel's earlier design, taken where the source
+# is another checkout's that has it
+EARLIER_VARIANTS = {"6": VARIANTS_SEG_SERIAL}
 
 
 def variant_source(text: str, name: str, variants=None) -> str:
@@ -198,12 +313,24 @@ def variant_source(text: str, name: str, variants=None) -> str:
     return text
 
 
-def build(names, out_dir: pathlib.Path, source: str = SOURCE, variants=None) -> dict:
+def matching_variants(text: str, tables) -> dict:
+    """The first of the variant tables whose every replaced text occurs
+    exactly once in the source."""
+    for table in tables:
+        if all(text.count(old) == 1 for reps in table.values() for old, _ in reps):
+            return table
+    raise ValueError("ablate: no variant table matches the source")
+
+
+def build(names, out_dir: pathlib.Path, source: str = SOURCE, variants=None,
+          earlier=None) -> dict:
     """Compile the shipped `source` and the named variants, one nvcc each,
-    in parallel. Returns {name: loaded library}."""
+    in parallel (from `earlier`'s table where `variants`' do not match the
+    source). Returns {name: loaded library}."""
     from cffm_tpu_torch.ops import _build
 
     text = (_build._CSRC / f"{source}.cu").read_text()
+    variants = matching_variants(text, (variants or VARIANTS,) + ((earlier,) if earlier else ()))
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in ("shipped",) + tuple(names):
@@ -223,19 +350,23 @@ def build(names, out_dir: pathlib.Path, source: str = SOURCE, variants=None) -> 
 
 
 def run(names, batch: int, reps: int, kernel: str = "2") -> list:
-    """[(name, ms)] in the order shipped, variants, shipped."""
+    """[(name, shape, ms)] in the order shipped, variants, shipped (shape
+    None for a kernel timed at one shape)."""
     from cffm_tpu_torch.ops import _build
     from cffm_tpu_torch.utils.timing import device_time
 
     source, variants, make_call = KERNELS[kernel]
-    libs = build(names, _build._BUILD_DIR / f"ablate_{source}", source, variants)
-    call = make_call(batch)
+    libs = build(names, _build._BUILD_DIR / f"ablate_{source}", source, variants,
+                 EARLIER_VARIANTS.get(kernel))
+    calls = make_call(batch)
+    calls = calls if isinstance(calls, dict) else {None: calls}
     shipped_load = _build.load
     out = []
     try:
         for name in ("shipped",) + tuple(names) + ("shipped",):
             _build.load = lambda src, _lib=libs[name]: _lib if src == source else shipped_load(src)
-            out.append((name, device_time(call, n=reps) * 1e3))
+            for shape, call in calls.items():
+                out.append((name, shape, device_time(call, n=reps) * 1e3))
     finally:
         _build.load = shipped_load
     return out
@@ -260,8 +391,10 @@ def main(argv=None) -> int:
         return 1
     from cffm_tpu_torch.bench import card_line
 
-    for name, ms in run(args.variants, args.batch, args.reps, args.kernel):
-        print(f"ablate_bwd kernel {args.kernel} {name} B={args.batch}: {ms:.4f} ms", flush=True)
+    for name, shape, ms in run(args.variants, args.batch, args.reps, args.kernel):
+        at = f" {shape}" if shape else ""
+        print(f"ablate_bwd kernel {args.kernel} {name}{at} B={args.batch}: {ms:.4f} ms",
+              flush=True)
     print(f"card: {card_line()}")
     return 0
 

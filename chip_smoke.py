@@ -51,10 +51,16 @@ nonzero without them, or when any phase fails. Phases, in order:
      and bwd_kernel_takes over 336 (d, k, C1, cross), k up to 13 and C1
      up to 256);
   5. parity_segment: kernel 3 on the sorted big-field ids of one B=65536
-     synthetic criteo_kaggle batch (zipf, hot segments) and on ids up to
-     2^31-2: uids and count exact, empty slots zero, gsum within half a
-     bf16 ulp of the exact (f64) sums plus 4 * 2^-24 * sqrt(len * sum g^2)
-     for the f32 sum's own error;
+     synthetic criteo_kaggle batch (zipf, hot segments; two calls bit-equal)
+     and on ids up to 2^31-2: uids and count exact, empty slots zero, gsum
+     within half a bf16 ulp of the exact (f64) sums plus 4 * 2^-24 *
+     sqrt(len * sum g^2) for the f32 sum's own error; then on the edge
+     streams (`_edge_streams`: n = 0 and 1, one segment over 131 chunks of
+     the tree's first pass, every entry its own segment, boundaries on the
+     chunks', one entry off them and on the second pass's chunks, 20,000
+     singletons and a tail segment of 280,000, a hot segment, a count past
+     m_pad) at W = 128, 640 and 2048, small-integer grads bit for bit
+     against the plain version and unit normals within that limit;
   6. parity_apply: kernels 4 and 5 on the full 2.6M x 640 table with that
      batch's uids and sums, f32 and bf16: rows outside uids bit-equal;
      touched rows within 1e-6 (f32) or one bf16 ulp (nearest); stochastic
@@ -108,7 +114,8 @@ nonzero without them, or when any phase fails. Phases, in order:
  12. parity_segment_by_seg: kernel 6 on the segment stream of one B=65536
      batch routed at T=1 and on rank 0's at T=4: within half a bf16 ulp of
      the exact sums plus the f32 term (phase 5's limit), slots past the
-     count exact zeros, and against its plain version;
+     count exact zeros, against its plain version, two calls bit-equal;
+     then on phase 5's edge streams, as kernel 3 there;
  13. parity_bucketed: kernel 7 on rank 0's table shard and the buckets its
      peers send it for that batch at T=1 (the full table), 4 and 8 (rows
      in several buckets): adagrad, sgd with a clip and rowwise_adam on f32
@@ -155,8 +162,9 @@ nonzero without them, or when any phase fails. Phases, in order:
      tolerances;
  16d. time_hier: the hier step end to end (multihost B=32768; criteo_kaggle
      B=65536 beside the flat step in turns), its profile, kernel 6 at the
-     stage-2 input shape (kernel, plain, index_add_ yardstick, bound), and
-     the intra-host step end to end with its profile;
+     stage-2 input shape (two calls bit-equal; kernel, plain, index_add_
+     yardstick, bound), and the intra-host step end to end with its
+     profile;
  17. parity_bwd_v1: kernel 8a (ops.bwd_variants.bwd_v1) at criteo_kaggle
      shapes against its plain version and against kernel 2 (bwd_v0), and
      row 8b (bwd_v2, kernel 2 from the variants' weights) against the
@@ -814,7 +822,11 @@ def _bf16_ulp(x):
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
 
 
-def _check_segments(ss, sid, grads, m_pad: int, what: str) -> float:
+def _check_segments(ss, sid, grads, m_pad: int, what: str, exact: bool = False,
+                    verbose: bool = True) -> tuple:
+    """Kernel 3 against its plain version (uids and count exact; gsum bit
+    for bit too when `exact`: every sum exact in f32) and the exact sums:
+    (largest difference from the plain version, `_check_sums`' share)."""
     import torch
 
     uids, gsum, count = ss.sorted_segment_sum_compact(sid, grads, m_pad)
@@ -823,15 +835,24 @@ def _check_segments(ss, sid, grads, m_pad: int, what: str) -> float:
                                                          m_pad)
     if not torch.equal(uids, uids_ref) or int(count) != int(count_ref):
         fail(f"parity_segment {what}: uids or count differ")
-    _check_sums("parity_segment", gsum, seg, grads, int(count),
-                f"{what}: n={sid.numel()} count={int(count)} m_pad={m_pad} max id "
-                f"{int(sid.max())}: uids and count exact,")
-    return (gsum.float() - gsum_ref.float()).abs().max().item()
+    if exact and not torch.equal(gsum, gsum_ref):
+        fail(f"parity_segment {what}: exact sums differ from the plain version's")
+    max_id = int(sid.max()) if sid.numel() else None
+    share = _check_sums("parity_segment", gsum, seg, grads, int(count),
+                        f"{what}: n={sid.numel()} count={int(count)} m_pad={m_pad} max id "
+                        f"{max_id}: uids and count exact,", verbose)
+    return _max_diff(gsum, gsum_ref), share
 
 
-def _check_sums(phase: str, gsum, seg, grads, c: int, what: str):
+def _max_diff(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item() if a.numel() else 0.0
+
+
+def _check_sums(phase: str, gsum, seg, grads, c: int, what: str,
+                verbose: bool = True) -> float:
     """The kernel's bf16 segment sums against the exact (f64) sums of the
-    bf16 grads, and zero rows past the count."""
+    bf16 grads, and zero rows past the count (segments at or past m_pad
+    are dropped); returns the worst entry's share of its limit."""
     import torch
 
     # the kernel's bf16 result is its f32 sum rounded to nearest: half a bf16
@@ -840,16 +861,20 @@ def _check_sums(phase: str, gsum, seg, grads, c: int, what: str):
     # sequential f32 sums of random signs and far below one entry of a hot
     # segment. An exact sum halfway between two bf16 values (a tie) sits at
     # 1.000 of its limit.
+    c = min(c, gsum.shape[0])
     if (gsum[c:] != 0).any():
         fail(f"{phase} {what} empty slots hold nonzero rows")
-    sl = seg.long()
-    g64 = grads.to(torch.bfloat16).double()
+    if c == 0:
+        return 0.0
+    keep = seg < c
+    sl = seg[keep].long()
+    g64 = grads[keep].to(torch.bfloat16).double()
     exact = torch.zeros((c, grads.shape[1]), dtype=torch.float64,
                         device=seg.device).index_add_(0, sl, g64)
     sumsq = torch.zeros_like(exact).index_add_(0, sl, g64 * g64)
     del g64
     runs = torch.zeros((c,), dtype=torch.float64, device=seg.device).index_add_(
-        0, sl, torch.ones_like(seg, dtype=torch.float64))
+        0, sl, torch.ones_like(sl, dtype=torch.float64))
     f32_term = 4 * 2.0**-24 * (runs[:, None] * sumsq).sqrt()
     got = gsum[:c]
     err = (got.double() - exact).abs()
@@ -861,14 +886,93 @@ def _check_sums(phase: str, gsum, seg, grads, c: int, what: str):
     worst = int(ratio.argmax())
     row, col = divmod(worst, gsum.shape[1])
     hot = int(runs.argmax())
-    print(f"{phase} {what} longest segment {int(runs[hot])} entries, gsum "
-          f"max_abs_err={err.max().item():.3e} against the exact sums, {bad} entries beyond "
-          f"half a bf16 ulp + the f32 term (f32 term on the longest segment at most "
-          f"{f32_term[hot].max().item():.3e}; worst entry at {ratio.max().item():.3f} of its "
-          f"limit: kernel {got[row, col].item():.6e}, exact {exact[row, col].item():.6e}, "
-          f"segment of {int(runs[row])}); rows past the count exact zeros", flush=True)
+    if bad or verbose:
+        print(f"{phase} {what} longest segment {int(runs[hot])} entries, gsum "
+              f"max_abs_err={err.max().item():.3e} against the exact sums, {bad} entries "
+              f"beyond half a bf16 ulp + the f32 term (f32 term on the longest segment at most "
+              f"{f32_term[hot].max().item():.3e}; worst entry at {ratio.max().item():.3f} of "
+              f"its limit: kernel {got[row, col].item():.6e}, exact "
+              f"{exact[row, col].item():.6e}, segment of {int(runs[row])}); rows past the "
+              f"count exact zeros", flush=True)
     if bad:
         fail(f"{phase} {what} gsum beyond half a bf16 ulp + the f32 term")
+    return ratio.max().item()
+
+
+def _edge_streams():
+    """Kernels 3 and 6's edge streams, against the tree's chunks (level 0's
+    CHUNK0 entries, level 1's CHUNK0 * CHUNK_N): [(name, seg (n,) numpy,
+    m_pad)]; m_pad bounds the count in all but the last."""
+    import numpy as np
+
+    from cffm_tpu_torch.ops.sorted_segment import CHUNK0, CHUNK_N
+
+    k0, k1, ar = CHUNK0, CHUNK0 * CHUNK_N, np.arange
+    rng = np.random.default_rng(12)
+    steps = (rng.random(200_000) < 0.1).astype(np.int64)
+    steps[0], steps[70_000:120_000] = 0, 0  # a hot segment of 50,000 entries
+    streams = [
+        ("n=0", ar(0)),
+        ("n=1", ar(1)),
+        (f"one segment over {131 * k0 + 5} entries (131 chunks)", np.zeros(131 * k0 + 5)),
+        ("every entry its own segment", ar(70_000)),
+        ("boundaries on the chunks'", ar(40 * k0) // k0),
+        ("boundaries one entry past the chunks'", np.maximum(ar(40 * k0 + 7) - 1, 0) // k0),
+        ("boundaries one entry before the chunks'", (ar(40 * k0) + 1) // k0),
+        ("boundaries on level 1's chunks", ar(5 * k1 + 3) // k1),
+        ("20,000 singletons then a tail segment of 280,000 (stage 2 scaled)",
+         np.minimum(ar(300_000), 20_000)),
+        ("random steps with a hot segment of 50,000", np.cumsum(steps)),
+    ]
+    out = [(name, seg.astype(np.int32), (-(-(int(seg[-1]) + 1 if seg.size else 0) // 128)
+                                          + 1) * 128) for name, seg in streams]
+    return out + [("count 10,000 past m_pad 4096", (ar(30_000) // 3).astype(np.int32), 4096)]
+
+
+def _segment_edges(entry: str) -> float:
+    """Kernel 3 or 6 (entry "k3" or "k6") on every edge stream at W = 128,
+    640 and 2048: small-integer grads (every sum exact in f32) bit for bit
+    against the plain version, unit-normal grads against the exact sums
+    (`_check_sums`). Returns the largest difference from the plain
+    version."""
+    import torch
+
+    from cffm_tpu_torch.ops import sorted_segment as ss
+
+    phase = "parity_segment" if entry == "k3" else "parity_segment_by_seg"
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    err = 0.0
+    for name, seg_np, m_pad in _edge_streams():
+        n = seg_np.size
+        seg = torch.from_numpy(seg_np).cuda()
+        count = int(seg[-1]) + 1 if n else 0
+        worst = 0.0
+        for w in (128, 640, 2048):
+            for kind in ("integer", "normal"):
+                if kind == "integer":
+                    g = torch.randint(-4, 5, (n, w), generator=gen, device="cuda")
+                else:
+                    g = torch.randn((n, w), generator=gen, device="cuda")
+                g = g.to(torch.bfloat16)
+                what = f"edge {name} W={w} {kind} grads"
+                if entry == "k3":
+                    diff, share = _check_segments(ss, seg * 3 + 5, g, m_pad, what,
+                                                  kind == "integer", verbose=False)
+                else:
+                    gsum = ss.sorted_segment_sum_by_seg(seg, g, m_pad)
+                    plain = ss.sorted_segment_by_seg_reference(seg, g, m_pad)
+                    if kind == "integer" and not torch.equal(gsum, plain):
+                        fail(f"{phase} {what}: exact sums differ from the plain version's")
+                    diff = _max_diff(gsum, plain)
+                    share = _check_sums(phase, gsum, seg, g, count, what, verbose=False)
+                    del gsum, plain
+                err, worst = max(err, diff), max(worst, share)
+            del g
+        print(f"{phase} edge {name}: n={n} count={count} m_pad={m_pad}, W=128/640/2048: "
+              f"integer grads bit-equal to the plain version, normal grads within the limit "
+              f"(worst {worst:.3f} of it)", flush=True)
+        torch.cuda.empty_cache()
+    return err
 
 
 def phase_parity_segment():
@@ -889,9 +993,12 @@ def phase_parity_segment():
     grads = (torch.randn((n, w), generator=gen, device="cuda") * 0.01).to(torch.bfloat16)
     m_pad = padded_entries(min(n, unique_bound(model.vocab_sizes[fs:], 65536)),
                            pick_tile(model.total_vocab))
-    err = _check_segments(ss, sid, grads, m_pad, "criteo_kaggle B=65536 big fields")
+    err = _check_segments(ss, sid, grads, m_pad, "criteo_kaggle B=65536 big fields")[0]
     uids, gsum, count = ss.sorted_segment_sum_compact(sid, grads, m_pad)
-    del grads
+    again = ss.sorted_segment_sum_compact(sid, grads, m_pad)
+    if not (torch.equal(uids, again[0]) and torch.equal(gsum, again[1])):
+        fail("parity_segment criteo_kaggle B=65536: two calls differ")
+    del grads, again
 
     wide = torch.randint(0, 2**31 - 1, (100_000,), generator=gen, device="cuda",
                          dtype=torch.int32)
@@ -902,6 +1009,7 @@ def phase_parity_segment():
     wide_g = torch.randn((wide_sid.numel(), 128), generator=gen, device="cuda")
     _check_segments(ss, wide_sid, wide_g, padded_entries(wide_sid.numel(), 512),
                     "ids up to 2^31-2")
+    err = max(err, _segment_edges("k3"))
     slots = torch.arange(m_pad, device="cuda")
     uids_s = torch.where(slots < count, uids, model.total_vocab).to(torch.int32)
     return err, (uids_s, gsum, count, sid)
@@ -2168,15 +2276,17 @@ def phase_parity_segment_by_seg(ids_np) -> float:
         grads = (torch.randn((n, cfg.model.table_width), generator=gen, device="cuda")
                  * 0.01).to(torch.bfloat16)
         gsum = ss.sorted_segment_sum_by_seg(seg, grads, m_pad)
+        if not torch.equal(gsum, ss.sorted_segment_sum_by_seg(seg, grads, m_pad)):
+            fail(f"parity_segment_by_seg T={t} rank 0: two calls differ")
         plain = ss.sorted_segment_by_seg_reference(seg, grads, m_pad)
         e = (gsum.float() - plain.float()).abs().max().item()
         _check_sums("parity_segment_by_seg", gsum, seg, grads, count,
                     f"T={t} rank 0: n={n} count={count} m_pad={m_pad} (kernel vs plain "
-                    f"max_abs_err={e:.3e}):")
+                    f"max_abs_err={e:.3e}; two calls bit-equal):")
         err = max(err, e)
         del grads, gsum, plain
         torch.cuda.empty_cache()
-    return err
+    return max(err, _segment_edges("k6"))
 
 
 # sha256 of kernel 7's f32 results on the edge cases of `_bucketed_edges`
@@ -3052,11 +3162,13 @@ def phase_time_hier(mesh) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(11)
     grads = (torch.randn((n, w), generator=gen, device="cuda") * 0.01).to(torch.bfloat16)
     gsum = ss.sorted_segment_sum_by_seg(seg, grads, m_pad)
+    if not torch.equal(gsum, ss.sorted_segment_sum_by_seg(seg, grads, m_pad)):
+        fail("time_hier k6_stage2: two calls differ")
     plain = ss.sorted_segment_by_seg_reference(seg, grads, m_pad)
     err = (gsum.float() - plain.float()).abs().max().item()
     _check_sums("time_hier k6_stage2", gsum, seg, grads, count,
                 f"criteo_kaggle B=65536 H=C=1: n={n} count={count} m_pad={m_pad} (kernel vs "
-                f"plain max_abs_err={err:.3e}):")
+                f"plain max_abs_err={err:.3e}; two calls bit-equal):")
     del gsum, plain
     ms = cuda_ms(lambda: ss.sorted_segment_sum_by_seg(seg, grads, m_pad), 5)
     plain_ms = cuda_ms(lambda: ss.sorted_segment_by_seg_reference(seg, grads, m_pad), 3)

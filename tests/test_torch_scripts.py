@@ -79,6 +79,23 @@ def test_ablate_bwd_needs_a_card(kernel, capsys):
         ablate_bwd.main([f"--kernel={kernel}", "no_such_variant"])
 
 
+def test_ablate_kernel6_streams_are_the_steps_segment_streams():
+    """Kernel 6's ablation inputs at a small batch on the CPU: the flat
+    stream is a segment index (from 0, steps of 0 or 1) within its m_pad;
+    the stage-2 stream is each distinct id once, then one sentinel segment
+    over the rest of the stage-1 slots, within its m_pad."""
+    streams = ablate_bwd.segment_streams(512, device="cpu")
+    seg, m_pad = streams["t1"]
+    steps = seg[1:] - seg[:-1]
+    assert seg[0] == 0 and ((steps == 0) | (steps == 1)).all()
+    live = int(seg[-1]) + 1
+    assert live <= m_pad
+    seg2, m_pad2 = streams["stage2"]
+    assert seg2.dtype == torch.int32 and seg2.numel() > live
+    assert torch.equal(seg2[:live], torch.arange(live, dtype=torch.int32))
+    assert (seg2[live:] == live).all() and live + 1 <= m_pad2
+
+
 def test_sweep_bwd_seeds_reports_on_the_cpu():
     """The sweep's draw, backward and report at a tiny batch, where the
     wrappers take their plain versions: nothing apart, no launch."""
