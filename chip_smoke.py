@@ -86,6 +86,15 @@ nonzero without them, or when any phase fails. Phases, in order:
      B=65536 for 3 steps (adagrad, f32 table), 2 steps with a bf16 table
      (stochastic rounding) and 2 steps of rowwise_adam, launch counts set
      to 0 before and read after each run; finite loss and AUC;
+  9a. learn: the flagship learn check through the training CLI
+     (`cli.main` in process, the argv of `scripts.run_pending_experiments`'
+     learn checks): criteo_kaggle, 300 steps at B=8192, log_every=50, 8
+     eval batches, once with an f32 table and once with a bf16 table
+     (stochastic rounding), launch counts set to 0 before and read after
+     each; the loss curve, the eval and the launches printed; kernels 1
+     and 2 launched, every logged train loss and the eval logloss at least
+     LEARN_LOSS_DROP below ln 2 (the loss at the start), eval AUC above
+     LEARN_MIN_AUC in both runs and the two AUCs within LEARN_MAX_AUC_GAP;
   9b. checkpoint: criteo_kaggle at full width (B=65536, f32 table,
      adagrad) in a temporary directory with room for three checkpoints
      (or it fails with the space it found): two train steps, a save and a
@@ -190,7 +199,12 @@ nonzero without them, or when any phase fails. Phases, in order:
      score, sharded), of the scripts bench_kernel, bench_bwd_variants
      --check, probe_dot_orient, bench_apply, profile_step full,
      trace_step, measure_id_stats (multihost's hier stage occupancy at
-     B=32768 on 1, 2x2 and 2x8 cards) and bench_scaling --hier=1x1, in
+     B=32768 on 1, 2x2 and 2x8 cards), bench_scaling --hier=1x1,
+     check_onchip_parity (kernels 1-4 on the JAX sweep's cases; it must end
+     ONCHIP PARITY: OK), profile_sparse update,segkernel,apply (kernels
+     3-4), profile_sharded_step and trace_sharded (kernels 1, 2, 6 and 7),
+     probe_gather, probe_h2d and run_pending_experiments
+     --only=probe_gather (the runner, one experiment in a subprocess), in
      process, launch counts set to 0 before and read after each: exit code
      0, each kernel of its path launched, and each bench line with a value
      and the card;
@@ -1359,6 +1373,69 @@ def phase_train() -> dict:
                 fail(f"train {name}: want launches {want}, got {counts}")
         out[name] = counts
         torch.cuda.empty_cache()
+    return out
+
+
+# the learn check's bars: eval AUC of each run, and the f32 and bf16 runs' gap
+LEARN_MIN_AUC = 0.60
+LEARN_MAX_AUC_GAP = 0.005
+# every logged train loss and the eval logloss sit this far below ln 2, the
+# loss at the start (the init's logits are near 0; the loss reaches its floor
+# before the first log at step 50)
+LEARN_LOSS_DROP = 0.01
+
+
+def phase_learn() -> dict:
+    """The flagship learn check: criteo_kaggle through the training CLI
+    (cli.main, in process) at 300 steps of B=8192 with an f32 and with a
+    bf16 table; returns each run's losses, eval and launch counts."""
+    import contextlib
+    import io
+
+    import torch
+
+    from cffm_tpu_torch import cli
+    from cffm_tpu_torch.scripts.run_pending_experiments import LEARN
+
+    out = {}
+    for name, extra in (("f32_table", []), ("bf16_table", ["model.table_dtype=bfloat16"])):
+        argv = list(LEARN) + extra
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        recs = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+        losses = [(r["step"], r["loss"]) for r in recs if "loss" in r]
+        ev = [r["eval"] for r in recs if "eval" in r and "step" not in r]
+        launched = {k: v for k, v in counts.items() if v}
+        print(f"learn {name}: python -m cffm_tpu_torch.train {' '.join(argv)} -> rc {rc} in "
+              f"{wall:.1f}s", flush=True)
+        print(f"learn {name}: loss by step {losses}", flush=True)
+        print(f"learn {name}: eval {json.dumps(ev[-1] if ev else None)}", flush=True)
+        print(f"learn {name}: launches {launched}", flush=True)
+        if rc != 0 or not ev or len(losses) != 6:
+            fail(f"learn {name}: rc {rc}, {len(losses)} logged losses, eval {ev}")
+        if not (counts["cross_conv1_lin_fm2"] and counts["cross_conv1_bwd"]):
+            fail(f"learn {name}: kernels 1 and 2 did not both launch ({launched})")
+        worst = max([x for _, x in losses] + [ev[-1]["logloss"]])
+        if not worst <= math.log(2) - LEARN_LOSS_DROP:
+            fail(f"learn {name}: the loss did not fall clearly from ln 2 = {math.log(2)}: "
+                 f"losses {losses}, eval logloss {ev[-1]['logloss']}")
+        if not ev[-1]["auc"] > LEARN_MIN_AUC:
+            fail(f"learn {name}: eval AUC {ev[-1]['auc']} not above {LEARN_MIN_AUC}")
+        out[name] = {"losses": losses, "eval": ev[-1], "launches": launched, "wall_s": wall}
+        torch.cuda.empty_cache()
+    gap = abs(out["f32_table"]["eval"]["auc"] - out["bf16_table"]["eval"]["auc"])
+    print(f"learn: eval AUC f32 table {out['f32_table']['eval']['auc']}, bf16 table "
+          f"{out['bf16_table']['eval']['auc']}, gap {gap}", flush=True)
+    if not gap < LEARN_MAX_AUC_GAP:
+        fail(f"learn: the f32 and bf16 tables' AUCs lie {gap} apart "
+             f"(limit {LEARN_MAX_AUC_GAP})")
     return out
 
 
@@ -3456,6 +3533,23 @@ TOOLS = (
     ("bench_scaling", "cffm_tpu_torch.scripts.bench_scaling", ["--hier=1x1", "--n=5"],
      ("cross_conv1_lin_fm2", "cross_conv1_bwd", "sorted_segment_sum_by_seg",
       "bucketed_rowwise_apply")),
+    # kernels 1-4 held on their own cases; it must print ONCHIP PARITY: OK
+    ("check_onchip_parity", "cffm_tpu_torch.scripts.check_onchip_parity", [],
+     ("cross_conv1_lin", "cross_conv1_lin_fm", "cross_conv1_bwd",
+      "sorted_segment_sum_compact", "streamed_rowwise_apply")),
+    ("profile_sparse", "cffm_tpu_torch.scripts.profile_sparse", ["update,segkernel,apply"],
+     ("sorted_segment_sum_compact", "streamed_rowwise_apply")),
+    ("profile_sharded_step", "cffm_tpu_torch.scripts.profile_sharded_step", [],
+     ("cross_conv1_lin_fm2", "cross_conv1_bwd", "sorted_segment_sum_by_seg",
+      "bucketed_rowwise_apply")),
+    ("trace_sharded", "cffm_tpu_torch.scripts.trace_sharded", [],
+     ("cross_conv1_lin_fm2", "cross_conv1_bwd", "sorted_segment_sum_by_seg",
+      "bucketed_rowwise_apply")),
+    ("probe_gather", "cffm_tpu_torch.scripts.probe_gather", [], ()),
+    ("probe_h2d", "cffm_tpu_torch.scripts.probe_h2d", [], ()),
+    # one experiment in a subprocess of its own, through the runner
+    ("run_pending_experiments", "cffm_tpu_torch.scripts.run_pending_experiments",
+     ["--only=probe_gather"], ()),
 )
 
 
@@ -3490,6 +3584,8 @@ def phase_tools() -> dict:
               f"launches {launched}", flush=True)
         if rc != 0:
             fail(f"tools {name}: exit code {rc}")
+        if module.endswith("check_onchip_parity") and lines[-1] != "ONCHIP PARITY: OK":
+            fail(f"tools {name}: ended with {lines[-1]!r}")
         missing = [k for k in must if not counts[k]]
         if missing:
             fail(f"tools {name}: kernels {missing} never launched ({launched})")
@@ -3754,9 +3850,10 @@ def phase_data() -> dict:
 
 
 PHASES = ("parity", "parity_bwd", "parity_caps", "parity_segment", "parity_apply", "serve",
-          "time", "train", "checkpoint", "step_vs_cpu", "time_train", "parity_segment_by_seg",
-          "parity_bucketed", "train_sharded", "sharded_multi", "time_sharded", "train_hier",
-          "train_2d", "time_hier", "parity_bwd_v1", "parity_dot_probe", "tools", "data")
+          "time", "train", "learn", "checkpoint", "step_vs_cpu", "time_train",
+          "parity_segment_by_seg", "parity_bucketed", "train_sharded", "sharded_multi",
+          "time_sharded", "train_hier", "train_2d", "time_hier", "parity_bwd_v1",
+          "parity_dot_probe", "tools", "data")
 # the phases that run on the NCCL group of one
 GROUP_PHASES = ("train_sharded", "time_sharded", "train_hier", "train_2d", "time_hier")
 
@@ -3834,6 +3931,7 @@ def _run_phases(phases, phase, mesh) -> int:
     served = phase("serve", phase_serve)
     times = phase("time", phase_time, *served[1:]) if served else None
     trained = phase("train", phase_train)
+    phase("learn", phase_learn)
     phase("checkpoint", phase_checkpoint)
     phase("step_vs_cpu", phase_step_vs_cpu)
     ttimes = phase("time_train", phase_time_train)
