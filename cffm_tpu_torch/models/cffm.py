@@ -22,6 +22,7 @@ import torch
 
 from cffm_tpu_torch.config import ModelConfig
 from cffm_tpu_torch.ops.cross import build_cross_map, conv_core_reference
+from cffm_tpu_torch.utils import profiling
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -241,17 +242,24 @@ def forward(params: Dict, ids: torch.Tensor, dense: Optional[torch.Tensor],
     Routes through the field-major hybrid small-field path (prefix
     lookup + big-field gather + split-operand kernel) when the config
     qualifies, else through the batch-major gather and forward_from_rows,
-    exactly as the JAX package routes."""
-    fs = cfg.small_field_prefix
-    if fs and wants_field_major(params, cfg, interaction_fn):
-        ids_fm = ids.t()
-        table_small = params["embed"]["table"][: cfg.small_rows]
-        cdt = torch_dtype(cfg.compute_dtype)
-        emb_small = onehot_lookup_fm(table_small, ids_fm[:fs], cfg, out_dtype=cdt)
-        emb_big = (embedding_lookup_fm(params, ids_fm[fs:], cfg)
-                   if fs < cfg.num_fields else None)
-        return forward_from_rows_fm2(params, emb_small, emb_big, dense, cfg,
-                                     interaction_fn=interaction_fn)
-    emb_rows, lin_rows = embedding_lookup(params, ids, cfg)
-    return forward_from_rows(params, emb_rows, lin_rows, dense, cfg,
-                             interaction_fn=interaction_fn)
+    exactly as the JAX package routes.
+
+    Under a torch profiler it records the span cffm.forward and, inside
+    it, cffm.lookup: the gathers and, on the hybrid path, both operands'
+    casts to the compute dtype (`utils/profiling.py`)."""
+    with profiling.span("cffm.forward"):
+        fs = cfg.small_field_prefix
+        if fs and wants_field_major(params, cfg, interaction_fn):
+            with profiling.span("cffm.lookup"):
+                ids_fm = ids.t()
+                table_small = params["embed"]["table"][: cfg.small_rows]
+                cdt = torch_dtype(cfg.compute_dtype)
+                emb_small = onehot_lookup_fm(table_small, ids_fm[:fs], cfg, out_dtype=cdt)
+                emb_big = (embedding_lookup_fm(params, ids_fm[fs:], cfg).to(cdt)
+                           if fs < cfg.num_fields else None)
+            return forward_from_rows_fm2(params, emb_small, emb_big, dense, cfg,
+                                         interaction_fn=interaction_fn)
+        with profiling.span("cffm.lookup"):
+            emb_rows, lin_rows = embedding_lookup(params, ids, cfg)
+        return forward_from_rows(params, emb_rows, lin_rows, dense, cfg,
+                                 interaction_fn=interaction_fn)

@@ -34,6 +34,7 @@ import torch
 
 from cffm_tpu_torch.config import OptimizerConfig
 from cffm_tpu_torch.ops.rounding import round_table_delta
+from cffm_tpu_torch.utils import profiling
 
 _MASK64 = (1 << 64) - 1
 
@@ -273,6 +274,8 @@ def rowwise_update(
 
         n = row_ids.shape[0]
         m_pad = padded_entries(min(n, max_unique or n), pick_tile(num_rows))
+        profiling.count("sparse.streamed")
+        profiling.count("sparse.slots", m_pad)
         if field_offsets is not None and n % len(tuple(field_offsets)) == 0:
             sid, order = _per_field_sorted(row_ids, field_offsets, mask_sentinels,
                                            field_major)
@@ -281,6 +284,7 @@ def rowwise_update(
             sid = sid.to(torch.int32)
         sorted_grads = grads.to(torch.bfloat16).index_select(0, order)
         uids, g, count = sorted_segment_sum_compact(sid, sorted_grads, m_pad)
+        profiling.count("sparse.distinct_rows", count)
         del sorted_grads
         g = clip_rows(g, opt)
         slots = torch.arange(m_pad, device=uids.device)

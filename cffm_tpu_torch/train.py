@@ -45,6 +45,7 @@ from cffm_tpu_torch.optim.rowwise import (dense_rowwise_apply, fold_in,
                                           rowwise_update, scale_updates,
                                           schedule_factor, sr_keys, tree_leaves,
                                           tree_unflatten, unique_bound)
+from cffm_tpu_torch.utils import profiling
 
 
 class TrainState(NamedTuple):
@@ -102,105 +103,119 @@ def _prefix_grad(g_small: torch.Tensor, ids_fm_small: torch.Tensor, cfg) -> torc
 def train_step(state: TrainState, ids: torch.Tensor, dense: Optional[torch.Tensor],
                labels: torch.Tensor, cfg: TrainConfig, interaction_fn=None):
     """One step on a batch: ids (B, F) int32 global, dense (B, num_dense)
-    | None, labels (B,). Returns (new_state, {"loss", "logit_mean"})."""
-    params = state.params
-    mcfg = cfg.model
-    cdt = model_lib.torch_dtype(mcfg.compute_dtype)
-    # field-major full-rows route: ids transposed before the gather
-    fm = model_lib.wants_field_major(params, mcfg, interaction_fn)
-    # hybrid small-field prefix: its dense-form update exists for adagrad/sgd only
-    fs = (mcfg.small_field_prefix
-          if fm and cfg.optim.sparse_optimizer in ("adagrad", "sgd") else 0)
-    dense_p = split_dense_params(params)
-    leaves = [p.detach().requires_grad_() for p in tree_leaves(dense_p)]
-    full = merge_dense_params(params, tree_unflatten(dense_p, leaves))
-    table = params["embed"]["table"]
-    separate_linear = False
-    with torch.enable_grad():
-        if fm:
-            ids_fm = ids.t()
-            if fs:
-                with torch.no_grad():
-                    emb_small = model_lib.onehot_lookup_fm(
-                        table[: mcfg.small_rows], ids_fm[:fs], mcfg, out_dtype=cdt)
-                rows = [emb_small.requires_grad_()]
-                emb_big = None
-                if fs < mcfg.num_fields:
-                    emb_big = model_lib.embedding_lookup_fm(params, ids_fm[fs:], mcfg).to(cdt)
-                    rows.append(emb_big.requires_grad_())
-                logits = model_lib.forward_from_rows_fm2(
-                    full, emb_small, emb_big, dense, mcfg, interaction_fn=interaction_fn)
-            else:
-                emb3 = model_lib.embedding_lookup_fm(params, ids_fm, mcfg).to(cdt)
-                rows = [emb3.requires_grad_()]
-                logits = model_lib.forward_from_rows_fm(
-                    full, emb3, dense, mcfg, interaction_fn=interaction_fn)
-        else:
-            emb_rows, lin_rows = model_lib.embedding_lookup(params, ids, mcfg)
-            # rows cast to the compute dtype here, so their grads come back narrow
-            emb_rows = emb_rows.to(cdt)
-            rows = [emb_rows.requires_grad_()]
-            separate_linear = mcfg.use_first_order and not mcfg.fused_linear
-            if separate_linear:
-                rows.append(lin_rows.requires_grad_())
-            logits = model_lib.forward_from_rows(
-                full, emb_rows, lin_rows, dense, mcfg, interaction_fn=interaction_fn)
-        loss = metrics.logloss(logits, labels)
-        grads = torch.autograd.grad(loss, leaves + rows)
-    dgrads = tree_unflatten(dense_p, grads[: len(leaves)])
-    row_grads = list(grads[len(leaves):])
+    | None, labels (B,). Returns (new_state, {"loss", "logit_mean"}).
 
-    with torch.no_grad():
-        # dense update, scaled by the LR schedule
-        lrf = schedule_factor(cfg.optim, state.step, cfg.data.num_train_steps)
-        updates, new_dense_opt = make_dense_optimizer(cfg.optim).update(
-            dgrads, state.dense_opt_state, dense_p)
-        for p, u in zip(tree_leaves(dense_p), tree_leaves(scale_updates(updates, lrf))):
-            p.add_(u)
+    Under a torch profiler it records the span cffm.step and, inside it,
+    cffm.lookup (the gathers and the casts to the compute dtype),
+    cffm.forward (interaction, conv tail, tower, loss), cffm.backward,
+    cffm.dense_update and cffm.sparse_update (`utils/profiling.py`)."""
+    with profiling.span("cffm.step"):
+        params = state.params
+        mcfg = cfg.model
+        cdt = model_lib.torch_dtype(mcfg.compute_dtype)
+        # field-major full-rows route: ids transposed before the gather
+        fm = model_lib.wants_field_major(params, mcfg, interaction_fn)
+        # hybrid small-field prefix: its dense-form update exists for adagrad/sgd only
+        fs = (mcfg.small_field_prefix
+              if fm and cfg.optim.sparse_optimizer in ("adagrad", "sgd") else 0)
+        dense_p = split_dense_params(params)
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(dense_p)]
+        full = merge_dense_params(params, tree_unflatten(dense_p, leaves))
+        table = params["embed"]["table"]
+        separate_linear = False
+        with torch.enable_grad():
+            with profiling.span("cffm.lookup"):
+                if fm:
+                    ids_fm = ids.t()
+                    if fs:
+                        with torch.no_grad():
+                            emb_small = model_lib.onehot_lookup_fm(
+                                table[: mcfg.small_rows], ids_fm[:fs], mcfg, out_dtype=cdt)
+                        rows = [emb_small.requires_grad_()]
+                        emb_big = None
+                        if fs < mcfg.num_fields:
+                            emb_big = model_lib.embedding_lookup_fm(
+                                params, ids_fm[fs:], mcfg).to(cdt)
+                            rows.append(emb_big.requires_grad_())
+                    else:
+                        rows = [model_lib.embedding_lookup_fm(params, ids_fm, mcfg)
+                                .to(cdt).requires_grad_()]
+                else:
+                    emb_rows, lin_rows = model_lib.embedding_lookup(params, ids, mcfg)
+                    # rows cast to the compute dtype here, so their grads come back narrow
+                    rows = [emb_rows.to(cdt).requires_grad_()]
+                    separate_linear = mcfg.use_first_order and not mcfg.fused_linear
+                    if separate_linear:
+                        rows.append(lin_rows.requires_grad_())
+            with profiling.span("cffm.forward"):
+                if fm and fs:
+                    logits = model_lib.forward_from_rows_fm2(
+                        full, emb_small, emb_big, dense, mcfg, interaction_fn=interaction_fn)
+                elif fm:
+                    logits = model_lib.forward_from_rows_fm(
+                        full, rows[0], dense, mcfg, interaction_fn=interaction_fn)
+                else:
+                    logits = model_lib.forward_from_rows(
+                        full, rows[0], lin_rows, dense, mcfg, interaction_fn=interaction_fn)
+                loss = metrics.logloss(logits, labels)
+            with profiling.span("cffm.backward"):
+                grads = torch.autograd.grad(loss, leaves + rows)
+        dgrads = tree_unflatten(dense_p, grads[: len(leaves)])
+        row_grads = list(grads[len(leaves):])
 
-        # sparse per-row updates on the touched rows
-        opt = cfg.optim
-        sparse = state.sparse_opt_state
-        offs = tuple(int(o) for o in model_lib.field_offsets(mcfg))
-        batch = ids.shape[0]
-        sk_emb, sk_lin = sr_keys(mcfg.table_dtype, opt, state.step, cfg.data.seed)
-        if fs:
-            dtab_small = _prefix_grad(row_grads[0], ids_fm[:fs], mcfg)
-            if fs < mcfg.num_fields:
-                # big fields only through the sort/dedup/update pipeline
-                rowwise_update(table, sparse["embed"], ids_fm[fs:].reshape(-1),
-                               row_grads[1].reshape(-1, mcfg.table_width), opt,
-                               max_unique=unique_bound(mcfg.vocab_sizes[fs:], batch),
-                               field_offsets=offs[fs:], mask_sentinels=False,
-                               lr_scale=lrf, sr_key=sk_emb, field_major=True)
-            # small block: dense per-row update of the table prefix, whose
-            # rows [0, small_rows) no big-field id touches
-            srows = mcfg.small_rows
-            state_rows = {k: v for k, v in sparse["embed"].items()
-                          if v.dim() >= 1 and v.shape[0] == table.shape[0]}
-            new_small, new_small_state = dense_rowwise_apply(
-                table[:srows], {k: v[:srows] for k, v in state_rows.items()},
-                dtab_small, opt, lr_scale=lrf,
-                sr_key=None if sk_emb is None else fold_in(sk_emb, 1))
-            table[:srows] = new_small
-            for k, v in new_small_state.items():
-                if k in state_rows:
-                    state_rows[k][:srows] = v
-        else:
-            flat_ids = ids_fm.reshape(-1) if fm else ids.reshape(-1)
-            max_u = unique_bound(mcfg.vocab_sizes, batch)
-            rowwise_update(table, sparse["embed"], flat_ids,
-                           row_grads[0].reshape(-1, mcfg.table_width), opt,
-                           max_unique=max_u, field_offsets=offs, mask_sentinels=False,
-                           lr_scale=lrf, sr_key=sk_emb, field_major=fm)
-            if separate_linear:
-                rowwise_update(params["linear"]["table"], sparse["linear"], flat_ids,
-                               row_grads[1].reshape(-1, 1), opt, max_unique=max_u,
-                               field_offsets=offs, mask_sentinels=False,
-                               lr_scale=lrf, sr_key=sk_lin)
+        with torch.no_grad():
+            # dense update, scaled by the LR schedule
+            with profiling.span("cffm.dense_update"):
+                lrf = schedule_factor(cfg.optim, state.step, cfg.data.num_train_steps)
+                updates, new_dense_opt = make_dense_optimizer(cfg.optim).update(
+                    dgrads, state.dense_opt_state, dense_p)
+                for p, u in zip(tree_leaves(dense_p), tree_leaves(scale_updates(updates, lrf))):
+                    p.add_(u)
 
-    new_state = TrainState(state.step + 1, params, new_dense_opt, sparse)
-    return new_state, {"loss": loss.detach(), "logit_mean": logits.detach().mean()}
+            # sparse per-row updates on the touched rows
+            with profiling.span("cffm.sparse_update"):
+                opt = cfg.optim
+                sparse = state.sparse_opt_state
+                offs = tuple(int(o) for o in model_lib.field_offsets(mcfg))
+                batch = ids.shape[0]
+                sk_emb, sk_lin = sr_keys(mcfg.table_dtype, opt, state.step, cfg.data.seed)
+                if fs:
+                    dtab_small = _prefix_grad(row_grads[0], ids_fm[:fs], mcfg)
+                    if fs < mcfg.num_fields:
+                        # big fields only through the sort/dedup/update pipeline
+                        rowwise_update(table, sparse["embed"], ids_fm[fs:].reshape(-1),
+                                       row_grads[1].reshape(-1, mcfg.table_width), opt,
+                                       max_unique=unique_bound(mcfg.vocab_sizes[fs:], batch),
+                                       field_offsets=offs[fs:], mask_sentinels=False,
+                                       lr_scale=lrf, sr_key=sk_emb, field_major=True)
+                    # small block: dense per-row update of the table prefix, whose
+                    # rows [0, small_rows) no big-field id touches
+                    srows = mcfg.small_rows
+                    state_rows = {k: v for k, v in sparse["embed"].items()
+                                  if v.dim() >= 1 and v.shape[0] == table.shape[0]}
+                    new_small, new_small_state = dense_rowwise_apply(
+                        table[:srows], {k: v[:srows] for k, v in state_rows.items()},
+                        dtab_small, opt, lr_scale=lrf,
+                        sr_key=None if sk_emb is None else fold_in(sk_emb, 1))
+                    table[:srows] = new_small
+                    for k, v in new_small_state.items():
+                        if k in state_rows:
+                            state_rows[k][:srows] = v
+                else:
+                    flat_ids = ids_fm.reshape(-1) if fm else ids.reshape(-1)
+                    max_u = unique_bound(mcfg.vocab_sizes, batch)
+                    rowwise_update(table, sparse["embed"], flat_ids,
+                                   row_grads[0].reshape(-1, mcfg.table_width), opt,
+                                   max_unique=max_u, field_offsets=offs, mask_sentinels=False,
+                                   lr_scale=lrf, sr_key=sk_emb, field_major=fm)
+                    if separate_linear:
+                        rowwise_update(params["linear"]["table"], sparse["linear"], flat_ids,
+                                       row_grads[1].reshape(-1, 1), opt, max_unique=max_u,
+                                       field_offsets=offs, mask_sentinels=False,
+                                       lr_scale=lrf, sr_key=sk_lin)
+
+        new_state = TrainState(state.step + 1, params, new_dense_opt, sparse)
+        return new_state, {"loss": loss.detach(), "logit_mean": logits.detach().mean()}
 
 
 @functools.lru_cache(maxsize=16)
