@@ -14,6 +14,7 @@ can take its place and a train step can take grads w.r.t. the rows.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from cffm_tpu_torch.config import ModelConfig
+from cffm_tpu_torch.ops import embed_lookup
 from cffm_tpu_torch.ops.cross import build_cross_map, conv_core_reference
 from cffm_tpu_torch.utils import profiling
 
@@ -86,21 +88,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
-def _take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """table[ids] with ids clamped to [0, V-1] (jnp.take's mode="clip")."""
-    flat = ids.reshape(-1).clamp(0, table.shape[0] - 1)
-    return table.index_select(0, flat).reshape(*ids.shape, table.shape[1])
-
-
 def embedding_lookup(params: Dict, ids: torch.Tensor, cfg: ModelConfig):
     """Replicated-table lookup. ids: (B, F) global (offset-applied) ids.
 
     Returns (emb_rows, lin_rows): (B, F, table_width) and (B, F, 1) | None.
     """
-    emb_rows = _take_rows(params["embed"]["table"], ids)
+    emb_rows = embed_lookup.take_rows(params["embed"]["table"], ids)
     lin_rows = None
     if cfg.use_first_order and not cfg.fused_linear:
-        lin_rows = _take_rows(params["linear"]["table"], ids)
+        lin_rows = embed_lookup.take_rows(params["linear"]["table"], ids)
     return emb_rows, lin_rows
 
 
@@ -117,7 +113,15 @@ def wants_field_major(params: Dict, cfg: ModelConfig, interaction_fn) -> bool:
 def embedding_lookup_fm(params: Dict, ids_fm: torch.Tensor, cfg: ModelConfig
                         ) -> torch.Tensor:
     """Field-major lookup. ids_fm: (F, B) global ids -> (F, B, table_width)."""
-    return _take_rows(params["embed"]["table"], ids_fm)
+    return embed_lookup.take_rows(params["embed"]["table"], ids_fm)
+
+
+@functools.lru_cache(maxsize=16)
+def prefix_bounds(cfg: ModelConfig) -> tuple:
+    """(0, v0, v0 + v1, ...): field f of the small-field prefix holds the
+    global ids [bounds[f], bounds[f + 1]); () without a prefix."""
+    fs = cfg.small_field_prefix
+    return tuple(int(x) for x in np.cumsum([0, *cfg.vocab_sizes[:fs]])) if fs else ()
 
 
 def onehot_lookup_fm(table_small: torch.Tensor, ids_fm_small: torch.Tensor,
@@ -133,16 +137,10 @@ def onehot_lookup_fm(table_small: torch.Tensor, ids_fm_small: torch.Tensor,
     bit-equal to the one-hot product: each output row is 1.0 times one
     row of the block, and an id outside its field's block gives a row of
     zeros, as its all-zero one-hot row does. An f32 one-hot matmul under
-    TF32 would round the table, so this path has no matmul at all."""
+    TF32 would round the table, so this path has no matmul at all. On the
+    card it is one launch of `ops/embed_lookup`'s kernel."""
     dt = out_dtype or table_small.dtype
-    fs = cfg.small_field_prefix
-    vocab = torch.as_tensor(cfg.vocab_sizes[:fs], device=ids_fm_small.device)
-    offs = torch.cumsum(vocab, 0) - vocab
-    local = ids_fm_small - offs[:, None].to(ids_fm_small.dtype)
-    valid = (local >= 0) & (local < vocab[:, None])
-    rows = _take_rows(table_small, ids_fm_small).to(dt)
-    return torch.where(valid[..., None], rows, torch.zeros((), dtype=dt,
-                                                           device=rows.device))
+    return embed_lookup.lookup_fm(table_small, ids_fm_small.t(), prefix_bounds(cfg), dt)[0]
 
 
 def _tower(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -245,18 +243,18 @@ def forward(params: Dict, ids: torch.Tensor, dense: Optional[torch.Tensor],
     exactly as the JAX package routes.
 
     Under a torch profiler it records the span cffm.forward and, inside
-    it, cffm.lookup: the gathers and, on the hybrid path, both operands'
-    casts to the compute dtype (`utils/profiling.py`)."""
+    it, cffm.lookup: on the hybrid path one launch of `ops/embed_lookup`'s
+    kernel on the card, which writes both operands in the compute dtype;
+    else the gathers (`utils/profiling.py`)."""
     with profiling.span("cffm.forward"):
         fs = cfg.small_field_prefix
         if fs and wants_field_major(params, cfg, interaction_fn):
             with profiling.span("cffm.lookup"):
-                ids_fm = ids.t()
-                table_small = params["embed"]["table"][: cfg.small_rows]
-                cdt = torch_dtype(cfg.compute_dtype)
-                emb_small = onehot_lookup_fm(table_small, ids_fm[:fs], cfg, out_dtype=cdt)
-                emb_big = (embedding_lookup_fm(params, ids_fm[fs:], cfg).to(cdt)
-                           if fs < cfg.num_fields else None)
+                emb_small, emb_big = embed_lookup.lookup_fm(
+                    params["embed"]["table"], ids, prefix_bounds(cfg),
+                    torch_dtype(cfg.compute_dtype))
+                if fs == cfg.num_fields:
+                    emb_big = None
             return forward_from_rows_fm2(params, emb_small, emb_big, dense, cfg,
                                          interaction_fn=interaction_fn)
         with profiling.span("cffm.lookup"):

@@ -6,7 +6,7 @@ The port's counterpart of `scripts/check_onchip_parity.py`, with its
 cases, numpy references and tolerances. The CPU tests reach only the
 plain versions, so a fault in a CUDA kernel's compiled code shows only
 here (on the TPU a `<< 16` passed every interpret-mode test and then
-corrupted ids >= 2^16 on the chip). Three checks:
+corrupted ids >= 2^16 on the chip). Four checks:
 
   sorted_segment       kernel 3 at five (n, vmax) streams, W = 256: ids
                        >= 2^16 and >= 2^24, n not a multiple of the
@@ -26,6 +26,12 @@ corrupted ids >= 2^16 on the chip). Three checks:
                        on both routes against the reference's gradients
                        (2e-2 of the largest, rows and conv weight). TF32 is
                        off while it runs.
+  embed_lookup         the field-major lookup (`ops.embed_lookup`, no JAX
+                       counterpart) on a 140,000 x 256 table, B = 4096, 15
+                       fields with a 5-field prefix of 64 ids each: f32 and
+                       bf16 tables, int32, int64 and strided ids, bf16 and
+                       f32 outputs, prefix ids outside their block and big
+                       ids outside the table; bit-equal to the plain version.
 
 On the card each check also requires its kernels' launch counts to rise:
 a route that fell to a plain version fails. Prints `ONCHIP PARITY: OK` or
@@ -207,7 +213,39 @@ def check_interaction_kernel(device="cuda") -> bool:
     return ok
 
 
-CHECKS = (check_sorted_segment, check_streamed_apply, check_interaction_kernel)
+def check_embed_lookup(device="cuda") -> bool:
+    """Both operands of the field-major lookup against its plain version,
+    bit for bit, in every table, id and output dtype it takes."""
+    from cffm_tpu_torch.ops import embed_lookup as el
+
+    device = torch.device(device)
+    rng = np.random.default_rng(11)
+    v, w, b, f, fs = 140_000, 256, 4096, 15, 5
+    bounds = tuple(range(0, 64 * fs + 1, 64))
+    ids = rng.integers(-50, v + 50, size=(b, f))
+    ids[:, :fs] = rng.integers(0, 64 * fs, size=(b, fs))  # about 4 in 5 outside their block
+    table = torch.from_numpy(rng.normal(size=(v, w)).astype(np.float32)).to(device)
+    ids32 = torch.from_numpy(ids.astype(np.int32)).to(device)
+    wide = torch.zeros((b, 2 * f), dtype=torch.int32, device=device)
+    wide[:, ::2] = ids32
+    ok = True
+    for tdt in (torch.float32, torch.bfloat16):
+        for name, i in (("int32", ids32), ("int64", ids32.long()), ("strided", wide[:, ::2])):
+            for odt in (torch.bfloat16, torch.float32):
+                before = [el.lookup_fm.launches]
+                got = el.lookup_fm(table.to(tdt), i, bounds, odt)
+                want = el.lookup_fm_reference(table.to(tdt), i, bounds, odt)
+                good = (all(torch.equal(g.view(torch.int16), x.view(torch.int16))
+                            for g, x in zip(got, want))
+                        and _launched([el.lookup_fm], before, device))
+                print(f"embed_lookup {str(tdt)[6:]} table, {name} ids -> {str(odt)[6:]} "
+                      f"-> {'ok' if good else 'FAIL'}", flush=True)
+                ok &= good
+    return ok
+
+
+CHECKS = (check_sorted_segment, check_streamed_apply, check_interaction_kernel,
+          check_embed_lookup)
 
 
 def main(argv=None) -> int:

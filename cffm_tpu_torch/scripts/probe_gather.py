@@ -6,7 +6,7 @@
 The port's counterpart of `scripts/probe_gather.py`: the gather of
 criteo_kaggle's bench batch (1,277,952 = 39 x 32768 sorted row ids out of
 a 2,600,832-row table) through the port's own row gather
-(`models.cffm._take_rows`, as serving and training gather) at several row
+(`ops.embed_lookup.take_rows`, as the batch-major route gathers) at several row
 widths and dtypes. One JSON line per (dtype, width): ms per call (CUDA
 events over 10 calls after a warm one), the bytes moved (each taken row
 read once and written once), GB/s, the bound (those bytes over the card's
@@ -48,10 +48,10 @@ def operands(rows: int, take: int, width: int, dtype: torch.dtype, device="cuda"
 
 
 def gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """The port's row gather (`models.cffm._take_rows`)."""
-    from cffm_tpu_torch.models.cffm import _take_rows
+    """The port's row gather (`ops.embed_lookup.take_rows`)."""
+    from cffm_tpu_torch.ops.embed_lookup import take_rows
 
-    return _take_rows(table, ids)
+    return take_rows(table, ids)
 
 
 def gather_line(rows: int, take: int, width: int, dtype: torch.dtype, device="cuda",

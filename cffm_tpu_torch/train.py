@@ -40,6 +40,7 @@ import torch
 from cffm_tpu_torch import metrics, resolve_device
 from cffm_tpu_torch.config import TrainConfig
 from cffm_tpu_torch.models import cffm as model_lib
+from cffm_tpu_torch.ops import embed_lookup
 from cffm_tpu_torch.optim.rowwise import (dense_rowwise_apply, fold_in,
                                           make_dense_optimizer, rowwise_init,
                                           rowwise_update, scale_updates,
@@ -106,7 +107,8 @@ def train_step(state: TrainState, ids: torch.Tensor, dense: Optional[torch.Tenso
     | None, labels (B,). Returns (new_state, {"loss", "logit_mean"}).
 
     Under a torch profiler it records the span cffm.step and, inside it,
-    cffm.lookup (the gathers and the casts to the compute dtype),
+    cffm.lookup (on the field-major route one launch of `ops/embed_lookup`'s
+    kernel on the card, which writes the rows in the compute dtype),
     cffm.forward (interaction, conv tail, tower, loss), cffm.backward,
     cffm.dense_update and cffm.sparse_update (`utils/profiling.py`)."""
     with profiling.span("cffm.step"):
@@ -127,19 +129,17 @@ def train_step(state: TrainState, ids: torch.Tensor, dense: Optional[torch.Tenso
             with profiling.span("cffm.lookup"):
                 if fm:
                     ids_fm = ids.t()
+                    with torch.no_grad():
+                        emb_small, emb_big = embed_lookup.lookup_fm(
+                            table, ids, model_lib.prefix_bounds(mcfg) if fs else (), cdt)
                     if fs:
-                        with torch.no_grad():
-                            emb_small = model_lib.onehot_lookup_fm(
-                                table[: mcfg.small_rows], ids_fm[:fs], mcfg, out_dtype=cdt)
                         rows = [emb_small.requires_grad_()]
-                        emb_big = None
                         if fs < mcfg.num_fields:
-                            emb_big = model_lib.embedding_lookup_fm(
-                                params, ids_fm[fs:], mcfg).to(cdt)
                             rows.append(emb_big.requires_grad_())
+                        else:
+                            emb_big = None
                     else:
-                        rows = [model_lib.embedding_lookup_fm(params, ids_fm, mcfg)
-                                .to(cdt).requires_grad_()]
+                        rows = [emb_big.requires_grad_()]
                 else:
                     emb_rows, lin_rows = model_lib.embedding_lookup(params, ids, mcfg)
                     # rows cast to the compute dtype here, so their grads come back narrow

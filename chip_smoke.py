@@ -224,7 +224,16 @@ nonzero without them, or when any phase fails. Phases, in order:
      unpack on the card (its ids equal to the raw batch's) and its pack
      on the host; and
      the bench's staged, reader and prehashed feeds in one call, kernels
-     1-4 launched in each.
+     1-4 launched in each;
+ 21. lookup: the field-major lookup kernel (ops/embed_lookup) on one
+     B=65536 criteo_kaggle batch of the benchmark's zipf traffic
+     (benchmark/traffic/train_zipf.json): bit-equal to its plain version
+     for f32 and bf16 tables and int32, int64 and strided ids; one launch
+     in a train step and one in a forward; then timed with CUDA events:
+     the kernel, its plain version, the chain the port ran before it
+     (index_select, the cast and where, the library yardstick) and its
+     bound (the outputs written once, the distinct rows and the ids read
+     once).
 
 Prints one JSON line of kernel records, then the card line, and ends
 with {"ok": true, "device": {...}}.
@@ -243,7 +252,7 @@ import time
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 KERNEL_SOURCES = ["cross_conv1_fwd", "cross_conv1_bwd", "sorted_segment",
-                  "streamed_update", "cross_conv1_bwd_v1", "dot_orient_probe"]
+                  "streamed_update", "cross_conv1_bwd_v1", "dot_orient_probe", "embed_lookup"]
 
 
 def fail(msg: str):
@@ -3849,11 +3858,132 @@ def phase_data() -> dict:
     return out
 
 
+def _zipf_batch(b: int):
+    """criteo_kaggle's train config at batch b and one batch of the
+    benchmark's zipf traffic: global int32 ids (b, F), dense, labels (numpy)."""
+    import pathlib
+
+    import numpy as np
+
+    from benchmark import traffic
+    from cffm_tpu_torch.config import get_config
+
+    cfg = get_config("criteo_kaggle")
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, batch_size=b))
+    path = pathlib.Path(__file__).resolve().parent / "benchmark" / "traffic" / "train_zipf.json"
+    law = json.loads(path.read_text())["ids"]
+    world = traffic.PlantedCTR(cfg.model.vocab_sizes, cfg.model.num_dense, 4000000901, law)
+    ids, dense, labels = world.batch(traffic.rng(4000000901, 1), b)
+    ids = ids + traffic.field_offsets(cfg.model.vocab_sizes)[None, :].astype(np.int32)
+    return cfg, ids, dense, labels
+
+
+def _lookup_bytes(table, ids, bounds, out_dtype) -> float:
+    """The lookup's least bytes: each output row written once, each distinct
+    table row it reads and each id read once."""
+    import torch
+
+    fs = len(bounds) - 1
+    b, f = ids.shape
+    small = ids.t()[:fs].long()
+    edges = torch.tensor(bounds, device=ids.device)[:, None]
+    valid = small[(small >= edges[:-1]) & (small < edges[1:])]
+    big = ids.t()[fs:].long().clamp(0, table.shape[0] - 1)
+    distinct = torch.unique(torch.cat([valid, big.reshape(-1)])).numel()
+    w = table.shape[1]
+    return (f * b * w * out_dtype.itemsize + distinct * w * table.element_size()
+            + ids.numel() * ids.element_size())
+
+
+def phase_lookup() -> dict:
+    """The lookup kernel against its plain version, its launches in the
+    train step and the forward, and its time beside the plain version's,
+    the old chain's and its bound (f32 table, bf16 out, as the cells run)."""
+    import torch
+
+    from cffm_tpu_torch import train
+    from cffm_tpu_torch.models import cffm as model_lib
+    from cffm_tpu_torch.ops import embed_lookup as el
+
+    b = 65536
+    cfg, ids_np, dense_np, labels_np = _zipf_batch(b)
+    mcfg = cfg.model
+    bounds = model_lib.prefix_bounds(mcfg)
+    ids = torch.from_numpy(ids_np).cuda()
+    wide = torch.zeros((b, 2 * mcfg.num_fields), dtype=torch.int32, device="cuda")
+    wide[:, ::2] = ids
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    f32 = 0.01 * torch.randn((mcfg.total_vocab, mcfg.table_width), generator=gen,
+                             device="cuda")
+    for tname, table in (("f32", f32), ("bf16", f32.to(torch.bfloat16))):
+        for iname, i in (("int32", ids), ("int64", ids.long()), ("strided", wide[:, ::2])):
+            before = el.lookup_fm.launches
+            got = el.lookup_fm(table, i, bounds, torch.bfloat16)
+            want = el.lookup_fm_reference(table, i, bounds, torch.bfloat16)
+            torch.cuda.synchronize()
+            if el.lookup_fm.launches != before + 1:
+                fail(f"lookup {tname} {iname}: the kernel did not launch")
+            for g, w in zip(got, want):
+                if not torch.equal(g.view(torch.int16), w.view(torch.int16)):
+                    fail(f"lookup {tname} {iname}: not bit-equal to the plain version")
+            del got, want
+    print("lookup: bit-equal to the plain version (f32 and bf16 tables; int32, int64 and "
+          "strided ids)", flush=True)
+    del wide
+    torch.cuda.empty_cache()
+
+    def old_chain():
+        ids_fm = ids.t()
+        fs = len(bounds) - 1
+        vocab = torch.as_tensor(mcfg.vocab_sizes[:fs], device=ids.device)
+        offs = torch.cumsum(vocab, 0) - vocab
+        local = ids_fm[:fs] - offs[:, None].to(ids.dtype)
+        valid = (local >= 0) & (local < vocab[:, None])
+        rows = el.take_rows(f32[: bounds[-1]], ids_fm[:fs]).to(torch.bfloat16)
+        small = torch.where(valid[..., None], rows, torch.zeros((), dtype=torch.bfloat16,
+                                                                device=ids.device))
+        return small, el.take_rows(f32, ids_fm[fs:]).to(torch.bfloat16)
+
+    out = {"bytes": _lookup_bytes(f32, ids, bounds, torch.bfloat16)}
+    out.update(_bound(out["bytes"], 0.0))
+    out["ms"] = cuda_ms(lambda: el.lookup_fm(f32, ids, bounds, torch.bfloat16), 20)
+    out["plain_ms"] = cuda_ms(lambda: el.lookup_fm_reference(f32, ids, bounds,
+                                                             torch.bfloat16), 10)
+    out["library_ms"] = cuda_ms(old_chain, 10)
+    torch.cuda.empty_cache()
+
+    # one launch a train step and one a forward, at the cells' shapes
+    del f32
+    torch.cuda.empty_cache()
+    fn = train.default_interaction_fn(cfg)
+    state = train.create_state(cfg, torch.Generator(device="cuda").manual_seed(0))
+    dense, labels = torch.from_numpy(dense_np).cuda(), torch.from_numpy(labels_np).cuda()
+    launches = {}
+    for name in ("train_step", "forward"):
+        before = el.lookup_fm.launches
+        if name == "train_step":
+            state, _ = train.train_step(state, ids, dense, labels, cfg, fn)
+        else:
+            with torch.no_grad():
+                model_lib.forward(state.params, ids, dense, mcfg, interaction_fn=fn)
+        torch.cuda.synchronize()
+        launches[name] = el.lookup_fm.launches - before
+        if launches[name] != 1:
+            fail(f"lookup: {launches[name]} launches in one {name}, want 1")
+    out["launches"] = launches
+    print(f"lookup: B={b} F={mcfg.num_fields} W={mcfg.table_width} f32 -> bf16: kernel "
+          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f}, old chain "
+          f"{out['library_ms']:.4f}, bound "
+          f"{out['bound_ms']:.4f} ({out['bytes'] / 1e9:.3f} GB) = "
+          f"{100 * out['bound_ms'] / out['ms']:.1f}% of it; launches {launches}", flush=True)
+    return out
+
+
 PHASES = ("parity", "parity_bwd", "parity_caps", "parity_segment", "parity_apply", "serve",
           "time", "train", "learn", "checkpoint", "step_vs_cpu", "time_train",
           "parity_segment_by_seg", "parity_bucketed", "train_sharded", "sharded_multi",
           "time_sharded", "train_hier", "train_2d", "time_hier", "parity_bwd_v1",
-          "parity_dot_probe", "tools", "data")
+          "parity_dot_probe", "tools", "data", "lookup")
 # the phases that run on the NCCL group of one
 GROUP_PHASES = ("train_sharded", "time_sharded", "train_hier", "train_2d", "time_hier")
 
@@ -3949,6 +4079,7 @@ def _run_phases(phases, phase, mesh) -> int:
     probe = phase("parity_dot_probe", phase_parity_dot_probe)
     tools = phase("tools", phase_tools)
     phase("data", phase_data)
+    lookup = phase("lookup", phase_lookup)
 
     if set(phases) == set(PHASES):
         t = times[4096]
@@ -4041,6 +4172,11 @@ def _run_phases(phases, phase, mesh) -> int:
             "max_abs_err": probe["max_abs_err"], **{k: probe["lane"][k] for k in keys},
             "by_mode": {m: {k: probe[m][k] for k in keys + ("tmac_s",)}
                         for m in ("lane", "sub", "rhs")}})
+        records.append({
+            "name": "embed_lookup_fm", "route": "cuda",
+            "source": "cffm_tpu_torch/ops/csrc/embed_lookup.cu", "replaces": None,
+            "launches": lookup["launches"], "max_abs_err": 0.0,
+            **{k: lookup[k] for k in keys}, "batch": 65536})
         print(json.dumps({"kernels": records}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
