@@ -245,7 +245,9 @@ def forward(params: Dict, ids: torch.Tensor, dense: Optional[torch.Tensor],
     Under a torch profiler it records the span cffm.forward and, inside
     it, cffm.lookup: on the hybrid path one launch of `ops/embed_lookup`'s
     kernel on the card, which writes both operands in the compute dtype;
-    else the gathers (`utils/profiling.py`)."""
+    else the gathers (`utils/profiling.py`). The interaction fn records
+    cffm.conv_tail around the conv tail: one launch of its kernel on the
+    card when no gradient is taken (`ops/interaction_conv.conv_tail`)."""
     with profiling.span("cffm.forward"):
         fs = cfg.small_field_prefix
         if fs and wants_field_major(params, cfg, interaction_fn):

@@ -4,9 +4,10 @@ plain versions.
 The port's counterpart of `cffm_tpu/ops/interaction_conv.py`. The
 interaction map M (B, P, d), P = F(F-1)/2, is built on chip and fed
 straight into the first, heaviest conv layer (in_channels = P); M never
-reaches device memory, forward or backward. The remaining conv layers,
-bias, ReLU and pooling run in PyTorch on the small (B, C1, d) activation
-(`_conv_tail`).
+reaches device memory, forward or backward. The conv tail (layer 1's bias,
+ReLU and pool, then the remaining conv layers) runs on the small (B, C1, d)
+activation: in one launch of `csrc/conv_tail.cu` (`conv_tail`) on a
+forward that takes no gradient, else in PyTorch (`conv_tail_reference`).
 
 The forward kernel is `csrc/cross_conv1_fwd.cu`, the backward
 `csrc/cross_conv1_bwd.cu`. Four entries keep the contracts of the four
@@ -51,9 +52,13 @@ from cffm_tpu_torch.ops import _build
 from cffm_tpu_torch.ops.cross import (build_cross_map, conv1d_same,
                                       conv_core_reference, max_pool_valid,
                                       pair_indices)
+from cffm_tpu_torch.utils import profiling
 
 _SOURCE = "cross_conv1_fwd"
 _BWD_SOURCE = "cross_conv1_bwd"
+_TAIL_SOURCE = "conv_tail"
+# layer widths the conv tail's kernel takes (csrc/conv_tail.cu)
+TAIL_CHANNELS = (32, 64)
 # conv widths with unrolled instantiations in the CUDA-core kernels; every
 # other odd k takes their run-time-k instantiation (`kernel_takes_width`)
 KERNEL_WIDTHS = (1, 3, 5, 7, 9)
@@ -610,8 +615,9 @@ for _fn in ENTRIES + (cross_conv1_bwd,):
 
 
 def reset_launches():
-    """Set every forward entry's and the backward's launch counts to 0."""
-    for fn in ENTRIES + (cross_conv1_bwd,):
+    """Set every forward entry's, the backward's and the conv tail's launch
+    counts to 0."""
+    for fn in ENTRIES + (cross_conv1_bwd, conv_tail):
         fn.launches = 0
 
 
@@ -620,8 +626,9 @@ def reset_launches():
 # ---------------------------------------------------------------------------
 
 
-def _conv_tail(x: torch.Tensor, conv_params, cfg: ModelConfig) -> torch.Tensor:
-    """bias/ReLU/pool of layer 1, then the remaining conv layers."""
+def conv_tail_reference(x: torch.Tensor, conv_params, cfg: ModelConfig) -> torch.Tensor:
+    """Plain version of the conv tail: bias/ReLU/pool of layer 1, then the
+    remaining conv layers (`conv_core_reference`), as eager passes."""
     x = x + conv_params[0]["b"].to(x.dtype)[None, :, None]
     x = torch.relu(x)
     if cfg.conv_pool > 1:
@@ -632,16 +639,120 @@ def _conv_tail(x: torch.Tensor, conv_params, cfg: ModelConfig) -> torch.Tensor:
     return x.reshape(x.shape[0], -1)
 
 
+def tail_kernel_takes(cfg: ModelConfig) -> bool:
+    """Whether the conv tail's kernel takes the config's stack, decided from
+    shapes before any launch: two conv layers of TAIL_CHANNELS channels each,
+    k=3, pool 2, d=16 and a bf16 compute dtype (f32 keeps the eager tail)."""
+    ch = cfg.conv_channels
+    return (len(ch) == 2 and all(c in TAIL_CHANNELS for c in ch) and cfg.conv_kernel == 3
+            and cfg.conv_pool == 2 and cfg.embed_dim == 16 and cfg.compute_dtype == "bfloat16")
+
+
+def conv_tail(y: torch.Tensor, conv_params, cfg: ModelConfig) -> torch.Tensor:
+    """The conv tail without a gradient: y (B, C1, d) from layer 1 -> the
+    flat features (B, C2 * d / pool^2), channel-major.
+
+    A CPU tensor takes `conv_tail_reference`. A CUDA tensor launches
+    `csrc/conv_tail.cu` once, which reads y once and writes the features
+    once at the eager chain's rounding points (conv 2's f32 sum in its own
+    order), or raises for what the kernel does not take. The kernel casts
+    the f32 or bf16 weights and biases to bf16 itself, so nothing is cached
+    and nothing else is launched. Its `launches` attribute counts launches,
+    and under a torch profiler each launch adds its examples to the counter
+    `conv_tail.fused_examples` (`utils/profiling.py`)."""
+    if y.device.type == "cpu":
+        return conv_tail_reference(y, conv_params, cfg)
+    if y.device.type != "cuda":
+        raise ValueError(f"conv_tail takes CPU or CUDA tensors, got {y.device}")
+    return _fused_tail(y, conv_params, cfg)
+
+
+def _fused_tail(y, conv_params, cfg: ModelConfig):
+    """The kernel's checks, output, launch and counts."""
+    if not tail_kernel_takes(cfg):
+        raise ValueError(f"conv_tail's kernel takes two conv layers of {TAIL_CHANNELS} "
+                         f"channels, k=3, pool 2, d=16 in bf16; got {cfg.conv_channels}, "
+                         f"k={cfg.conv_kernel}, pool {cfg.conv_pool}, d={cfg.embed_dim}, "
+                         f"{cfg.compute_dtype}")
+    c1, c2 = cfg.conv_channels
+    b = y.shape[0]
+    if tuple(y.shape) != (b, c1, cfg.embed_dim) or y.dtype != torch.bfloat16:
+        raise ValueError(f"y must be (B, {c1}, {cfg.embed_dim}) bf16, got "
+                         f"{tuple(y.shape)} {y.dtype}")
+    l1, l2 = conv_params
+    params = (l2["w"], l1["b"], l2["b"])
+    if (tuple(l2["w"].shape) != (c2, c1, 3) or tuple(l1["b"].shape) != (c1,)
+            or tuple(l2["b"].shape) != (c2,)):
+        raise ValueError("conv_tail's weights must be w2 (C2, C1, 3), b1 (C1,), b2 (C2,)")
+    if (len({t.dtype for t in params}) != 1 or params[0].dtype not in _DTYPES
+            or any(t.device != y.device or not t.is_contiguous() for t in params)):
+        raise ValueError("conv_tail's weights must be contiguous f32 or bf16 of one "
+                         "dtype, on y's device")
+    y = y.contiguous()
+    if y.data_ptr() % 16:
+        raise ValueError("conv_tail's kernel reads y on a 16-byte boundary")
+    out = torch.empty((b, c2 * cfg.embed_dim // 4), dtype=y.dtype, device=y.device)
+    if b:
+        _tail_launch(y, *params, out)
+        conv_tail.launches += 1
+        profiling.count("conv_tail.fused_examples", b)
+    return out
+
+
+def _tail_library() -> ctypes.CDLL:
+    lib = _build.load(_TAIL_SOURCE)
+    fn = lib.cffm_conv_tail_fwd
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, p, i, p, ll, i, i, p]
+        fn.restype = i
+    return lib
+
+
+def _tail_launch(y, w2, b1, b2, out):
+    c2, c1, _ = w2.shape
+    dev = y.device
+    with torch.cuda.device(dev):
+        err = _tail_library().cffm_conv_tail_fwd(
+            y.data_ptr(), w2.data_ptr(), b1.data_ptr(), b2.data_ptr(),
+            int(w2.dtype == torch.bfloat16), out.data_ptr(), y.shape[0], c1, c2,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv_tail kernel launch failed: CUDA error {err}")
+
+
+conv_tail.launches = 0
+
+
+def _takes_fused_tail(y: torch.Tensor, conv_params, cfg: ModelConfig) -> bool:
+    """The route's test: no tensor of the tail needs a gradient, and the
+    kernel takes the shapes."""
+    if torch.is_grad_enabled() and (y.requires_grad or any(
+            t.requires_grad for layer in conv_params for t in layer.values())):
+        return False
+    return tail_kernel_takes(cfg)
+
+
 def make_interaction_fn(use_kernel: bool = True):
     """Returns interaction_fn(emb, conv_params, cfg) -> flat features.
 
     Layer 1 runs in the fused cross+conv1 entry (odd k and even d; other
-    shapes take the reference conv, as in the JAX package); bias, ReLU,
-    pool and the remaining layers run in PyTorch. With use_kernel the fn
-    also carries `.full_rows`, `.full_rows_fm` and `.full_rows_fm2`,
-    which take raw physical table rows and return (feats, lin_sum); the
-    model routes through them when the config qualifies.
+    shapes take the reference conv, as in the JAX package). With use_kernel
+    the conv tail takes `conv_tail`'s kernel where no tensor of it needs a
+    gradient and `tail_kernel_takes` accepts the config (scoring, eval),
+    else the eager `conv_tail_reference` (a train step); without it, always
+    the eager tail. Under a torch profiler the tail records the span
+    cffm.conv_tail on either route. With use_kernel the fn also carries
+    `.full_rows`, `.full_rows_fm` and `.full_rows_fm2`, which take raw
+    physical table rows and return (feats, lin_sum); the model routes
+    through them when the config qualifies.
     """
+
+    def tail(x, conv_params, cfg: ModelConfig):
+        with profiling.span("cffm.conv_tail"):
+            if use_kernel and _takes_fused_tail(x, conv_params, cfg):
+                return conv_tail(x, conv_params, cfg)
+            return conv_tail_reference(x, conv_params, cfg)
 
     def interaction_fn(emb, conv_params, cfg: ModelConfig):
         if not conv_params:
@@ -652,21 +763,21 @@ def make_interaction_fn(use_kernel: bool = True):
             x = cross_conv1(emb, w1, cfg)
         else:
             x = cross_conv1_reference(emb, w1, cfg)
-        return _conv_tail(x, conv_params, cfg)
+        return tail(x, conv_params, cfg)
 
     if use_kernel:
         def full_rows(emb2d, conv_params, cfg: ModelConfig):
             y, lin_sum = cross_conv1_lin(emb2d, conv_params[0]["w"], cfg)
-            return _conv_tail(y, conv_params, cfg), lin_sum
+            return tail(y, conv_params, cfg), lin_sum
 
         def full_rows_fm(emb3, conv_params, cfg: ModelConfig):
             y, lin_sum = cross_conv1_lin_fm(emb3, conv_params[0]["w"], cfg)
-            return _conv_tail(y, conv_params, cfg), lin_sum
+            return tail(y, conv_params, cfg), lin_sum
 
         def full_rows_fm2(e_small, e_big, conv_params, cfg: ModelConfig):
             y, lin_sum = cross_conv1_lin_fm2(e_small, e_big,
                                              conv_params[0]["w"], cfg)
-            return _conv_tail(y, conv_params, cfg), lin_sum
+            return tail(y, conv_params, cfg), lin_sum
 
         interaction_fn.full_rows = full_rows
         interaction_fn.full_rows_fm = full_rows_fm

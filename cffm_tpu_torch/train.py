@@ -109,7 +109,8 @@ def train_step(state: TrainState, ids: torch.Tensor, dense: Optional[torch.Tenso
     Under a torch profiler it records the span cffm.step and, inside it,
     cffm.lookup (on the field-major route one launch of `ops/embed_lookup`'s
     kernel on the card, which writes the rows in the compute dtype),
-    cffm.forward (interaction, conv tail, tower, loss), cffm.backward,
+    cffm.forward (interaction, conv tail, tower, loss; the conv tail in
+    cffm.conv_tail, eager since the step takes its gradient), cffm.backward,
     cffm.dense_update and cffm.sparse_update (`utils/profiling.py`)."""
     with profiling.span("cffm.step"):
         params = state.params

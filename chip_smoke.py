@@ -233,7 +233,18 @@ nonzero without them, or when any phase fails. Phases, in order:
      the kernel, its plain version, the chain the port ran before it
      (index_select, the cast and where, the library yardstick) and its
      bound (the outputs written once, the distinct rows and the ids read
-     once).
+     once);
+ 22. conv_tail: the conv tail's kernel (ops/interaction_conv.conv_tail) at
+     criteo_kaggle's (64, 64) and movielens' (32, 32) channels, B = 65536,
+     65537, 1000, 17 and 1, f32 and bf16 weights: with one-hot conv-2
+     weights (one tap of one channel each, so every sum is exact) equal to
+     its plain version, which holds layer 1's bias, ReLU and pool bit for
+     bit; with drawn weights within `tail_limit` (the two roundings of conv
+     2 and its bias add, and the f32 sums' own error), with the features
+     more than one bf16 ulp apart counted; one launch in a forward without
+     a gradient and none in a train step at the cells' B=65536; then timed
+     with CUDA events beside its plain version (the eager chain) and its
+     bound (y read once, the features written once).
 
 Prints one JSON line of kernel records, then the card line, and ends
 with {"ok": true, "device": {...}}.
@@ -252,7 +263,8 @@ import time
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 KERNEL_SOURCES = ["cross_conv1_fwd", "cross_conv1_bwd", "sorted_segment",
-                  "streamed_update", "cross_conv1_bwd_v1", "dot_orient_probe", "embed_lookup"]
+                  "streamed_update", "cross_conv1_bwd_v1", "dot_orient_probe", "embed_lookup",
+                  "conv_tail"]
 
 
 def fail(msg: str):
@@ -2230,7 +2242,7 @@ def _parity_k11_tail(gen, b: int) -> dict:
 
     def tail(x, lays, decided=None):
         """Bias, ReLU and max pool of layer 1, then layer 2 (conv1d SAME,
-        bias, ReLU, pool), as _conv_tail; with the ReLU masks and pool
+        bias, ReLU, pool), as conv_tail_reference; with the ReLU masks and pool
         picks given (decided) or recorded."""
         picks = []
         for i, lay in enumerate(lays):
@@ -3979,11 +3991,141 @@ def phase_lookup() -> dict:
     return out
 
 
+# the conv tail kernel's batches: the cells', a ragged tile past them, and
+# small batches with a ragged last tile
+TAIL_BATCHES = (65536, 65537, 1000, 17, 1)
+
+
+def _tail_layers(c1: int, c2: int, gen, dtype, onehot: bool):
+    """Layer 1's bias and conv 2's weights and bias, drawn: w2 He-scaled, or
+    one-hot (each output channel reads one tap of one input channel), the
+    biases at 0.1 scale."""
+    import torch
+
+    if onehot:
+        w2 = torch.zeros((c2, c1, 3), device="cuda")
+        pick = torch.randint(0, c1 * 3, (c2,), generator=gen, device="cuda")
+        w2.view(c2, -1)[torch.arange(c2, device="cuda"), pick] = 1.0
+    else:
+        w2 = torch.randn((c2, c1, 3), generator=gen, device="cuda") * math.sqrt(2.0 / (3 * c1))
+    b1 = 0.1 * torch.randn((c1,), generator=gen, device="cuda")
+    b2 = 0.1 * torch.randn((c2,), generator=gen, device="cuda")
+    return [{"b": b1.to(dtype)}, {"w": w2.to(dtype), "b": b2.to(dtype)}]
+
+
+def tail_limit(y, layers, cfg):
+    """The largest |kernel - plain version| a conv-tail feature may show
+    when the two differ only in the order of conv 2's f32 sum: one bf16 ulp
+    for each of conv 2's rounding and its bias add's, at the larger of the
+    two magnitudes, doubled for a neighbour in the next binade, plus both
+    f32 sums' worst error, 2 n 2^-24 sum|w p| over conv 2's n = 3 C1 terms;
+    ReLU and the pool's max pass a difference on no larger (B, C2 * 4).
+    Needs TF32 off."""
+    import torch
+
+    from cffm_tpu_torch.ops.cross import conv1d_same, max_pool_valid
+
+    b1, w2, b2 = layers[0]["b"], layers[1]["w"], layers[1]["b"]
+    p1 = max_pool_valid(torch.relu(y + b1.to(y.dtype)[None, :, None]), 2)
+    wb = w2.to(y.dtype)
+    s = conv1d_same(p1, wb)
+    r = s + b2.to(y.dtype)[None, :, None]
+    mag = conv1d_same(p1.float().abs(), wb.float().abs())
+    n = w2.shape[1] * w2.shape[2]
+    lim = (2 * _bf16_ulp(torch.maximum(s.float().abs(), r.float().abs()))
+           + 2 * n * 2.0**-24 * mag)
+    return max_pool_valid(lim, 2).reshape(y.shape[0], -1)
+
+
+def phase_conv_tail() -> dict:
+    """The conv tail's kernel against its plain version at both channel
+    widths, its launches in a forward and a train step, and its time beside
+    the plain version's and its bound at B=65536."""
+    import torch
+
+    from cffm_tpu_torch import train
+    from cffm_tpu_torch.models import cffm as model_lib
+    from cffm_tpu_torch.ops import interaction_conv as ic
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    worst, beyond_ulp, checked = 0.0, 0, 0
+    for mcfg in (_criteo_model("bfloat16"), _movielens_model("field_aware", "bfloat16")):
+        c1, c2 = mcfg.conv_channels
+        for b in TAIL_BATCHES:
+            y = torch.randn((b, c1, 16), generator=gen, device="cuda").to(torch.bfloat16)
+            for dtype in (torch.float32, torch.bfloat16):
+                for onehot in (True, False):
+                    layers = _tail_layers(c1, c2, gen, dtype, onehot)
+                    before = ic.conv_tail.launches
+                    got = ic.conv_tail(y, layers, mcfg)
+                    want = ic.conv_tail_reference(y, layers, mcfg)
+                    torch.cuda.synchronize()
+                    what = f"conv_tail ({c1}, {c2}) B={b} {dtype} {'one-hot' if onehot else 'drawn'}"
+                    if ic.conv_tail.launches != before + 1:
+                        fail(f"{what}: the kernel did not launch once")
+                    if got.shape != want.shape or got.dtype != want.dtype:
+                        fail(f"{what}: {tuple(got.shape)} {got.dtype}, want "
+                             f"{tuple(want.shape)} {want.dtype}")
+                    if onehot:
+                        if not torch.equal(got, want):
+                            fail(f"{what}: not equal to the plain version where every sum is exact")
+                        continue
+                    diff = (got.float() - want.float()).abs()
+                    ratio = (diff / tail_limit(y, layers, mcfg)).max().item()
+                    worst = max(worst, ratio)
+                    beyond_ulp += int((diff > _bf16_ulp(want)).sum())
+                    checked += want.numel()
+                    if ratio > 1.0:
+                        fail(f"{what}: {ratio:.3f} of tail_limit from the plain version")
+    print(f"conv_tail: one-hot weights equal to the plain version (layer 1 bit for bit); drawn "
+          f"weights at most {worst:.3f} of tail_limit, {beyond_ulp} of {checked} features more "
+          f"than one bf16 ulp apart", flush=True)
+
+    b = 65536
+    mcfg = _criteo_model("bfloat16")
+    c1, c2 = mcfg.conv_channels
+    y = torch.randn((b, c1, 16), generator=gen, device="cuda").to(torch.bfloat16)
+    layers = _tail_layers(c1, c2, gen, torch.float32, False)
+    nbytes = (y.numel() * 2 + b * c2 * 4 * 2
+              + sum(t.numel() * 4 for lay in layers for t in lay.values()))
+    out = {"max_limit_share": worst, "beyond_one_ulp": beyond_ulp, "checked": checked}
+    out.update(_bound(nbytes, 2.0 * b * c2 * c1 * 3 * 8))
+    out["ms"] = cuda_ms(lambda: ic.conv_tail(y, layers, mcfg), 50)
+    out["plain_ms"] = cuda_ms(lambda: ic.conv_tail_reference(y, layers, mcfg), 20)
+    out["library_ms"] = out["plain_ms"]  # the eager chain is the plain version
+    del y
+    torch.cuda.empty_cache()
+
+    # one launch a forward without a gradient, none in a train step
+    cfg, ids_np, dense_np, labels_np = _zipf_batch(b)
+    fn = train.default_interaction_fn(cfg)
+    state = train.create_state(cfg, torch.Generator(device="cuda").manual_seed(0))
+    ids, dense, labels = (torch.from_numpy(x).cuda() for x in (ids_np, dense_np, labels_np))
+    launches = {}
+    for name in ("train_step", "forward"):
+        before = ic.conv_tail.launches
+        if name == "train_step":
+            state, _ = train.train_step(state, ids, dense, labels, cfg, fn)
+        else:
+            with torch.inference_mode():
+                model_lib.forward(state.params, ids, dense, cfg.model, interaction_fn=fn)
+        torch.cuda.synchronize()
+        launches[name] = ic.conv_tail.launches - before
+    if launches != {"train_step": 0, "forward": 1}:
+        fail(f"conv_tail: launches {launches}, want none in a train step and one a forward")
+    out["launches"] = launches
+    print(f"conv_tail: B={b} ({c1}, {c2}) bf16: kernel {out['ms']:.4f} ms, plain (the eager "
+          f"chain) {out['plain_ms']:.4f}, bound {out['bound_ms']:.4f} "
+          f"({nbytes / 1e6:.1f} MB) = {100 * out['bound_ms'] / out['ms']:.1f}% of it; "
+          f"launches {launches}", flush=True)
+    return out
+
+
 PHASES = ("parity", "parity_bwd", "parity_caps", "parity_segment", "parity_apply", "serve",
           "time", "train", "learn", "checkpoint", "step_vs_cpu", "time_train",
           "parity_segment_by_seg", "parity_bucketed", "train_sharded", "sharded_multi",
           "time_sharded", "train_hier", "train_2d", "time_hier", "parity_bwd_v1",
-          "parity_dot_probe", "tools", "data", "lookup")
+          "parity_dot_probe", "tools", "data", "lookup", "conv_tail")
 # the phases that run on the NCCL group of one
 GROUP_PHASES = ("train_sharded", "time_sharded", "train_hier", "train_2d", "time_hier")
 
@@ -4080,6 +4222,7 @@ def _run_phases(phases, phase, mesh) -> int:
     tools = phase("tools", phase_tools)
     phase("data", phase_data)
     lookup = phase("lookup", phase_lookup)
+    tail = phase("conv_tail", phase_conv_tail)
 
     if set(phases) == set(PHASES):
         t = times[4096]
@@ -4177,6 +4320,11 @@ def _run_phases(phases, phase, mesh) -> int:
             "source": "cffm_tpu_torch/ops/csrc/embed_lookup.cu", "replaces": None,
             "launches": lookup["launches"], "max_abs_err": 0.0,
             **{k: lookup[k] for k in keys}, "batch": 65536})
+        records.append({
+            "name": "conv_tail", "route": "cuda",
+            "source": "cffm_tpu_torch/ops/csrc/conv_tail.cu", "replaces": None,
+            "launches": tail["launches"], "max_limit_share": tail["max_limit_share"],
+            **{k: tail[k] for k in keys}, "batch": 65536})
         print(json.dumps({"kernels": records}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

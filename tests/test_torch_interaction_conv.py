@@ -220,3 +220,127 @@ def test_wgmma_weight_layout(k, c1, fields):
                                rtol=0, atol=0)
     back = got.permute(2, 4, 0, 1, 3, 5).reshape(mt * ic.WG_ROWS, nq * ic.WG_PAIRS)
     torch.testing.assert_close(back, a, rtol=0, atol=0)
+
+
+def _tail_inputs(c1, c2, b, dtype, seed=0):
+    """y (B, C1, 16) in dtype and the tail's layers (f32), as numpy."""
+    rng = np.random.default_rng(seed)
+    y = rng.normal(size=(b, c1, 16)).astype(np.float32)
+    y = np.array(jnp.asarray(y).astype(dtype).astype(jnp.float32))
+    layers = [{"w": rng.normal(size=(c1, 10, 3)).astype(np.float32),
+               "b": (0.1 * rng.normal(size=(c1,))).astype(np.float32)},
+              {"w": (rng.normal(size=(c2, c1, 3)) / np.sqrt(3 * c1)).astype(np.float32),
+               "b": (0.1 * rng.normal(size=(c2,))).astype(np.float32)}]
+    return y, layers
+
+
+@pytest.mark.parametrize("b", [1, 7, 64])
+@pytest.mark.parametrize("channels", [(64, 64), (32, 32)], ids=lambda c: f"{c[0]}x{c[1]}")
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv_tail_plain_version_matches_jax(dtype, channels, b):
+    """The conv tail's plain version (the kernel's CPU branch) against the
+    JAX package's `_conv_tail` on the same inputs. f32: only the conv's sum
+    order differs. bf16: both round at the same points (the bias adds and
+    conv 2's output), so they differ where conv 2's f32 sums round to
+    neighbouring bf16 values: within two bf16 ulps (conv 2's rounding and
+    its bias add's) of the larger magnitude."""
+    c1, c2 = channels
+    jcfg, cfg = _cfgs(num_fields=5, vocab_sizes=(32,) * 5, embed_dim=16, conv_channels=channels,
+                      conv_kernel=3, conv_pool=2, compute_dtype=dtype)
+    y, layers = _tail_inputs(c1, c2, b, getattr(jnp, dtype))
+    tdt = getattr(torch, dtype)
+    want = jax_ic._conv_tail(jnp.asarray(y).astype(getattr(jnp, dtype)),
+                             [{n: jnp.asarray(v) for n, v in lay.items()} for lay in layers], jcfg)
+    t_layers = [{n: torch.from_numpy(v) for n, v in lay.items()} for lay in layers]
+    got = ic.conv_tail(torch.from_numpy(y).to(tdt), t_layers, cfg)
+    assert got.shape == (b, c2 * 4) and got.dtype == tdt
+    want = np.asarray(want.astype(jnp.float32))
+    if dtype == "float32":
+        _close(got, want)
+        return
+    got = got.float().numpy()
+    mag = np.maximum(np.abs(got), np.abs(want))
+    ulp = np.exp2(np.floor(np.log2(np.maximum(mag, 1e-30))) - 7)
+    assert (np.abs(got - want) <= 2 * ulp).all()
+
+
+def _tail_model(compute_dtype="bfloat16"):
+    # the hybrid route at criteo_kaggle's conv stack: (64, 64), k=3, pool 2, d=16
+    return ModelConfig(num_fields=15, vocab_sizes=(8,) * 4 + (600,) * 11, embed_dim=16,
+                       conv_channels=(64, 64), tower_hidden=(16,), num_dense=3,
+                       compute_dtype=compute_dtype)
+
+
+@pytest.mark.parametrize("mode", ["inference_mode", "no_grad", "grad_enabled_no_param_grads",
+                                  "params_require_grad", "f32_compute"])
+def test_forward_routes_the_tail_by_gradient_and_shape(monkeypatch, mode):
+    """The model's forward takes `conv_tail` (the kernel's wrapper) when no
+    tensor of the tail needs a gradient and the gate takes the config, and
+    the eager tail otherwise."""
+    from cffm_tpu_torch.models import cffm as model
+
+    cfg = _tail_model("float32" if mode == "f32_compute" else "bfloat16")
+    assert ic.tail_kernel_takes(cfg) == (mode != "f32_compute")
+    params = model.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(np.stack([rng.integers(0, v, size=B) for v in cfg.vocab_sizes], 1)
+                           + model.field_offsets(cfg)[None, :]).int()
+    dense = torch.from_numpy(rng.normal(size=(B, 3)).astype(np.float32))
+    calls = []
+    real = ic.conv_tail
+    monkeypatch.setattr(ic, "conv_tail", lambda y, *a: (calls.append(y.shape[0]), real(y, *a))[1])
+    fn = ic.make_interaction_fn()
+    if mode == "params_require_grad":
+        for lay in params["conv"]:
+            for t in lay.values():
+                t.requires_grad_()
+    cm = {"inference_mode": torch.inference_mode, "no_grad": torch.no_grad}.get(
+        mode, torch.enable_grad)
+    with cm():
+        got = model.forward(params, ids, dense, cfg, interaction_fn=fn)
+    assert calls == ([B] if mode in ("inference_mode", "no_grad",
+                                     "grad_enabled_no_param_grads") else [])
+    assert got.shape == (B,) and bool(torch.isfinite(got).all())
+    assert got.requires_grad == (mode == "params_require_grad")
+
+
+def test_under_grad_the_eager_tail_gives_jax_gradients(monkeypatch):
+    """With gradients taken, the interaction fn at a shape the kernel takes
+    (bf16, (32, 32), k=3, pool 2, d=16) keeps the eager tail, and its
+    gradients to the rows and every conv leaf match `jax.grad` of the JAX
+    interaction fn (bf16: atol 2e-2 on unit-scale inputs, as the backward's
+    tests hold bf16; the biases at 3e-2)."""
+    import jax
+
+    jcfg, cfg = _cfgs(num_fields=5, vocab_sizes=(32,) * 5, embed_dim=16, conv_channels=(32, 32),
+                      conv_kernel=3, conv_pool=2, compute_dtype="bfloat16")
+    assert ic.tail_kernel_takes(cfg)
+    monkeypatch.setattr(ic, "conv_tail", lambda *a: pytest.fail("the kernel's route under grad"))
+    rng = np.random.default_rng(9)
+    emb = rng.normal(size=(B, 5, 5, 16)).astype(np.float32)
+    layers = [{"w": (rng.normal(size=(32, 10, 3)) / np.sqrt(30)).astype(np.float32),
+               "b": (0.1 * rng.normal(size=(32,))).astype(np.float32)},
+              {"w": (rng.normal(size=(32, 32, 3)) / np.sqrt(96)).astype(np.float32),
+               "b": (0.1 * rng.normal(size=(32,))).astype(np.float32)}]
+    gout = rng.normal(size=(B, 32 * 4)).astype(np.float32)
+
+    def jloss(e, lays):
+        out = jax_ic.make_interaction_fn(use_pallas=True, bt=8, interpret=True)(
+            e.astype(jnp.bfloat16), lays, jcfg)
+        return jnp.sum(out.astype(jnp.float32) * gout)
+
+    j_layers = [{n: jnp.asarray(v) for n, v in lay.items()} for lay in layers]
+    de_want, dl_want = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(emb), j_layers)
+    e = torch.from_numpy(emb).requires_grad_()
+    t_layers = [{n: torch.from_numpy(v).requires_grad_() for n, v in lay.items()}
+                for lay in layers]
+    out = ic.make_interaction_fn()(e.to(torch.bfloat16), t_layers, cfg)
+    (out.float() * torch.from_numpy(gout)).sum().backward()
+    np.testing.assert_allclose(e.grad.numpy(), np.asarray(de_want), rtol=0, atol=2e-2)
+    # each leaf against its largest gradient; a bias's is a sum over B * d
+    # bf16 terms, which XLA's CPU reduction rounds more often than torch's
+    for t_lay, j_lay in zip(t_layers, dl_want):
+        for n, atol in (("w", 2e-2), ("b", 3e-2)):
+            want = np.asarray(j_lay[n])
+            np.testing.assert_allclose(t_lay[n].grad.numpy() / np.abs(want).max(),
+                                       want / np.abs(want).max(), rtol=0, atol=atol)

@@ -18,8 +18,8 @@ from cffm_tpu_torch.utils import profiling
 
 MIXED = (32, 64, 128) + (1000,) * 12          # F=15: fused column, 3 small fields
 SEVEN = (61, 40, 2, 8, 22, 35, 19)           # F=7: no fused column, a linear table
-STEP_CHILDREN = ["cffm.lookup", "cffm.forward", "cffm.backward", "cffm.dense_update",
-                 "cffm.sparse_update"]
+STEP_CHILDREN = ["cffm.lookup", "cffm.forward", "cffm.conv_tail", "cffm.backward",
+                 "cffm.dense_update", "cffm.sparse_update"]
 
 
 @pytest.fixture(autouse=True)
@@ -203,8 +203,10 @@ def test_train_step_is_bit_equal_with_the_profiler_on(route):
     recs = _named(prof)
     steps = [r for r in recs if r[0] == "cffm.step"]
     assert len(steps) == 2 and not _inside(steps[1], steps[0])
+    # the conv tail's span is the interaction fn's: the reference conv stack has none
+    want = [n for n in STEP_CHILDREN if fn is not None or n != "cffm.conv_tail"]
     for step in steps:
-        assert [r[0] for r in recs if r is not step and _inside(r, step)] == STEP_CHILDREN
+        assert [r[0] for r in recs if r is not step and _inside(r, step)] == want
 
 
 def test_train_step_counts_the_streamed_update_of_the_big_fields():
@@ -242,8 +244,10 @@ def test_forward_is_bit_equal_with_the_profiler_on(route):
         with _profiled() as prof:
             on = model_lib.forward(params, ids, None, cfg.model, interaction_fn=fn)
     assert torch.equal(off, on)
-    fwd, lookup = _named(prof)
-    assert (fwd[0], lookup[0]) == ("cffm.forward", "cffm.lookup") and _inside(lookup, fwd)
+    recs = _named(prof)
+    assert [r[0] for r in recs] == ["cffm.forward", "cffm.lookup"] + (
+        ["cffm.conv_tail"] if kernel else [])
+    assert all(_inside(r, recs[0]) for r in recs[1:])
 
 
 def test_record_function_names_the_spans_in_the_trace():
