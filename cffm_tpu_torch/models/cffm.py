@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -100,20 +100,44 @@ def embedding_lookup(params: Dict, ids: torch.Tensor, cfg: ModelConfig):
     return emb_rows, lin_rows
 
 
-def wants_field_major(params: Dict, cfg: ModelConfig, interaction_fn) -> bool:
-    """Whether the forward runs the FIELD-MAJOR full-rows path: ids
-    transposed to (F, B) before the gather, so the rows land (F, B, W),
-    the layout the field-major kernel entries read."""
-    return (getattr(interaction_fn, "full_rows_fm", None) is not None
+class Route(NamedTuple):
+    """Which layout the looked-up rows take and which entry of the
+    interaction fn reads them (`forward_from_rows`).
+
+    full_rows: the fused entries read the raw physical rows and sum the
+    first-order column; else the rows are sliced to (B, F, F, d) for the
+    interaction fn itself. field_major: the rows are (F, B, W), ids
+    transposed before the gather; else (B, F, W). prefix: the leading
+    fields whose rows come from the small-field table prefix as an
+    operand of their own (the hybrid route), 0 without."""
+    full_rows: bool
+    field_major: bool
+    prefix: int
+
+    def batch_major(self) -> "Route":
+        """The same entries on batch-major rows, with no prefix."""
+        return Route(self.full_rows, False, 0)
+
+
+def route(params: Dict, cfg: ModelConfig, interaction_fn, prefix_update: bool = True
+          ) -> Route:
+    """The train step's route: field-major full rows where the interaction
+    fn has the fused entries and the config their shapes (the first-order
+    column fused, the field-aware cross, odd k, even d, a conv layer),
+    with the small-field prefix apart where prefix_update says the caller
+    can update the prefix in its dense form. Else batch-major."""
+    full = (getattr(interaction_fn, "full_rows", None) is not None
             and cfg.fused_linear and cfg.cross == "field_aware"
             and cfg.conv_kernel % 2 == 1 and cfg.embed_dim % 2 == 0
             and bool(params["conv"]))
+    return Route(full, full, cfg.small_field_prefix if full and prefix_update else 0)
 
 
-def embedding_lookup_fm(params: Dict, ids_fm: torch.Tensor, cfg: ModelConfig
-                        ) -> torch.Tensor:
-    """Field-major lookup. ids_fm: (F, B) global ids -> (F, B, table_width)."""
-    return embed_lookup.take_rows(params["embed"]["table"], ids_fm)
+def forward_route(params: Dict, cfg: ModelConfig, interaction_fn) -> Route:
+    """The forward's route: field-major only with a small-field prefix,
+    else the batch-major full rows (or the sliced rows)."""
+    r = route(params, cfg, interaction_fn)
+    return r if r.prefix else r.batch_major()
 
 
 @functools.lru_cache(maxsize=16)
@@ -161,60 +185,56 @@ def _logits(params: Dict, feats: torch.Tensor, lin_sum: torch.Tensor,
     return logits + lin_sum + params["linear"]["bias"].float()
 
 
-def forward_from_rows_fm(params: Dict, emb3: torch.Tensor,
-                         dense: Optional[torch.Tensor], cfg: ModelConfig, *,
-                         interaction_fn) -> torch.Tensor:
-    """Field-major full-rows forward: emb3 (F, B, table_width) raw
-    physical rows; the fused kernel slices fields and sums the
-    first-order column."""
-    cdt = torch_dtype(cfg.compute_dtype)
-    feats, lin_sum = interaction_fn.full_rows_fm(emb3.to(cdt), params["conv"], cfg)
-    return _logits(params, feats, lin_sum, dense, cfg)
+def lookup(params: Dict, route: Route, ids: torch.Tensor, cfg: ModelConfig) -> tuple:
+    """The replicated table's rows of ids (B, F) int32 global, as
+    `forward_from_rows` takes them on route. Field-major: one launch of
+    `ops/embed_lookup`'s kernel on the card, the rows in the compute dtype,
+    the prefix's (Fs, B, W) and then the other fields' (F - Fs, B, W), each
+    only where it has a field. Batch-major: the gathers, (B, F, W) in the
+    table dtype and, where a table of its own holds the first-order
+    weights, their (B, F, 1)."""
+    if route.field_major:
+        emb_small, emb_big = embed_lookup.lookup_fm(
+            params["embed"]["table"], ids, prefix_bounds(cfg) if route.prefix else (),
+            torch_dtype(cfg.compute_dtype))
+        return (((emb_small,) if route.prefix else ())
+                + ((emb_big,) if route.prefix < cfg.num_fields else ()))
+    emb_rows, lin_rows = embedding_lookup(params, ids, cfg)
+    return (emb_rows,) if lin_rows is None else (emb_rows, lin_rows)
 
 
-def forward_from_rows_fm2(params: Dict, emb_small: torch.Tensor,
-                          emb_big: Optional[torch.Tensor],
-                          dense: Optional[torch.Tensor], cfg: ModelConfig, *,
-                          interaction_fn) -> torch.Tensor:
-    """Split-operand twin of forward_from_rows_fm for the hybrid lookup:
-    emb_small (Fs, B, W) from onehot_lookup_fm, emb_big (Fb, B, W) from
-    the gather. Routes to interaction_fn.full_rows_fm2 when present,
-    else concatenates and takes the single-operand path."""
-    fn2 = getattr(interaction_fn, "full_rows_fm2", None)
-    if emb_big is None:
-        return forward_from_rows_fm(params, emb_small, dense, cfg,
-                                    interaction_fn=interaction_fn)
-    if fn2 is None:
-        return forward_from_rows_fm(params, torch.cat([emb_small, emb_big]),
-                                    dense, cfg, interaction_fn=interaction_fn)
-    cdt = torch_dtype(cfg.compute_dtype)
-    feats, lin_sum = fn2(emb_small.to(cdt), emb_big.to(cdt), params["conv"], cfg)
-    return _logits(params, feats, lin_sum, dense, cfg)
-
-
-def forward_from_rows(params: Dict, emb_rows: torch.Tensor,
-                      lin_rows: Optional[torch.Tensor],
+def forward_from_rows(params: Dict, route: Route, rows: Sequence[torch.Tensor],
                       dense: Optional[torch.Tensor], cfg: ModelConfig, *,
                       interaction_fn=None) -> torch.Tensor:
-    """Forward pass from looked-up rows (B, F, table_width) to logits (B,).
+    """Forward pass from looked-up rows to logits (B,). rows are in the
+    route's layout, as `lookup` returns them: on the field-major route
+    the raw physical rows of one operand (F, B, W), or of two beside a
+    prefix (Fs, B, W) + (F - Fs, B, W), which the split-operand entry
+    reads in place; on the batch-major route (B, F, W) and, with a
+    separate first-order table, its rows (B, F, 1).
 
     interaction_fn(emb, conv_params, cfg) -> flat conv features; None
     takes the reference conv stack."""
-    b = emb_rows.shape[0]
     cdt = torch_dtype(cfg.compute_dtype)
+    if route.field_major:
+        parts = [r.to(cdt) for r in rows]
+        if len(parts) == 2:
+            feats, lin_sum = interaction_fn.full_rows_fm2(*parts, params["conv"], cfg)
+        else:
+            feats, lin_sum = interaction_fn.full_rows_fm(parts[0], params["conv"], cfg)
+        return _logits(params, feats, lin_sum, dense, cfg)
 
-    full_rows = getattr(interaction_fn, "full_rows", None)
-    if (full_rows is not None and cfg.fused_linear
-            and cfg.cross == "field_aware" and cfg.conv_kernel % 2 == 1
-            and cfg.embed_dim % 2 == 0 and params["conv"]):
+    emb_rows = rows[0]
+    b = emb_rows.shape[0]
+    if route.full_rows:
         emb2d = emb_rows.reshape(b, cfg.num_fields * cfg.table_width).to(cdt)
-        feats, lin_sum = full_rows(emb2d, params["conv"], cfg)
+        feats, lin_sum = interaction_fn.full_rows(emb2d, params["conv"], cfg)
         return _logits(params, feats, lin_sum, dense, cfg)
 
     emb = emb_rows.to(cdt)
-    if cfg.fused_linear:
-        # first-order weights ride in the padding column
-        lin_rows = emb_rows[..., cfg.row_width : cfg.row_width + 1]
+    # first-order weights: in the padding column, or the table of their own
+    lin_rows = (emb_rows[..., cfg.row_width : cfg.row_width + 1] if cfg.fused_linear
+                else rows[1] if len(rows) > 1 else None)
     if cfg.table_width != cfg.row_width:
         emb = emb[..., : cfg.row_width]
     if cfg.cross == "field_aware":
@@ -235,31 +255,20 @@ def forward_from_rows(params: Dict, emb_rows: torch.Tensor,
 
 def forward(params: Dict, ids: torch.Tensor, dense: Optional[torch.Tensor],
             cfg: ModelConfig, *, interaction_fn=None) -> torch.Tensor:
-    """Full replicated-table forward: ids (B, F) int32 global -> logits (B,).
-
-    Routes through the field-major hybrid small-field path (prefix
-    lookup + big-field gather + split-operand kernel) when the config
-    qualifies, else through the batch-major gather and forward_from_rows,
-    exactly as the JAX package routes.
+    """Full replicated-table forward: ids (B, F) int32 global -> logits (B,),
+    on `forward_route`: the field-major hybrid small-field route (prefix
+    and big fields in one lookup, the split-operand entry) where the
+    config qualifies, else the batch-major gather, exactly as the JAX
+    package routes.
 
     Under a torch profiler it records the span cffm.forward and, inside
-    it, cffm.lookup: on the hybrid path one launch of `ops/embed_lookup`'s
+    it, cffm.lookup: on the hybrid route one launch of `ops/embed_lookup`'s
     kernel on the card, which writes both operands in the compute dtype;
     else the gathers (`utils/profiling.py`). The interaction fn records
     cffm.conv_tail around the conv tail: one launch of its kernel on the
     card when no gradient is taken (`ops/interaction_conv.conv_tail`)."""
     with profiling.span("cffm.forward"):
-        fs = cfg.small_field_prefix
-        if fs and wants_field_major(params, cfg, interaction_fn):
-            with profiling.span("cffm.lookup"):
-                emb_small, emb_big = embed_lookup.lookup_fm(
-                    params["embed"]["table"], ids, prefix_bounds(cfg),
-                    torch_dtype(cfg.compute_dtype))
-                if fs == cfg.num_fields:
-                    emb_big = None
-            return forward_from_rows_fm2(params, emb_small, emb_big, dense, cfg,
-                                         interaction_fn=interaction_fn)
+        r = forward_route(params, cfg, interaction_fn)
         with profiling.span("cffm.lookup"):
-            emb_rows, lin_rows = embedding_lookup(params, ids, cfg)
-        return forward_from_rows(params, emb_rows, lin_rows, dense, cfg,
-                                 interaction_fn=interaction_fn)
+            rows = lookup(params, r, ids, cfg)
+        return forward_from_rows(params, r, rows, dense, cfg, interaction_fn=interaction_fn)

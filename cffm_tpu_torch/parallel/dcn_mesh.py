@@ -30,7 +30,7 @@ from cffm_tpu_torch.parallel import sharded_embedding as se
 from cffm_tpu_torch.parallel.mesh import Mesh2D
 from cffm_tpu_torch.parallel.sharded_train import (FlatRouter, create_sharded_state,
                                                    router_eval_step, router_step)
-from cffm_tpu_torch.train import TrainState
+from cffm_tpu_torch.train import TrainState, has_dense_form
 
 
 def create_sharded_state_2d(cfg: TrainConfig, generator: torch.Generator,
@@ -105,7 +105,7 @@ def make_sharded_train_step_2d(cfg: TrainConfig, mesh2d: Mesh2D, interaction_fn=
     """The intra-host engine's train step (`sharded_train.router_step`
     with the `IntraHostRouter`). Raises for rowwise_adam and adam, which
     have no dense form."""
-    if cfg.optim.sparse_optimizer not in ("adagrad", "sgd"):
+    if not has_dense_form(cfg.optim):
         raise ValueError(
             f"intra-host table sharding uses the dense-form row update (adagrad, sgd), not "
             f"{cfg.optim.sparse_optimizer!r}; sparse adam is only available on the global "

@@ -8,7 +8,10 @@ and backward on the local block with grads taken with respect to the
 looked-up rows, ONE all-reduce of the loss, the overflow count, the dense
 grads and (hybrid route) the small-prefix gradient, the dense optimizer,
 the reverse all-to-all of the row grads, and the per-row update on the
-shard's own rows (`optim.rowwise.bucketed_rowwise_update`).
+shard's own rows (`optim.rowwise.bucketed_rowwise_update`). The step
+body is those phases in turn (`step_lookup`, `step_loss`,
+`step_all_reduce`, `step_sparse_update`), on the route of `step_route`;
+`scripts/profile_sharded_step` times them as cumulative fragments.
 
 Dense params and their optimizer state are replicated: every rank
 applies the same all-reduced gradient, so they stay identical without a
@@ -44,15 +47,14 @@ import torch.distributed as dist
 from cffm_tpu_torch import metrics
 from cffm_tpu_torch.config import TrainConfig
 from cffm_tpu_torch.models import cffm as model_lib
-from cffm_tpu_torch.optim.rowwise import (bucketed_rowwise_update, dense_rowwise_apply,
-                                          fold_in, make_dense_optimizer, rowwise_init,
-                                          scale_updates, schedule_factor, sr_keys,
-                                          tree_leaves, tree_unflatten, unique_bound)
+from cffm_tpu_torch.optim.rowwise import (bucketed_rowwise_update, fold_in,
+                                          make_dense_optimizer, rowwise_init, sr_keys,
+                                          tree_unflatten, unique_bound)
 from cffm_tpu_torch.parallel import hier_embedding as he
 from cffm_tpu_torch.parallel import sharded_embedding as se
 from cffm_tpu_torch.parallel.mesh import Mesh, Mesh2D
-from cffm_tpu_torch.train import (TrainState, _prefix_grad, merge_dense_params,
-                                  split_dense_params)
+from cffm_tpu_torch.train import (TrainState, dense_leaves, dense_update, has_dense_form,
+                                  prefix_grad, prefix_update, split_dense_params)
 from cffm_tpu_torch.utils.debugging import collective_probe
 
 
@@ -249,141 +251,166 @@ def _all_reduce_flat(tensors, mesh: Mesh):
     return out
 
 
-def routed_ids(ids, params, cfg: TrainConfig, router: FlatRouter, interaction_fn):
-    """(fm, fs, flat ids, their fields' vocab sizes or None) of the train
-    step's exchange for this rank's block ids (B/T, F): fm, the field-major
-    full-rows route (ids transposed before the routing, so the rows come
-    back (F, B, W) as the fm kernel entries read them); fs, the hybrid
-    small-field prefix, taken off the exchange (its dense-form update exists
-    for adagrad/sgd only)."""
+def step_route(params, cfg: TrainConfig, router: FlatRouter, interaction_fn
+               ) -> model_lib.Route:
+    """The train step's route (`models.cffm.route`): the hybrid small-field
+    prefix only where the router takes it and the optimizer has its
+    dense-form update."""
+    return model_lib.route(params, cfg.model, interaction_fn,
+                           router.hybrid and has_dense_form(cfg.optim))
+
+
+def exchange_ids(ids, route: model_lib.Route, cfg: TrainConfig):
+    """(flat ids, their fields' vocab sizes or None) that the step routes
+    for this rank's block ids (B/T, F) on route: transposed on the
+    field-major route, so that the rows come back (F, B, W); the prefix's
+    fields are not routed."""
+    if route.prefix:
+        return ids.t()[route.prefix:].reshape(-1), cfg.model.vocab_sizes[route.prefix:]
+    return (ids.t() if route.field_major else ids).reshape(-1), None
+
+
+def _rows_in_layout(route: model_lib.Route, row_leaves, b_loc: int, mcfg):
+    """The step's row leaves (the prefix lookup's, then the routed lookups'
+    flat rows) as `models.cffm.forward_from_rows` takes them on route."""
+    f, w = mcfg.num_fields, mcfg.table_width
+    if route.prefix:
+        return row_leaves[:1] + [x.reshape(f - route.prefix, b_loc, w) for x in row_leaves[1:]]
+    if route.field_major:
+        return [row_leaves[0].reshape(f, b_loc, w)]
+    return [row_leaves[0].reshape(b_loc, f, w)] + [x.reshape(b_loc, f, 1)
+                                                   for x in row_leaves[1:]]
+
+
+def _probe(tag: str, router: FlatRouter, cfg: TrainConfig) -> None:
+    collective_probe(tag, router.mesh.rank, cfg.debug_barriers)
+
+
+def _prefix_slice(mcfg, router: FlatRouter) -> int:
+    """The padded local slice of the small-field prefix: its rows on each shard."""
+    return -(-mcfg.small_rows // router.num_shards)
+
+
+def step_lookup(params, ids, route: model_lib.Route, router: FlatRouter, cfg: TrainConfig):
+    """The step's lookup for this rank's block ids (B/T, F), without a
+    gradient: (row leaves, routing or None). The leaves are the prefix's
+    rows (the prefix all-gathered from the shards, then looked up), then
+    the routed rows of the other fields, then, on the batch-major route,
+    the rows of a separate first-order table."""
     mcfg = cfg.model
-    fm = model_lib.wants_field_major(params, mcfg, interaction_fn)
-    fs = (mcfg.small_field_prefix
-          if router.hybrid and fm and cfg.optim.sparse_optimizer in ("adagrad", "sgd") else 0)
+    cdt = model_lib.torch_dtype(mcfg.compute_dtype)
+    table_local = params["embed"]["table"]
+    fs = route.prefix
+    row_leaves = []
     if fs:
-        return fm, fs, ids.t()[fs:].reshape(-1), mcfg.vocab_sizes[fs:]
-    return fm, fs, (ids.t() if fm else ids).reshape(-1), None
+        table_small = _gather_prefix(table_local, router.mesh, _prefix_slice(mcfg, router),
+                                     mcfg.small_rows)
+        row_leaves.append(model_lib.onehot_lookup_fm(table_small, ids.t()[:fs], mcfg,
+                                                     out_dtype=cdt))
+    if fs == mcfg.num_fields:
+        return row_leaves, None
+    _probe("routing-a2a:enter", router, cfg)
+    routing = router.build(*exchange_ids(ids, route, cfg))
+    _probe("lookup-a2a:enter", router, cfg)
+    row_leaves.append(router.lookup(table_local, routing, cdt))
+    _probe("lookup-a2a:exit", router, cfg)
+    if not route.field_major and mcfg.use_first_order and not mcfg.fused_linear:
+        row_leaves.append(router.lookup(params["linear"]["table"], routing, torch.float32))
+    return row_leaves, routing
+
+
+def step_loss(full, route: model_lib.Route, row_leaves, dense, labels, router: FlatRouter,
+              cfg: TrainConfig, interaction_fn):
+    """The global mean logloss (this block's sum over the global batch) of
+    the forward from the row leaves, which take gradients from here on."""
+    b_loc = labels.shape[0]
+    for x in row_leaves:
+        x.requires_grad_()
+    logits = model_lib.forward_from_rows(full, route,
+                                         _rows_in_layout(route, row_leaves, b_loc, cfg.model),
+                                         dense, cfg.model, interaction_fn=interaction_fn)
+    return metrics.sigmoid_bce_with_logits(logits, labels).sum() / (b_loc * router.mesh.world)
+
+
+def step_all_reduce(loss, dgrads, row_grads, routing, ids, route: model_lib.Route,
+                    router: FlatRouter, cfg: TrainConfig):
+    """ONE all-reduce over the group of the loss, the overflow count, the
+    dense grads and, on the hybrid route, the prefix's gradient, which
+    every rank then sees whole. Returns (loss, overflow int32, dense
+    grads, prefix gradient or None)."""
+    fs = route.prefix
+    overflow = (router.overflow(routing) if routing is not None
+                else torch.zeros((), dtype=torch.int32, device=ids.device))
+    summed = [loss.detach(), overflow.float()] + list(dgrads)
+    if fs:
+        summed.append(prefix_grad(row_grads[0], ids.t()[:fs], cfg.model))
+    _probe("loss-psum:enter", router, cfg)
+    _probe("grads-psum:enter", router, cfg)
+    summed = _all_reduce_flat(summed, router.mesh)
+    _probe("grads-psum:exit", router, cfg)
+    return (summed[0], summed[1].round().to(torch.int32), summed[2:2 + len(dgrads)],
+            summed[-1] if fs else None)
+
+
+def step_sparse_update(state: TrainState, row_grads, routing, g_prefix, lrf,
+                       route: model_lib.Route, router: FlatRouter, cfg: TrainConfig) -> None:
+    """The per-row updates of this shard's rows, in place: the reverse
+    all-to-all of the routed rows' grads and the router's apply; the
+    prefix's dense-form update of this shard's slice of it; the separate
+    first-order table's."""
+    mcfg, opt = cfg.model, cfg.optim
+    params, sparse = state.params, state.sparse_opt_state
+    table_local = params["embed"]["table"]
+    t_all, shard = router.num_shards, router.shard_index()
+    sk_emb, sk_lin = sr_keys(mcfg.table_dtype, opt, state.step, cfg.data.seed)
+    if sk_emb is not None:
+        # decorrelate the shards' stochastic-rounding dither
+        sk_emb, sk_lin = fold_in(sk_emb, shard), fold_in(sk_lin, shard)
+    fs = route.prefix
+    if routing is not None:
+        _probe("grad-return-a2a:enter", router, cfg)
+        row_ids, bucket_grads = router.grad(
+            row_grads[1 if fs else 0].reshape(-1, mcfg.table_width), routing)
+        _probe("grad-return-a2a:exit", router, cfg)
+        router.apply(table_local, sparse["embed"], row_ids, bucket_grads, opt, lrf, sk_emb)
+    if fs:
+        ls = _prefix_slice(mcfg, router)
+        prefix_update(table_local, sparse["embed"], ls,
+                      _local_prefix_grad(g_prefix, ls, t_all, shard, mcfg.small_rows), opt, lrf,
+                      sk_emb)
+    if mcfg.use_first_order and not mcfg.fused_linear:
+        lrow_ids, lrow_grads = router.grad(row_grads[1].reshape(-1, 1).float(), routing)
+        router.apply(params["linear"]["table"], sparse["linear"], lrow_ids, lrow_grads, opt,
+                     lrf, sk_lin)
+
+
+def _local_prefix_grad(g_prefix, ls: int, t_all: int, shard: int, srows: int):
+    """This shard's slice (ls, W) of the prefix gradient (srows, W): local
+    row l holds global id l*T + shard; rows past srows get a zero
+    gradient, an exact no-op."""
+    lidx = torch.arange(ls, device=g_prefix.device) * t_all + shard
+    return torch.where((lidx < srows)[:, None], g_prefix[lidx.clamp(max=srows - 1)],
+                       torch.zeros((), device=g_prefix.device))
 
 
 def _local_step(state: TrainState, ids, dense, labels, *, cfg: TrainConfig,
                 router: FlatRouter, interaction_fn):
     """The per-rank step body on this rank's batch block ids (B/T, F); the
     router decides the exchange and the per-row apply."""
-    params = state.params
-    mcfg, opt = cfg.model, cfg.optim
-    mesh = router.mesh
-    b_loc, f = ids.shape
-    w = mcfg.table_width
-    cdt = model_lib.torch_dtype(mcfg.compute_dtype)
-    t_all, shard = router.num_shards, router.shard_index()
-    table_local = params["embed"]["table"]
-    fm, fs, flat_ids, route_vocabs = routed_ids(ids, params, cfg, router, interaction_fn)
-    routed = fs < f
-    separate_linear = not fm and mcfg.use_first_order and not mcfg.fused_linear
-    dense_p = split_dense_params(params)
-    leaves = [p.detach().requires_grad_() for p in tree_leaves(dense_p)]
-    full = merge_dense_params(params, tree_unflatten(dense_p, leaves))
-
-    def dbg(tag):
-        collective_probe(tag, mesh.rank, cfg.debug_barriers)
-
+    route = step_route(state.params, cfg, router, interaction_fn)
+    dense_p, leaves, full = dense_leaves(state.params)
     with torch.no_grad():
-        ids_fm = ids.t()
-        if fs:
-            srows = mcfg.small_rows
-            ls = -(-srows // t_all)  # the padded local slice of the prefix
-            table_small = _gather_prefix(table_local, mesh, ls, srows)
-            row_leaves = [model_lib.onehot_lookup_fm(table_small, ids_fm[:fs], mcfg,
-                                                     out_dtype=cdt)]
-        else:
-            row_leaves = []
-        routing = None
-        if routed:
-            dbg("routing-a2a:enter")
-            routing = router.build(flat_ids, route_vocabs)
-            dbg("lookup-a2a:enter")
-            row_leaves.append(router.lookup(table_local, routing, cdt))
-            dbg("lookup-a2a:exit")
-            if separate_linear:
-                row_leaves.append(router.lookup(params["linear"]["table"], routing,
-                                                torch.float32))
-
+        row_leaves, routing = step_lookup(state.params, ids, route, router, cfg)
     with torch.enable_grad():
-        for x in row_leaves:
-            x.requires_grad_()
-        if fs:
-            emb_big = row_leaves[1].reshape(f - fs, b_loc, w) if routed else None
-            logits = model_lib.forward_from_rows_fm2(full, row_leaves[0], emb_big, dense, mcfg,
-                                                     interaction_fn=interaction_fn)
-        elif fm:
-            logits = model_lib.forward_from_rows_fm(full, row_leaves[0].reshape(f, b_loc, w),
-                                                    dense, mcfg, interaction_fn=interaction_fn)
-        else:
-            lin_rows = row_leaves[1].reshape(b_loc, f, 1) if separate_linear else None
-            logits = model_lib.forward_from_rows(full, row_leaves[0].reshape(b_loc, f, w),
-                                                 lin_rows, dense, mcfg,
-                                                 interaction_fn=interaction_fn)
-        # the global mean logloss: local sum over the global batch
-        loss = metrics.sigmoid_bce_with_logits(logits, labels).sum() / (b_loc * mesh.world)
+        loss = step_loss(full, route, row_leaves, dense, labels, router, cfg, interaction_fn)
         grads = torch.autograd.grad(loss, leaves + row_leaves)
-    dgrads, row_grads = list(grads[: len(leaves)]), list(grads[len(leaves):])
-
+    row_grads = grads[len(leaves):]
     with torch.no_grad():
-        overflow = (router.overflow(routing) if routed
-                    else torch.zeros((), dtype=torch.int32, device=ids.device))
-        summed = [loss.detach(), overflow.float()] + dgrads
-        if fs:
-            # every rank sees the global small-block gradient
-            summed.append(_prefix_grad(row_grads[0], ids_fm[:fs], mcfg))
-        # one all-reduce carries the loss and the dense grads
-        dbg("loss-psum:enter")
-        dbg("grads-psum:enter")
-        summed = _all_reduce_flat(summed, mesh)
-        dbg("grads-psum:exit")
-        loss, overflow = summed[0], summed[1].round().to(torch.int32)
-        dgrads = summed[2:2 + len(dgrads)]
-
-        lrf = schedule_factor(opt, state.step, cfg.data.num_train_steps)
-        updates, new_dense_opt = make_dense_optimizer(opt).update(
-            tree_unflatten(dense_p, dgrads), state.dense_opt_state, dense_p)
-        for p, u in zip(tree_leaves(dense_p), tree_leaves(scale_updates(updates, lrf))):
-            p.add_(u)
-
-        sparse = state.sparse_opt_state
-        sk_emb, sk_lin = sr_keys(mcfg.table_dtype, opt, state.step, cfg.data.seed)
-        if sk_emb is not None:
-            # decorrelate the shards' stochastic-rounding dither
-            sk_emb, sk_lin = fold_in(sk_emb, shard), fold_in(sk_lin, shard)
-        if routed:
-            # the reverse all-to-all, then the per-row update on this shard's rows
-            dbg("grad-return-a2a:enter")
-            row_ids, bucket_grads = router.grad(row_grads[1 if fs else 0].reshape(-1, w),
-                                                routing)
-            dbg("grad-return-a2a:exit")
-            router.apply(table_local, sparse["embed"], row_ids, bucket_grads, opt, lrf, sk_emb)
-        if fs:
-            # this shard's own prefix rows: local row l holds global id l*T +
-            # rank; rows past srows get a zero gradient, an exact no-op
-            dtab_small = summed[-1]
-            lidx = torch.arange(ls, device=ids.device) * t_all + shard
-            g_small = torch.where((lidx < srows)[:, None],
-                                  dtab_small[lidx.clamp(max=srows - 1)],
-                                  torch.zeros((), device=ids.device))
-            state_rows = {k: v for k, v in sparse["embed"].items()
-                          if v.dim() >= 1 and v.shape[0] == table_local.shape[0]}
-            new_small, new_small_state = dense_rowwise_apply(
-                table_local[:ls], {k: v[:ls] for k, v in state_rows.items()}, g_small, opt,
-                lr_scale=lrf, sr_key=None if sk_emb is None else fold_in(sk_emb, 1))
-            table_local[:ls] = new_small
-            for k, v in new_small_state.items():
-                if k in state_rows:
-                    state_rows[k][:ls] = v
-        if separate_linear:
-            lrow_ids, lrow_grads = router.grad(row_grads[1].reshape(-1, 1).float(), routing)
-            router.apply(params["linear"]["table"], sparse["linear"], lrow_ids, lrow_grads, opt,
-                         lrf, sk_lin)
-
-    new_state = TrainState(state.step + 1, params, new_dense_opt, sparse)
+        loss, overflow, dgrads, g_prefix = step_all_reduce(
+            loss, grads[:len(leaves)], row_grads, routing, ids, route, router, cfg)
+        new_dense_opt, lrf = dense_update(state, dense_p, tree_unflatten(dense_p, dgrads), cfg)
+        step_sparse_update(state, row_grads, routing, g_prefix, lrf, route, router, cfg)
+    new_state = TrainState(state.step + 1, state.params, new_dense_opt, state.sparse_opt_state)
     return new_state, {"loss": loss, "overflow": overflow}
 
 
@@ -440,16 +467,16 @@ def router_eval_step(cfg: TrainConfig, router: FlatRouter, interaction_fn=None):
     @torch.inference_mode()
     def step(state: TrainState, auc_state: Dict, ids, dense, labels, mask=None):
         params = state.params
-        b_loc, f = ids.shape
+        # batch-major, whatever route the train step takes
+        route = model_lib.route(params, mcfg, interaction_fn).batch_major()
         routing = router.build(ids.reshape(-1))
-        emb_rows = router.lookup(params["embed"]["table"], routing,
-                                 model_lib.torch_dtype(mcfg.compute_dtype))
-        lin_rows = None
+        row_leaves = [router.lookup(params["embed"]["table"], routing,
+                                    model_lib.torch_dtype(mcfg.compute_dtype))]
         if mcfg.use_first_order and not mcfg.fused_linear:
-            lin_rows = router.lookup(params["linear"]["table"], routing,
-                                     torch.float32).reshape(b_loc, f, 1)
+            row_leaves.append(router.lookup(params["linear"]["table"], routing,
+                                            torch.float32))
         logits = model_lib.forward_from_rows(
-            params, emb_rows.reshape(b_loc, f, mcfg.table_width), lin_rows, dense, mcfg,
+            params, route, _rows_in_layout(route, row_leaves, ids.shape[0], mcfg), dense, mcfg,
             interaction_fn=interaction_fn)
         logits = logits + metrics.calibration_offset(cfg.data)
         zeros = {k: torch.zeros_like(v) for k, v in auc_state.items()}

@@ -20,8 +20,8 @@ corrupted ids >= 2^16 on the chip). Four checks:
                        table within 5e-3, accumulator within 5e-4.
   interaction_kernel   f = 15, d = 16, conv (16,), k = 3, B = 256, f32,
                        first-order column fused: kernel 1 on the
-                       field-major (`forward_from_rows_fm`) and batch-major
-                       full-rows (`forward_from_rows`) routes against the
+                       field-major and batch-major full-rows routes
+                       (`models.cffm.forward_from_rows`) against the
                        reference conv (1e-3), and kernel 2 through autograd
                        on both routes against the reference's gradients
                        (2e-2 of the largest, rows and conv weight). TF32 is
@@ -168,11 +168,12 @@ def check_interaction_kernel(device="cuda") -> bool:
         raise AssertionError("the case needs the fused first-order column")
     fn = ic.make_interaction_fn(use_kernel=True)
 
+    fm = model_lib.Route(full_rows=True, field_major=True, prefix=0)
+    routes = {"fm": fm, "bm": fm.batch_major(), "ref": model_lib.Route(False, False, 0)}
+
     def forward(route, p, r):
-        if route == "fm":
-            return model_lib.forward_from_rows_fm(p, r.transpose(0, 1), None, cfg,
-                                                  interaction_fn=fn)
-        return model_lib.forward_from_rows(p, r, None, None, cfg,
+        rows = [r.transpose(0, 1)] if route == "fm" else [r]
+        return model_lib.forward_from_rows(p, routes[route], rows, None, cfg,
                                            interaction_fn=None if route == "ref" else fn)
 
     def grads(route):

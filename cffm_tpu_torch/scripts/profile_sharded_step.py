@@ -7,11 +7,11 @@ with a bf16 table (stochastic rounding) and `sharding.table_sharded`, at
 batch 8192 by default, on a process group of one (NCCL on the card, gloo
 on the CPU), the batch made as the JAX script makes it. Each stage is a
 cumulative fragment of `parallel/sharded_train._local_step`, built here
-from the pieces it calls (the step itself has no stage switch):
+from the phases it calls (the step itself has no stage switch):
 
   lookup   the hybrid prefix gather and one-hot lookup, `router.build` and
            `router.lookup` (the routed lookup of the big fields)
-  fwd      + `forward_from_rows_fm2` (kernel 1) and the loss
+  fwd      + `models.cffm.forward_from_rows` (kernel 1) and the loss
   bwd      + `torch.autograd.grad` (kernel 2)
   dense    + the all-reduce of loss and grads and the dense optimizer
   gradret  + `router.grad` (the gradient return, kernel 6)
@@ -73,128 +73,40 @@ def batch_of(cfg, device, seed: int = 0):
 def fragment(stage: str, state, ids, dense, labels, cfg, router, interaction_fn):
     """`_local_step` of the flat router cut after `stage`: None before
     "update", and (new_state, {"loss", "overflow"}) at "update"."""
-    from cffm_tpu_torch import metrics
-    from cffm_tpu_torch.models import cffm as model_lib
-    from cffm_tpu_torch.optim.rowwise import (dense_rowwise_apply, fold_in,
-                                              make_dense_optimizer, scale_updates,
-                                              schedule_factor, sr_keys, tree_leaves,
-                                              tree_unflatten)
-    from cffm_tpu_torch.parallel.sharded_train import (_all_reduce_flat, _gather_prefix,
-                                                       routed_ids)
-    from cffm_tpu_torch.train import (TrainState, _prefix_grad, merge_dense_params,
-                                      split_dense_params)
+    from cffm_tpu_torch.optim.rowwise import tree_unflatten
+    from cffm_tpu_torch.parallel import sharded_train as st
+    from cffm_tpu_torch.train import TrainState, dense_leaves, dense_update
 
     if stage not in FRAGMENTS:
         raise ValueError(f"unknown fragment {stage!r}; have {FRAGMENTS}")
-    params = state.params
-    mcfg, opt = cfg.model, cfg.optim
-    mesh = router.mesh
-    b_loc, f = ids.shape
-    w = mcfg.table_width
-    cdt = model_lib.torch_dtype(mcfg.compute_dtype)
-    t_all, shard = router.num_shards, router.shard_index()
-    table_local = params["embed"]["table"]
-    fm, fs, flat_ids, route_vocabs = routed_ids(ids, params, cfg, router, interaction_fn)
-    routed = fs < f
-    separate_linear = not fm and mcfg.use_first_order and not mcfg.fused_linear
-    dense_p = split_dense_params(params)
-    leaves = [p.detach().requires_grad_() for p in tree_leaves(dense_p)]
-    full = merge_dense_params(params, tree_unflatten(dense_p, leaves))
-
+    route = st.step_route(state.params, cfg, router, interaction_fn)
+    dense_p, leaves, full = dense_leaves(state.params)
     with torch.no_grad():
-        ids_fm = ids.t()
-        if fs:
-            srows = mcfg.small_rows
-            ls = -(-srows // t_all)
-            table_small = _gather_prefix(table_local, mesh, ls, srows)
-            row_leaves = [model_lib.onehot_lookup_fm(table_small, ids_fm[:fs], mcfg,
-                                                     out_dtype=cdt)]
-        else:
-            row_leaves = []
-        routing = None
-        if routed:
-            routing = router.build(flat_ids, route_vocabs)
-            row_leaves.append(router.lookup(table_local, routing, cdt))
-            if separate_linear:
-                row_leaves.append(router.lookup(params["linear"]["table"], routing,
-                                                torch.float32))
+        row_leaves, routing = st.step_lookup(state.params, ids, route, router, cfg)
     if stage == "lookup":
         return None
-
     with torch.enable_grad():
-        for x in row_leaves:
-            x.requires_grad_()
-        if fs:
-            emb_big = row_leaves[1].reshape(f - fs, b_loc, w) if routed else None
-            logits = model_lib.forward_from_rows_fm2(full, row_leaves[0], emb_big, dense, mcfg,
-                                                     interaction_fn=interaction_fn)
-        elif fm:
-            logits = model_lib.forward_from_rows_fm(full, row_leaves[0].reshape(f, b_loc, w),
-                                                    dense, mcfg, interaction_fn=interaction_fn)
-        else:
-            lin_rows = row_leaves[1].reshape(b_loc, f, 1) if separate_linear else None
-            logits = model_lib.forward_from_rows(full, row_leaves[0].reshape(b_loc, f, w),
-                                                 lin_rows, dense, mcfg,
-                                                 interaction_fn=interaction_fn)
-        loss = metrics.sigmoid_bce_with_logits(logits, labels).sum() / (b_loc * mesh.world)
+        loss = st.step_loss(full, route, row_leaves, dense, labels, router, cfg, interaction_fn)
         if stage == "fwd":
             return None
         grads = torch.autograd.grad(loss, leaves + row_leaves)
     if stage == "bwd":
         return None
-    dgrads, row_grads = list(grads[: len(leaves)]), list(grads[len(leaves):])
-
+    row_grads = grads[len(leaves):]
     with torch.no_grad():
-        overflow = (router.overflow(routing) if routed
-                    else torch.zeros((), dtype=torch.int32, device=ids.device))
-        summed = [loss.detach(), overflow.float()] + dgrads
-        if fs:
-            summed.append(_prefix_grad(row_grads[0], ids_fm[:fs], mcfg))
-        summed = _all_reduce_flat(summed, mesh)
-        loss, overflow = summed[0], summed[1].round().to(torch.int32)
-        dgrads = summed[2:2 + len(dgrads)]
-        lrf = schedule_factor(opt, state.step, cfg.data.num_train_steps)
-        updates, new_dense_opt = make_dense_optimizer(opt).update(
-            tree_unflatten(dense_p, dgrads), state.dense_opt_state, dense_p)
-        for p, u in zip(tree_leaves(dense_p), tree_leaves(scale_updates(updates, lrf))):
-            p.add_(u)
+        loss, overflow, dgrads, g_prefix = st.step_all_reduce(
+            loss, grads[:len(leaves)], row_grads, routing, ids, route, router, cfg)
+        new_dense_opt, lrf = dense_update(state, dense_p, tree_unflatten(dense_p, dgrads), cfg)
         if stage == "dense":
             return None
-
-        sparse = state.sparse_opt_state
-        sk_emb, sk_lin = sr_keys(mcfg.table_dtype, opt, state.step, cfg.data.seed)
-        if sk_emb is not None:
-            sk_emb, sk_lin = fold_in(sk_emb, shard), fold_in(sk_lin, shard)
-        if routed:
-            row_ids, bucket_grads = router.grad(row_grads[1 if fs else 0].reshape(-1, w),
-                                                routing)
-            if stage == "gradret":
-                return None
-            router.apply(table_local, sparse["embed"], row_ids, bucket_grads, opt, lrf, sk_emb)
-        elif stage == "gradret":
+        if stage == "gradret":
+            if routing is not None:
+                router.grad(row_grads[1 if route.prefix else 0].reshape(
+                    -1, cfg.model.table_width), routing)
             return None
-        if fs:
-            dtab_small = summed[-1]
-            lidx = torch.arange(ls, device=ids.device) * t_all + shard
-            g_small = torch.where((lidx < srows)[:, None],
-                                  dtab_small[lidx.clamp(max=srows - 1)],
-                                  torch.zeros((), device=ids.device))
-            state_rows = {k: v for k, v in sparse["embed"].items()
-                          if v.dim() >= 1 and v.shape[0] == table_local.shape[0]}
-            new_small, new_small_state = dense_rowwise_apply(
-                table_local[:ls], {k: v[:ls] for k, v in state_rows.items()}, g_small, opt,
-                lr_scale=lrf, sr_key=None if sk_emb is None else fold_in(sk_emb, 1))
-            table_local[:ls] = new_small
-            for k, v in new_small_state.items():
-                if k in state_rows:
-                    state_rows[k][:ls] = v
-        if separate_linear:
-            lrow_ids, lrow_grads = router.grad(row_grads[1].reshape(-1, 1).float(), routing)
-            router.apply(params["linear"]["table"], sparse["linear"], lrow_ids, lrow_grads, opt,
-                         lrf, sk_lin)
-
-    return TrainState(state.step + 1, params, new_dense_opt, sparse), {"loss": loss,
-                                                                        "overflow": overflow}
+        st.step_sparse_update(state, row_grads, routing, g_prefix, lrf, route, router, cfg)
+    return (TrainState(state.step + 1, state.params, new_dense_opt, state.sparse_opt_state),
+            {"loss": loss, "overflow": overflow})
 
 
 def run(stages, cfg, mesh, device="cuda", n: int = 5, log=print) -> dict:

@@ -6,10 +6,13 @@ The port's counterpart of `scripts/profile_step.py`. Stages (default
 full, batch 32768), each on the port's own functions and the synthetic
 batch of `bench.py`:
 
-  lookup  models.cffm.embedding_lookup of the (V, W) f32 table
+  lookup  models.cffm.lookup on the route train.train_step takes
+          (models.cffm.route; on criteo_kaggle the hybrid field-major
+          route, one launch of ops/embed_lookup's kernel on the card)
   fwd     models.cffm.forward (no grad)
-  fwdbwd  the lookup, then forward_from_rows and the loss's gradient with
-          respect to the dense params and the looked-up rows
+  fwdbwd  that lookup, then models.cffm.forward_from_rows and the loss's
+          gradient with respect to the dense params and the looked-up
+          rows, as train.train_step takes them
   sparse  optim.rowwise.rowwise_update (in place) with max_unique from
           unique_bound
   full    train.train_step
@@ -47,8 +50,7 @@ def run(stage: str, cfg, device="cuda", n: int = 10) -> float:
     from cffm_tpu_torch import metrics, train
     from cffm_tpu_torch.bench import staged_batch
     from cffm_tpu_torch.models import cffm as model_lib
-    from cffm_tpu_torch.optim.rowwise import (rowwise_init, rowwise_update, tree_leaves,
-                                              tree_unflatten, unique_bound)
+    from cffm_tpu_torch.optim.rowwise import rowwise_init, rowwise_update, unique_bound
     from cffm_tpu_torch.utils.timing import time_per_call
 
     if stage not in STAGES:
@@ -81,15 +83,11 @@ def run(stage: str, cfg, device="cuda", n: int = 10) -> float:
         return _timed_steps(lambda: rowwise_update(table, st, flat_ids, grads, cfg.optim,
                                                    max_unique=mu, field_offsets=offs),
                             device, n)
-    if stage == "lookup":
-        table = 0.01 * torch.randn((mcfg.total_vocab, mcfg.table_width), generator=gen,
-                                   device=device)
-        params = {"embed": {"table": table}}
-        return time_per_call(
-            lambda: model_lib.embedding_lookup(params, ids, mcfg)[0].float().sum(),
-            n=n, device=device)
-
     params = model_lib.init_params(mcfg, gen)
+    route = model_lib.route(params, mcfg, fn, train.has_dense_form(cfg.optim))
+    if stage == "lookup":
+        return time_per_call(model_lib.lookup, params, route, ids, mcfg, n=n, device=device)
+
     if stage == "fwd":
         @torch.no_grad()
         def fwd():
@@ -98,17 +96,16 @@ def run(stage: str, cfg, device="cuda", n: int = 10) -> float:
         return time_per_call(fwd, n=n, device=device)
 
     cdt = model_lib.torch_dtype(mcfg.compute_dtype)
-    dense_p = train.split_dense_params(params)
 
     def fwdbwd():
-        leaves = [p.detach().requires_grad_() for p in tree_leaves(dense_p)]
-        full = train.merge_dense_params(params, tree_unflatten(dense_p, leaves))
-        emb_rows, lin_rows = model_lib.embedding_lookup(params, ids, mcfg)
-        emb_rows = emb_rows.to(cdt).requires_grad_()
-        logits = model_lib.forward_from_rows(full, emb_rows, lin_rows, dense, mcfg,
-                                             interaction_fn=fn)
+        _, leaves, full = train.dense_leaves(params)
+        rows = list(model_lib.lookup(params, route, ids, mcfg))
+        if not route.field_major:
+            rows[0] = rows[0].to(cdt)
+        rows = [r.requires_grad_() for r in rows]
+        logits = model_lib.forward_from_rows(full, route, rows, dense, mcfg, interaction_fn=fn)
         loss = metrics.logloss(logits, labels)
-        return torch.autograd.grad(loss, leaves + [emb_rows])
+        return torch.autograd.grad(loss, leaves + rows)
 
     return time_per_call(fwdbwd, n=n, device=device)
 

@@ -40,7 +40,6 @@ import torch
 from cffm_tpu_torch import metrics, resolve_device
 from cffm_tpu_torch.config import TrainConfig
 from cffm_tpu_torch.models import cffm as model_lib
-from cffm_tpu_torch.ops import embed_lookup
 from cffm_tpu_torch.optim.rowwise import (dense_rowwise_apply, fold_in,
                                           make_dense_optimizer, rowwise_init,
                                           rowwise_update, scale_updates,
@@ -73,6 +72,14 @@ def merge_dense_params(params: Dict, dense: Dict) -> Dict:
     return out
 
 
+def dense_leaves(params: Dict):
+    """(dense_p, leaves, full): the dense sub-tree, its tensors as fresh
+    leaves that take gradients, and params with those leaves in place."""
+    dense_p = split_dense_params(params)
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(dense_p)]
+    return dense_p, leaves, merge_dense_params(params, tree_unflatten(dense_p, leaves))
+
+
 def create_state(cfg: TrainConfig, generator: torch.Generator) -> TrainState:
     """Fresh params (drawn from generator, on its device) and optimizer state."""
     params = model_lib.init_params(cfg.model, generator)
@@ -83,7 +90,13 @@ def create_state(cfg: TrainConfig, generator: torch.Generator) -> TrainState:
     return TrainState(0, params, dense_opt_state, sparse)
 
 
-def _prefix_grad(g_small: torch.Tensor, ids_fm_small: torch.Tensor, cfg) -> torch.Tensor:
+def has_dense_form(opt) -> bool:
+    """Whether the sparse optimizer has the dense-form row update that the
+    small-field prefix takes (adagrad, sgd)."""
+    return opt.sparse_optimizer in ("adagrad", "sgd")
+
+
+def prefix_grad(g_small: torch.Tensor, ids_fm_small: torch.Tensor, cfg) -> torch.Tensor:
     """Gradient of the small-field prefix (small_rows, W) f32 from the
     prefix lookup's output gradient (Fs, B, W), as JAX takes it: per field
     the transposed one-hot product onehot^T @ g in the compute dtype (f32
@@ -101,63 +114,68 @@ def _prefix_grad(g_small: torch.Tensor, ids_fm_small: torch.Tensor, cfg) -> torc
     return torch.cat(blocks).float()
 
 
+def dense_update(state: TrainState, dense_p: Dict, dgrads: Dict, cfg: TrainConfig):
+    """The dense chain's update of dense_p (`split_dense_params`) from
+    dgrads, scaled by the LR schedule at state.step, added in place.
+    Returns (the new dense optimizer state, the schedule factor), which the
+    sparse update scales by too."""
+    lrf = schedule_factor(cfg.optim, state.step, cfg.data.num_train_steps)
+    updates, new_dense_opt = make_dense_optimizer(cfg.optim).update(
+        dgrads, state.dense_opt_state, dense_p)
+    for p, u in zip(tree_leaves(dense_p), tree_leaves(scale_updates(updates, lrf))):
+        p.add_(u)
+    return new_dense_opt, lrf
+
+
+def prefix_update(table: torch.Tensor, state: Dict, rows: int, g: torch.Tensor, opt,
+                  lr_scale, sr_key) -> None:
+    """The dense-form update of the table's first rows rows and their
+    per-row state (the small-field prefix, or a shard's slice of it), in
+    place, from their gradient g (rows, W) f32. No big-field id touches
+    those rows. sr_key is the table's stochastic-rounding key, folded with
+    1 here so that the prefix draws its own dither."""
+    state_rows = {k: v for k, v in state.items()
+                  if v.dim() >= 1 and v.shape[0] == table.shape[0]}
+    new_rows, new_state = dense_rowwise_apply(
+        table[:rows], {k: v[:rows] for k, v in state_rows.items()}, g, opt,
+        lr_scale=lr_scale, sr_key=None if sr_key is None else fold_in(sr_key, 1))
+    table[:rows] = new_rows
+    for k, v in new_state.items():
+        if k in state_rows:
+            state_rows[k][:rows] = v
+
+
 def train_step(state: TrainState, ids: torch.Tensor, dense: Optional[torch.Tensor],
                labels: torch.Tensor, cfg: TrainConfig, interaction_fn=None):
     """One step on a batch: ids (B, F) int32 global, dense (B, num_dense)
     | None, labels (B,). Returns (new_state, {"loss", "logit_mean"}).
 
-    Under a torch profiler it records the span cffm.step and, inside it,
-    cffm.lookup (on the field-major route one launch of `ops/embed_lookup`'s
-    kernel on the card, which writes the rows in the compute dtype),
-    cffm.forward (interaction, conv tail, tower, loss; the conv tail in
-    cffm.conv_tail, eager since the step takes its gradient), cffm.backward,
-    cffm.dense_update and cffm.sparse_update (`utils/profiling.py`)."""
+    The rows take `models.cffm.route`. Under a torch profiler it records
+    the span cffm.step and, inside it, cffm.lookup (on the field-major
+    route one launch of `ops/embed_lookup`'s kernel on the card, which
+    writes the rows in the compute dtype), cffm.forward (interaction, conv
+    tail, tower, loss; the conv tail in cffm.conv_tail, eager since the
+    step takes its gradient), cffm.backward, cffm.dense_update and
+    cffm.sparse_update (`utils/profiling.py`)."""
     with profiling.span("cffm.step"):
         params = state.params
         mcfg = cfg.model
-        cdt = model_lib.torch_dtype(mcfg.compute_dtype)
-        # field-major full-rows route: ids transposed before the gather
-        fm = model_lib.wants_field_major(params, mcfg, interaction_fn)
-        # hybrid small-field prefix: its dense-form update exists for adagrad/sgd only
-        fs = (mcfg.small_field_prefix
-              if fm and cfg.optim.sparse_optimizer in ("adagrad", "sgd") else 0)
-        dense_p = split_dense_params(params)
-        leaves = [p.detach().requires_grad_() for p in tree_leaves(dense_p)]
-        full = merge_dense_params(params, tree_unflatten(dense_p, leaves))
+        route = model_lib.route(params, mcfg, interaction_fn, has_dense_form(cfg.optim))
+        fs = route.prefix
+        dense_p, leaves, full = dense_leaves(params)
         table = params["embed"]["table"]
-        separate_linear = False
         with torch.enable_grad():
             with profiling.span("cffm.lookup"):
-                if fm:
-                    ids_fm = ids.t()
-                    with torch.no_grad():
-                        emb_small, emb_big = embed_lookup.lookup_fm(
-                            table, ids, model_lib.prefix_bounds(mcfg) if fs else (), cdt)
-                    if fs:
-                        rows = [emb_small.requires_grad_()]
-                        if fs < mcfg.num_fields:
-                            rows.append(emb_big.requires_grad_())
-                        else:
-                            emb_big = None
-                    else:
-                        rows = [emb_big.requires_grad_()]
-                else:
-                    emb_rows, lin_rows = model_lib.embedding_lookup(params, ids, mcfg)
+                with torch.no_grad():
+                    rows = list(model_lib.lookup(params, route, ids, mcfg))
+                if not route.field_major:
                     # rows cast to the compute dtype here, so their grads come back narrow
-                    rows = [emb_rows.to(cdt).requires_grad_()]
-                    separate_linear = mcfg.use_first_order and not mcfg.fused_linear
-                    if separate_linear:
-                        rows.append(lin_rows.requires_grad_())
+                    rows[0] = rows[0].to(model_lib.torch_dtype(mcfg.compute_dtype))
+                for r in rows:
+                    r.requires_grad_()
             with profiling.span("cffm.forward"):
-                if fm and fs:
-                    logits = model_lib.forward_from_rows_fm2(
-                        full, emb_small, emb_big, dense, mcfg, interaction_fn=interaction_fn)
-                elif fm:
-                    logits = model_lib.forward_from_rows_fm(
-                        full, rows[0], dense, mcfg, interaction_fn=interaction_fn)
-                else:
-                    logits = model_lib.forward_from_rows(
-                        full, rows[0], lin_rows, dense, mcfg, interaction_fn=interaction_fn)
+                logits = model_lib.forward_from_rows(full, route, rows, dense, mcfg,
+                                                     interaction_fn=interaction_fn)
                 loss = metrics.logloss(logits, labels)
             with profiling.span("cffm.backward"):
                 grads = torch.autograd.grad(loss, leaves + rows)
@@ -165,13 +183,8 @@ def train_step(state: TrainState, ids: torch.Tensor, dense: Optional[torch.Tenso
         row_grads = list(grads[len(leaves):])
 
         with torch.no_grad():
-            # dense update, scaled by the LR schedule
             with profiling.span("cffm.dense_update"):
-                lrf = schedule_factor(cfg.optim, state.step, cfg.data.num_train_steps)
-                updates, new_dense_opt = make_dense_optimizer(cfg.optim).update(
-                    dgrads, state.dense_opt_state, dense_p)
-                for p, u in zip(tree_leaves(dense_p), tree_leaves(scale_updates(updates, lrf))):
-                    p.add_(u)
+                new_dense_opt, lrf = dense_update(state, dense_p, dgrads, cfg)
 
             # sparse per-row updates on the touched rows
             with profiling.span("cffm.sparse_update"):
@@ -180,8 +193,9 @@ def train_step(state: TrainState, ids: torch.Tensor, dense: Optional[torch.Tenso
                 offs = tuple(int(o) for o in model_lib.field_offsets(mcfg))
                 batch = ids.shape[0]
                 sk_emb, sk_lin = sr_keys(mcfg.table_dtype, opt, state.step, cfg.data.seed)
+                ids_fm = ids.t()
                 if fs:
-                    dtab_small = _prefix_grad(row_grads[0], ids_fm[:fs], mcfg)
+                    dtab_small = prefix_grad(row_grads[0], ids_fm[:fs], mcfg)
                     if fs < mcfg.num_fields:
                         # big fields only through the sort/dedup/update pipeline
                         rowwise_update(table, sparse["embed"], ids_fm[fs:].reshape(-1),
@@ -189,27 +203,17 @@ def train_step(state: TrainState, ids: torch.Tensor, dense: Optional[torch.Tenso
                                        max_unique=unique_bound(mcfg.vocab_sizes[fs:], batch),
                                        field_offsets=offs[fs:], mask_sentinels=False,
                                        lr_scale=lrf, sr_key=sk_emb, field_major=True)
-                    # small block: dense per-row update of the table prefix, whose
-                    # rows [0, small_rows) no big-field id touches
-                    srows = mcfg.small_rows
-                    state_rows = {k: v for k, v in sparse["embed"].items()
-                                  if v.dim() >= 1 and v.shape[0] == table.shape[0]}
-                    new_small, new_small_state = dense_rowwise_apply(
-                        table[:srows], {k: v[:srows] for k, v in state_rows.items()},
-                        dtab_small, opt, lr_scale=lrf,
-                        sr_key=None if sk_emb is None else fold_in(sk_emb, 1))
-                    table[:srows] = new_small
-                    for k, v in new_small_state.items():
-                        if k in state_rows:
-                            state_rows[k][:srows] = v
+                    prefix_update(table, sparse["embed"], mcfg.small_rows, dtab_small, opt,
+                                  lrf, sk_emb)
                 else:
-                    flat_ids = ids_fm.reshape(-1) if fm else ids.reshape(-1)
+                    flat_ids = (ids_fm if route.field_major else ids).reshape(-1)
                     max_u = unique_bound(mcfg.vocab_sizes, batch)
                     rowwise_update(table, sparse["embed"], flat_ids,
                                    row_grads[0].reshape(-1, mcfg.table_width), opt,
                                    max_unique=max_u, field_offsets=offs, mask_sentinels=False,
-                                   lr_scale=lrf, sr_key=sk_emb, field_major=fm)
-                    if separate_linear:
+                                   lr_scale=lrf, sr_key=sk_emb, field_major=route.field_major)
+                    if len(rows) > 1:
+                        # the first-order weights' table of their own
                         rowwise_update(params["linear"]["table"], sparse["linear"], flat_ids,
                                        row_grads[1].reshape(-1, 1), opt, max_unique=max_u,
                                        field_offsets=offs, mask_sentinels=False,

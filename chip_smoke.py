@@ -2839,9 +2839,9 @@ def _multi_rank(rank: int, world: int, port: int, out_dir: str):
     from cffm_tpu_torch.parallel import dcn_mesh
     from cffm_tpu_torch.parallel import sharded_embedding as se
     from cffm_tpu_torch.parallel.mesh import close_mesh, make_mesh, make_mesh_2d
-    from cffm_tpu_torch.parallel.sharded_train import (make_sharded_train_step,
+    from cffm_tpu_torch.parallel.sharded_train import (exchange_ids, make_sharded_train_step,
                                                        make_sharded_train_step_hier,
-                                                       routed_ids)
+                                                       step_route)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2915,7 +2915,8 @@ def _multi_rank(rank: int, world: int, port: int, out_dir: str):
             params = model_lib.init_params(mh.model, torch.Generator(device=dev).manual_seed(0),
                                            skip_tables=True)
             router = make_sharded_train_step_hier(mh, mesh2d, mh_fn).router
-            router.build(*routed_ids(ids.to(dev), params, mh, router, mh_fn)[2:])
+            router.build(*exchange_ids(ids.to(dev), step_route(params, mh, router, mh_fn),
+                                       mh))
             s1, s2 = _stage_overflows(router, mesh.group)
             overflow = {"stage1": s1, "stage2": s2, "cap1": router.cap1, "cap2": router.cap2,
                         "cap_rows": mh.sharding.cap_rows,
@@ -3198,7 +3199,9 @@ def phase_time_hier(mesh) -> dict:
     from cffm_tpu_torch.data.loader import make_dataset
     from cffm_tpu_torch.ops import sorted_segment as ss
     from cffm_tpu_torch.parallel.sharded_embedding import EB
-    from cffm_tpu_torch.parallel.sharded_train import make_sharded_train_step_hier, routed_ids
+    from cffm_tpu_torch.parallel.sharded_train import (exchange_ids,
+                                                       make_sharded_train_step_hier,
+                                                       step_route)
 
     out, dev = {}, mesh.device
     grid = _grid_of_one(mesh)
@@ -3252,7 +3255,7 @@ def phase_time_hier(mesh) -> dict:
     # kernel 6 at the stage-2 input shape: the gateway's (C * cap1, W) slots,
     # routed by the step's own router as the step routes them
     router = hier.router
-    hr = router.build(*routed_ids(batch[0], state.params, cfg, router, fn)[2:])
+    hr = router.build(*exchange_ids(batch[0], step_route(state.params, cfg, router, fn), cfg))
     seg, w = hr.r2.seg, cfg.model.table_width
     n, count = seg.numel(), int(seg[-1]) + 1
     m = min(n, router.host_unique)

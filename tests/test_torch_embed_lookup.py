@@ -30,8 +30,8 @@ B, W = 37, 16
 def _todays_chain(table, ids, fs, out_dtype):
     """What the forward ran before the kernel: `onehot_lookup_fm` (the
     vocab sizes copied to the ids' device, the block test on local ids,
-    the gather, the cast and `torch.where`) and `embedding_lookup_fm`'s
-    clamped gather, cast to the compute dtype."""
+    the gather, the cast and `torch.where`) and the big fields' clamped
+    gather, cast to the compute dtype."""
     ids_fm = ids.t()
 
     def take(t, i):

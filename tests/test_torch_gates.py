@@ -126,8 +126,9 @@ def test_model_takes_the_full_rows_route_at_k9():
     cfg = _cfg(conv_kernel=9)
     fn = ic.make_interaction_fn()
     params = {"conv": [{"w": torch.zeros(1)}]}
-    assert model.wants_field_major(params, cfg, fn)
-    assert not model.wants_field_major(params, _cfg(conv_kernel=4), fn)
+    # every field small: the whole row is the prefix
+    assert model.route(params, cfg, fn) == model.Route(True, True, 15)
+    assert model.route(params, _cfg(conv_kernel=4), fn) == model.Route(False, False, 0)
     calls = []
     real = fn.full_rows
     fn.full_rows = lambda *a: calls.append(1) or real(*a)
@@ -139,7 +140,9 @@ def test_model_takes_the_full_rows_route_at_k9():
         np.asarray, jax_model.init_params(jax.random.key(1), JaxModelConfig(**kw))))
     rows = torch.from_numpy(np.random.default_rng(2).normal(
         size=(B, cfg.num_fields, cfg.table_width)).astype(np.float32))
-    out = model.forward_from_rows(params, rows, None, None, cfg, interaction_fn=fn)
+    route = model.route(params, cfg, fn).batch_major()
+    assert route == model.Route(True, False, 0)
+    out = model.forward_from_rows(params, route, [rows], None, cfg, interaction_fn=fn)
     assert out.shape == (B,) and torch.isfinite(out).all() and calls == [1]
 
 
