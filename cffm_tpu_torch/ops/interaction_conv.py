@@ -6,8 +6,11 @@ interaction map M (B, P, d), P = F(F-1)/2, is built on chip and fed
 straight into the first, heaviest conv layer (in_channels = P); M never
 reaches device memory, forward or backward. The conv tail (layer 1's bias,
 ReLU and pool, then the remaining conv layers) runs on the small (B, C1, d)
-activation: in one launch of `csrc/conv_tail.cu` (`conv_tail`) on a
-forward that takes no gradient, else in PyTorch (`conv_tail_reference`).
+activation. On the card, where `tail_kernel_takes` accepts the config, it
+is one launch of `csrc/conv_tail.cu` (`conv_tail`) on a forward that takes
+no gradient, and one autograd Function (`conv_tail_with_grad`) whose
+backward is that file's second kernel (`conv_tail_bwd`) where it takes
+one; else it is PyTorch's eager passes (`conv_tail_reference`).
 
 The forward kernel is `csrc/cross_conv1_fwd.cu`, the backward
 `csrc/cross_conv1_bwd.cu`. Four entries keep the contracts of the four
@@ -46,6 +49,7 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from cffm_tpu_torch.config import ModelConfig
 from cffm_tpu_torch.ops import _build
@@ -615,9 +619,9 @@ for _fn in ENTRIES + (cross_conv1_bwd,):
 
 
 def reset_launches():
-    """Set every forward entry's, the backward's and the conv tail's launch
-    counts to 0."""
-    for fn in ENTRIES + (cross_conv1_bwd, conv_tail):
+    """Set every forward entry's, the backward's and the conv tail's two
+    launch counts to 0."""
+    for fn in ENTRIES + (cross_conv1_bwd, conv_tail, conv_tail_bwd):
         fn.launches = 0
 
 
@@ -649,8 +653,8 @@ def tail_kernel_takes(cfg: ModelConfig) -> bool:
 
 
 def conv_tail(y: torch.Tensor, conv_params, cfg: ModelConfig) -> torch.Tensor:
-    """The conv tail without a gradient: y (B, C1, d) from layer 1 -> the
-    flat features (B, C2 * d / pool^2), channel-major.
+    """The conv tail's forward, recording no gradient: y (B, C1, d) from
+    layer 1 -> the flat features (B, C2 * d / pool^2), channel-major.
 
     A CPU tensor takes `conv_tail_reference`. A CUDA tensor launches
     `csrc/conv_tail.cu` once, which reads y once and writes the features
@@ -669,6 +673,19 @@ def conv_tail(y: torch.Tensor, conv_params, cfg: ModelConfig) -> torch.Tensor:
 
 def _fused_tail(y, conv_params, cfg: ModelConfig):
     """The kernel's checks, output, launch and counts."""
+    y, params = _tail_operands(y, conv_params, cfg)
+    b, c2 = y.shape[0], cfg.conv_channels[1]
+    out = torch.empty((b, c2 * cfg.embed_dim // 4), dtype=y.dtype, device=y.device)
+    if b:
+        _tail_launch(y, *params, out)
+        conv_tail.launches += 1
+        profiling.count("conv_tail.fused_examples", b)
+    return out
+
+
+def _tail_operands(y, conv_params, cfg: ModelConfig):
+    """y contiguous and (w2, b1, b2), or a ValueError for what the tail's
+    kernels do not take."""
     if not tail_kernel_takes(cfg):
         raise ValueError(f"conv_tail's kernel takes two conv layers of {TAIL_CHANNELS} "
                          f"channels, k=3, pool 2, d=16 in bf16; got {cfg.conv_channels}, "
@@ -691,12 +708,116 @@ def _fused_tail(y, conv_params, cfg: ModelConfig):
     y = y.contiguous()
     if y.data_ptr() % 16:
         raise ValueError("conv_tail's kernel reads y on a 16-byte boundary")
-    out = torch.empty((b, c2 * cfg.embed_dim // 4), dtype=y.dtype, device=y.device)
-    if b:
-        _tail_launch(y, *params, out)
-        conv_tail.launches += 1
-        profiling.count("conv_tail.fused_examples", b)
+    return y, params
+
+
+def _pool_grad(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+    """The gradient at x (B, C, L) of max_pool_valid(relu(x), k), given the
+    pooled gradient g (B, C, L // k): each window's g at its first maximum
+    if that is > 0, as torch.max's and the ReLU's backward route it; zero
+    elsewhere and in a ragged tail."""
+    n = x.shape[-1] // k
+    top = x[..., : n * k].reshape(*x.shape[:-1], n, k).max(dim=-1)
+    hit = F.one_hot(top.indices, k).bool() & (top.values > 0)[..., None]
+    out = torch.zeros_like(x)
+    out[..., : n * k] = torch.where(hit, g[..., None], 0).reshape(*x.shape[:-1], n * k)
     return out
+
+
+def conv_tail_bwd_reference(y: torch.Tensor, g: torch.Tensor, conv_params,
+                            cfg: ModelConfig):
+    """Plain version of the conv tail's backward, for two conv layers: y (B,
+    C1, d) from layer 1 and the features' gradient g (B, C2 * d / pool^2)
+    -> (gy, dw2, db1, db2), the gradients of y, conv 2's weight and the two
+    biases, each in its input's dtype.
+
+    The eager chain's rounding points in y's dtype: the pools' and ReLUs'
+    gradients are routed values (to each window's first maximum, where it
+    is > 0); conv 2's input gradient is an f32 sum rounded to y's dtype;
+    the weight and bias gradients are f32 sums over the batch rounded to
+    y's dtype once, then cast to the parameters' dtype, as the backward of
+    the eager chain's casts returns them."""
+    l1, l2 = conv_params
+    dt = y.dtype
+    b1, w2, b2 = l1["b"].to(dt), l2["w"].to(dt), l2["b"].to(dt)
+    pool, k = cfg.conv_pool, w2.shape[-1]
+    lo = (k - 1) // 2
+    x1 = y + b1[None, :, None]
+    p1 = max_pool_valid(torch.relu(x1), pool)
+    x2 = conv1d_same(p1, w2) + b2[None, :, None]
+    g_s = _pool_grad(x2, g.reshape(y.shape[0], w2.shape[0], -1).to(dt), pool).float()
+    g_p1 = F.conv_transpose1d(g_s, w2.float())[..., lo : lo + p1.shape[-1]].to(dt)
+    gy = _pool_grad(x1, g_p1, pool)
+    windows = F.pad(p1, (lo, k - 1 - lo)).float().unfold(-1, k, 1)  # (B, C1, L, k)
+    sums = (torch.einsum("box,bcxt->oct", g_s, windows), gy.float().sum((0, 2)),
+            g_s.sum((0, 2)))
+    return (gy,) + tuple(v.to(dt).to(p.dtype)
+                         for v, p in zip(sums, (l2["w"], l1["b"], l2["b"])))
+
+
+def conv_tail_bwd(y: torch.Tensor, g: torch.Tensor, conv_params, cfg: ModelConfig):
+    """The conv tail's backward: y (B, C1, d) from layer 1 and the features'
+    gradient g (B, C2 * d / pool^2) -> (gy, dw2, db1, db2).
+
+    A CPU tensor takes `conv_tail_bwd_reference`. A CUDA tensor launches
+    `csrc/conv_tail.cu`'s backward (one pass over y and g, then the fixed-
+    order sum of its blocks' partial sums, so two calls give the same bits)
+    at the plain version's rounding points, or raises for what the kernel
+    does not take. Its `launches` attribute counts the calls that launched,
+    and under a torch profiler each adds its examples to the counter
+    `conv_tail.bwd_examples` (`utils/profiling.py`)."""
+    if y.device.type == "cpu":
+        return conv_tail_bwd_reference(y, g, conv_params, cfg)
+    if y.device.type != "cuda":
+        raise ValueError(f"conv_tail_bwd takes CPU or CUDA tensors, got {y.device}")
+    return _fused_tail_bwd(y, g, conv_params, cfg)
+
+
+def _fused_tail_bwd(y, g, conv_params, cfg: ModelConfig):
+    """The backward kernel's checks, outputs, launch and counts."""
+    y, params = _tail_operands(y, conv_params, cfg)
+    b, width = y.shape[0], cfg.conv_channels[1] * cfg.embed_dim // 4
+    if tuple(g.shape) != (b, width) or g.dtype != y.dtype or g.device != y.device:
+        raise ValueError(f"g must be (B, {width}) bf16 on y's device, got "
+                         f"{tuple(g.shape)} {g.dtype} on {g.device}")
+    g = g.contiguous()
+    if g.data_ptr() % 16:
+        raise ValueError("conv_tail_bwd's kernel reads g on a 16-byte boundary")
+    gy = torch.empty_like(y)
+    grads = tuple((torch.empty_like if b else torch.zeros_like)(t) for t in params)
+    if b:
+        _tail_bwd_launch(y, g, *params, gy, *grads)
+        conv_tail_bwd.launches += 1
+        profiling.count("conv_tail.bwd_examples", b)
+    return (gy,) + grads
+
+
+class _ConvTail(torch.autograd.Function):
+    """The conv tail with its gradient: `conv_tail` forward, `conv_tail_bwd`
+    backward in the span cffm.conv_tail_bwd. Only y is kept for the
+    backward, which recomputes the rest."""
+
+    @staticmethod
+    def forward(ctx, cfg: ModelConfig, y, w2, b1, b2):
+        ctx.cfg = cfg
+        ctx.save_for_backward(y, w2, b1, b2)
+        return conv_tail(y, [{"b": b1}, {"w": w2, "b": b2}], cfg)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        y, w2, b1, b2 = ctx.saved_tensors
+        with profiling.span("cffm.conv_tail_bwd"):
+            grads = conv_tail_bwd(y, g, [{"b": b1}, {"w": w2, "b": b2}], ctx.cfg)
+        return (None,) + grads
+
+
+def conv_tail_with_grad(y: torch.Tensor, conv_params, cfg: ModelConfig) -> torch.Tensor:
+    """The conv tail of two conv layers as one autograd Function: the
+    features as `conv_tail` gives them, and gradients to y, layer 1's bias
+    and conv 2's weight and bias from `conv_tail_bwd`."""
+    l1, l2 = conv_params
+    return _ConvTail.apply(cfg, y, l2["w"], l1["b"], l2["b"])
 
 
 def _tail_library() -> ctypes.CDLL:
@@ -706,6 +827,10 @@ def _tail_library() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p, p, p, p, i, p, ll, i, i, p]
         fn.restype = i
+        lib.cffm_conv_tail_bwd.argtypes = [p, p, p, p, p, i, p, p, p, p, p, i, ll, i, i, p]
+        lib.cffm_conv_tail_bwd.restype = i
+        lib.cffm_conv_tail_bwd_sums.argtypes = [i, i]
+        lib.cffm_conv_tail_bwd_sums.restype = i
     return lib
 
 
@@ -721,37 +846,59 @@ def _tail_launch(y, w2, b1, b2, out):
         raise RuntimeError(f"conv_tail kernel launch failed: CUDA error {err}")
 
 
+def _tail_bwd_launch(y, g, w2, b1, b2, gy, dw2, db1, db2):
+    c2, c1, _ = w2.shape
+    dev = y.device
+    lib = _tail_library()
+    # a block an SM at most, each with its partial sums
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    sums = torch.empty((blocks * lib.cffm_conv_tail_bwd_sums(c1, c2),), dtype=torch.float32,
+                       device=dev)
+    with torch.cuda.device(dev):
+        err = lib.cffm_conv_tail_bwd(
+            y.data_ptr(), g.data_ptr(), w2.data_ptr(), b1.data_ptr(), b2.data_ptr(),
+            int(w2.dtype == torch.bfloat16), gy.data_ptr(), dw2.data_ptr(), db1.data_ptr(),
+            db2.data_ptr(), sums.data_ptr(), blocks, y.shape[0], c1, c2,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv_tail_bwd kernel launch failed: CUDA error {err}")
+
+
 conv_tail.launches = 0
+conv_tail_bwd.launches = 0
 
 
-def _takes_fused_tail(y: torch.Tensor, conv_params, cfg: ModelConfig) -> bool:
-    """The route's test: no tensor of the tail needs a gradient, and the
-    kernel takes the shapes."""
-    if torch.is_grad_enabled() and (y.requires_grad or any(
-            t.requires_grad for layer in conv_params for t in layer.values())):
-        return False
-    return tail_kernel_takes(cfg)
+def _wants_grad(y: torch.Tensor, conv_params) -> bool:
+    """Whether autograd records the tail: grad mode is on and a tensor of it
+    needs a gradient."""
+    return torch.is_grad_enabled() and (y.requires_grad or any(
+        t.requires_grad for layer in conv_params for t in layer.values()))
 
 
 def make_interaction_fn(use_kernel: bool = True):
     """Returns interaction_fn(emb, conv_params, cfg) -> flat features.
 
     Layer 1 runs in the fused cross+conv1 entry (odd k and even d; other
-    shapes take the reference conv, as in the JAX package). With use_kernel
-    the conv tail takes `conv_tail`'s kernel where no tensor of it needs a
-    gradient and `tail_kernel_takes` accepts the config (scoring, eval),
-    else the eager `conv_tail_reference` (a train step); without it, always
-    the eager tail. Under a torch profiler the tail records the span
-    cffm.conv_tail on either route. With use_kernel the fn also carries
-    `.full_rows`, `.full_rows_fm` and `.full_rows_fm2`, which take raw
-    physical table rows and return (feats, lin_sum); the model routes
-    through them when the config qualifies.
+    shapes take the reference conv, as in the JAX package). With use_kernel,
+    where `tail_kernel_takes` accepts the config, the conv tail takes
+    `conv_tail`'s kernel where no tensor of it needs a gradient (scoring,
+    eval), and on the card `conv_tail_with_grad` where one does (a train
+    step: the forward kernel and the backward kernel); everywhere else, and
+    always without use_kernel, the eager `conv_tail_reference`. Under a
+    torch profiler the tail records the span cffm.conv_tail on every route,
+    and the Function's backward cffm.conv_tail_bwd. With use_kernel the fn
+    also carries `.full_rows`, `.full_rows_fm` and `.full_rows_fm2`, which
+    take raw physical table rows and return (feats, lin_sum); the model
+    routes through them when the config qualifies.
     """
 
     def tail(x, conv_params, cfg: ModelConfig):
         with profiling.span("cffm.conv_tail"):
-            if use_kernel and _takes_fused_tail(x, conv_params, cfg):
-                return conv_tail(x, conv_params, cfg)
+            if use_kernel and tail_kernel_takes(cfg):
+                if not _wants_grad(x, conv_params):
+                    return conv_tail(x, conv_params, cfg)
+                if x.device.type == "cuda":
+                    return conv_tail_with_grad(x, conv_params, cfg)
             return conv_tail_reference(x, conv_params, cfg)
 
     def interaction_fn(emb, conv_params, cfg: ModelConfig):

@@ -6,7 +6,7 @@ The port's counterpart of `scripts/check_onchip_parity.py`, with its
 cases, numpy references and tolerances. The CPU tests reach only the
 plain versions, so a fault in a CUDA kernel's compiled code shows only
 here (on the TPU a `<< 16` passed every interpret-mode test and then
-corrupted ids >= 2^16 on the chip). Four checks:
+corrupted ids >= 2^16 on the chip). Five checks:
 
   sorted_segment       kernel 3 at five (n, vmax) streams, W = 256: ids
                        >= 2^16 and >= 2^24, n not a multiple of the
@@ -32,6 +32,15 @@ corrupted ids >= 2^16 on the chip). Four checks:
                        bf16 tables, int32, int64 and strided ids, bf16 and
                        f32 outputs, prefix ids outside their block and big
                        ids outside the table; bit-equal to the plain version.
+  conv_tail_grad       a train step's forward and backward through the conv
+                       tail's Function (its forward and backward kernels):
+                       f = 15, d = 16, conv (64, 64), k = 3, pool 2, B = 300,
+                       bf16, first-order column fused, on the field-major
+                       full-rows route
+                       (`models.cffm.forward_from_rows`); the logits and the
+                       gradients to the rows and every conv leaf against the
+                       same step on the CPU, whose tail is eager (2e-2 of the
+                       largest, as the interaction check holds bf16).
 
 On the card each check also requires its kernels' launch counts to rise:
 a route that fell to a plain version fails. Prints `ONCHIP PARITY: OK` or
@@ -245,8 +254,55 @@ def check_embed_lookup(device="cuda") -> bool:
     return ok
 
 
+def check_conv_tail_grad(device="cuda") -> bool:
+    """A train step's forward and backward through the conv tail's kernels
+    against the same step on the CPU, whose tail is the eager chain."""
+    from cffm_tpu_torch.config import ModelConfig
+    from cffm_tpu_torch.models import cffm as model_lib
+    from cffm_tpu_torch.ops import interaction_conv as ic
+    from cffm_tpu_torch.optim.rowwise import tree_map
+
+    device = torch.device(device)
+    f = 15
+    cfg = ModelConfig(num_fields=f, vocab_sizes=(32,) * f, embed_dim=16, cross="field_aware",
+                      conv_channels=(64, 64), conv_kernel=3, conv_pool=2,
+                      compute_dtype="bfloat16", use_first_order=True)
+    if not (ic.tail_kernel_takes(cfg) and cfg.fused_linear):
+        raise AssertionError("the case needs the fused first-order column and a conv stack "
+                             "the tail's kernels take")
+    params = model_lib.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(8)
+    rows = torch.from_numpy((rng.normal(size=(300, f, cfg.table_width)) * 0.3)
+                            .astype(np.float32))
+    fm = model_lib.Route(full_rows=True, field_major=True, prefix=0)
+    fn = ic.make_interaction_fn(use_kernel=True)
+
+    def step(dev):
+        p = tree_map(lambda t: t.detach().to(dev), params)
+        conv = p["conv"] = tree_map(lambda t: t.requires_grad_(), p["conv"])
+        r = rows.to(dev).requires_grad_()
+        out = model_lib.forward_from_rows(p, fm, [r.transpose(0, 1)], None, cfg,
+                                          interaction_fn=fn)
+        leaves = [r] + [t for lay in conv for t in lay.values()]
+        return [out.detach()] + list(torch.autograd.grad((out ** 2).sum(), leaves))
+
+    with _no_tf32():
+        want = step(torch.device("cpu"))
+        before = [ic.conv_tail.launches, ic.conv_tail_bwd.launches]
+        got = [t.cpu() for t in step(device)]
+        launched = _launched([ic.conv_tail, ic.conv_tail_bwd], before, device)
+    names = ["logits", "drows"] + [f"d{n}{i}" for i, lay in enumerate(params["conv"])
+                                   for n in lay]
+    rel = {n: float((a.float() - b.float()).abs().max()) / (float(b.float().abs().max()) + 1e-9)
+           for n, a, b in zip(names, got, want)}
+    good = all(v < 2e-2 for v in rel.values()) and launched
+    print("conv_tail_grad rel err " + " ".join(f"{n}={v:.2e}" for n, v in rel.items())
+          + f" -> {'ok' if good else 'FAIL'}", flush=True)
+    return good
+
+
 CHECKS = (check_sorted_segment, check_streamed_apply, check_interaction_kernel,
-          check_embed_lookup)
+          check_embed_lookup, check_conv_tail_grad)
 
 
 def main(argv=None) -> int:

@@ -241,10 +241,22 @@ nonzero without them, or when any phase fails. Phases, in order:
      its plain version, which holds layer 1's bias, ReLU and pool bit for
      bit; with drawn weights within `tail_limit` (the two roundings of conv
      2 and its bias add, and the f32 sums' own error), with the features
-     more than one bf16 ulp apart counted; one launch in a forward without
-     a gradient and none in a train step at the cells' B=65536; then timed
-     with CUDA events beside its plain version (the eager chain) and its
-     bound (y read once, the features written once).
+     more than one bf16 ulp apart counted; then timed with CUDA events
+     beside its plain version (the eager chain) and its bound (y read once,
+     the features written once). Its backward (ops/interaction_conv.
+     conv_tail_bwd) at the same widths, batches and weight dtypes against
+     its plain version and against eager autograd through the forward's
+     plain version: with one-hot conv-2 weights and with values on coarse
+     grids (every sum behind gy exact) gy equal, the weight and bias
+     gradients within `grad_close`; with drawn weights each gradient's norm
+     gap within 1e-2 of the plain version's (a pool window whose two values
+     conv 2's sum order rounds apart routes its gradient elsewhere), with
+     gy's elements more than one bf16 ulp apart counted; two calls bit-equal; timed beside
+     the eager chain's forward and backward, the Function's forward and
+     backward, and its bound (y and g read once, gy written once). A train
+     step at the cells' B=65536 launches the forward and the backward once
+     each, a forward without a gradient the forward once and the backward
+     never.
 
 Prints one JSON line of kernel records, then the card line, and ends
 with {"ok": true, "device": {...}}.
@@ -4040,10 +4052,120 @@ def tail_limit(y, layers, cfg):
     return max_pool_valid(lim, 2).reshape(y.shape[0], -1)
 
 
+def grad_close(got, want) -> bool:
+    """A gradient that is an f32 sum rounded to bf16 once, against the same
+    sum taken in another order: a neighbouring bf16 value (one ulp of the
+    larger magnitude), with 1e-5 of the tensor's largest magnitude for a sum
+    that cancels below the f32 sums' own error."""
+    import torch
+
+    a, b = got.float(), want.float()
+    lim = _bf16_ulp(torch.maximum(a.abs(), b.abs())) + 1e-5 * float(b.abs().max())
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and bool(((a - b).abs() <= lim).all()))
+
+
+def grid_tail_case(b: int, c1: int, c2: int, gen, dtype):
+    """y, g and the tail's layers with values on coarse grids (y, g, b1, b2
+    in eighths, w2 in sixteenths), so that conv 2 and its input gradient
+    sum exactly in f32 in any order: the pools' winners and gy do not
+    depend on the order, and many windows tie."""
+    import torch
+
+    def grid(shape, lo, hi, den):
+        return torch.randint(lo, hi + 1, shape, generator=gen, device="cuda").float() / den
+
+    y = grid((b, c1, 16), -8, 8, 8).to(torch.bfloat16)
+    g = grid((b, c2 * 4), -8, 8, 8).to(torch.bfloat16)
+    layers = [{"b": grid((c1,), -4, 4, 8).to(dtype)},
+              {"w": grid((c2, c1, 3), -4, 4, 16).to(dtype), "b": grid((c2,), -4, 4, 8).to(dtype)}]
+    return y, g, layers
+
+
+def eager_tail_grads(y, g, layers, cfg):
+    """(features, (gy, dw2, db1, db2)) by autograd through the eager tail."""
+    import torch
+
+    from cffm_tpu_torch.ops import interaction_conv as ic
+
+    leaves = [y.clone().requires_grad_(), layers[1]["w"].clone().requires_grad_(),
+              layers[0]["b"].clone().requires_grad_(), layers[1]["b"].clone().requires_grad_()]
+    y_, w2, b1, b2 = leaves
+    out = ic.conv_tail_reference(y_, [{"b": b1}, {"w": w2, "b": b2}], cfg)
+    return out.detach(), torch.autograd.grad(out, leaves, g)
+
+
+def _conv_tail_bwd_checks(gen) -> dict:
+    """The backward kernel against its plain version and eager autograd at
+    both channel widths, every TAIL_BATCHES batch, f32 and bf16 weights."""
+    import torch
+
+    from cffm_tpu_torch.ops import interaction_conv as ic
+
+    worst_gap = dict.fromkeys(("gy", "dw2", "db1", "db2"), 0.0)
+    beyond_ulp, checked = 0, 0
+    for mcfg in (_criteo_model("bfloat16"), _movielens_model("field_aware", "bfloat16")):
+        c1, c2 = mcfg.conv_channels
+        for b in TAIL_BATCHES:
+            for dtype in (torch.float32, torch.bfloat16):
+                y = torch.randn((b, c1, 16), generator=gen, device="cuda").to(torch.bfloat16)
+                g = torch.randn((b, c2 * 4), generator=gen, device="cuda").to(torch.bfloat16)
+                cases = {"one-hot": (y, g, _tail_layers(c1, c2, gen, dtype, True)),
+                         "grid": grid_tail_case(b, c1, c2, gen, dtype),
+                         "drawn": (y, g, _tail_layers(c1, c2, gen, dtype, False))}
+                for kind, (y, g, layers) in cases.items():
+                    what = f"conv_tail_bwd ({c1}, {c2}) B={b} {dtype} {kind}"
+                    before = ic.conv_tail_bwd.launches
+                    got = ic.conv_tail_bwd(y, g, layers, mcfg)
+                    again = ic.conv_tail_bwd(y, g, layers, mcfg)
+                    want = ic.conv_tail_bwd_reference(y, g, layers, mcfg)
+                    torch.cuda.synchronize()
+                    if ic.conv_tail_bwd.launches != before + 2:
+                        fail(f"{what}: the kernel did not launch once a call")
+                    if not all(torch.equal(a.view(torch.uint8), x.view(torch.uint8))
+                               for a, x in zip(got, again)):
+                        fail(f"{what}: two calls differ")
+                    if kind != "drawn":
+                        if not all(grad_close(a, x) for a, x in zip(got[1:], want[1:])):
+                            fail(f"{what}: a weight or bias gradient beyond grad_close")
+                        if not torch.equal(got[0], want[0]):
+                            fail(f"{what}: gy not equal to the plain version's")
+                        if kind == "grid":  # the Function against eager autograd
+                            feats, eager = eager_tail_grads(y, g, layers, mcfg)
+                            leaves = [t.clone().requires_grad_() for t in
+                                      (y, layers[1]["w"], layers[0]["b"], layers[1]["b"])]
+                            out = ic.conv_tail_with_grad(
+                                leaves[0], [{"b": leaves[2]}, {"w": leaves[1], "b": leaves[3]}],
+                                mcfg)
+                            out.backward(g)
+                            if not (torch.equal(out.detach(), feats)
+                                    and torch.equal(leaves[0].grad, eager[0])
+                                    and all(grad_close(t.grad, x)
+                                            for t, x in zip(leaves[1:], eager[1:]))):
+                                fail(f"{what}: the Function differs from eager autograd")
+                        continue
+                    for part, a, x in zip(("gy", "dw2", "db1", "db2"), got, want):
+                        diff = a.float() - x.float()
+                        gap = float(diff.norm() / x.float().norm().clamp_min(1e-30))
+                        worst_gap[part] = max(worst_gap[part], gap)
+                        if gap > 1e-2:
+                            fail(f"{what}: {part}'s norm gap {gap:.3e} from the plain version")
+                    diff = (got[0].float() - want[0].float()).abs()
+                    beyond_ulp += int((diff > _bf16_ulp(want[0])).sum())
+                    checked += want[0].numel()
+    gaps = ", ".join(f"{k} {v:.3e}" for k, v in worst_gap.items())
+    print(f"conv_tail_bwd: one-hot and grid weights: gy equal to the plain version, the "
+          f"Function equal to eager autograd (gy) and within grad_close (weights, biases); "
+          f"drawn weights: norm gaps at most {gaps}; {beyond_ulp} of {checked} gy elements "
+          f"more than one bf16 ulp apart; two calls bit-equal", flush=True)
+    return {"bwd_drawn_norm_gap": worst_gap, "bwd_drawn_gy_beyond_one_ulp": beyond_ulp,
+            "bwd_checked": checked}
+
+
 def phase_conv_tail() -> dict:
-    """The conv tail's kernel against its plain version at both channel
-    widths, its launches in a forward and a train step, and its time beside
-    the plain version's and its bound at B=65536."""
+    """The conv tail's kernels against their plain versions at both channel
+    widths, their launches in a forward and a train step, and their times
+    beside the plain versions' and their bounds at B=65536."""
     import torch
 
     from cffm_tpu_torch import train
@@ -4096,31 +4218,61 @@ def phase_conv_tail() -> dict:
     out["ms"] = cuda_ms(lambda: ic.conv_tail(y, layers, mcfg), 50)
     out["plain_ms"] = cuda_ms(lambda: ic.conv_tail_reference(y, layers, mcfg), 20)
     out["library_ms"] = out["plain_ms"]  # the eager chain is the plain version
-    del y
+
+    # the backward: y and g read once, gy written once; conv 2 again, its
+    # input gradient and its weight gradient
+    out.update(_conv_tail_bwd_checks(gen))
+    g = torch.randn((b, c2 * 4), generator=gen, device="cuda").to(torch.bfloat16)
+    bwd = _bound(2 * y.numel() * 2 + g.numel() * 2
+                 + 2 * sum(t.numel() * 4 for lay in layers for t in lay.values()),
+                 3 * 2.0 * b * c2 * c1 * 3 * 8)
+    bwd["ms"] = cuda_ms(lambda: ic.conv_tail_bwd(y, g, layers, mcfg), 50)
+    bwd["plain_ms"] = cuda_ms(lambda: ic.conv_tail_bwd_reference(y, g, layers, mcfg), 10)
+    leaves = [y.clone().requires_grad_()] + [t.clone().requires_grad_() for t in
+                                             (layers[1]["w"], layers[0]["b"], layers[1]["b"])]
+    params = [{"b": leaves[2]}, {"w": leaves[1], "b": leaves[3]}]
+
+    def both_ways(fn):
+        torch.autograd.grad(fn(leaves[0], params, mcfg), leaves, g)
+
+    # the eager chain forward and back, as a train step ran it, and the
+    # Function forward and back, as a train step runs it now
+    bwd["eager_fwd_bwd_ms"] = cuda_ms(lambda: both_ways(ic.conv_tail_reference), 20)
+    bwd["fused_fwd_bwd_ms"] = cuda_ms(lambda: both_ways(ic.conv_tail_with_grad), 50)
+    bwd["library_ms"] = bwd["eager_fwd_bwd_ms"]
+    out["bwd"] = bwd
+    del y, g, leaves, params
     torch.cuda.empty_cache()
 
-    # one launch a forward without a gradient, none in a train step
+    # a train step launches the forward and the backward once each, a
+    # forward without a gradient the forward once
     cfg, ids_np, dense_np, labels_np = _zipf_batch(b)
     fn = train.default_interaction_fn(cfg)
     state = train.create_state(cfg, torch.Generator(device="cuda").manual_seed(0))
     ids, dense, labels = (torch.from_numpy(x).cuda() for x in (ids_np, dense_np, labels_np))
     launches = {}
     for name in ("train_step", "forward"):
-        before = ic.conv_tail.launches
+        before = (ic.conv_tail.launches, ic.conv_tail_bwd.launches)
         if name == "train_step":
             state, _ = train.train_step(state, ids, dense, labels, cfg, fn)
         else:
             with torch.inference_mode():
                 model_lib.forward(state.params, ids, dense, cfg.model, interaction_fn=fn)
         torch.cuda.synchronize()
-        launches[name] = ic.conv_tail.launches - before
-    if launches != {"train_step": 0, "forward": 1}:
-        fail(f"conv_tail: launches {launches}, want none in a train step and one a forward")
+        launches[name] = (ic.conv_tail.launches - before[0], ic.conv_tail_bwd.launches - before[1])
+    if launches != {"train_step": (1, 1), "forward": (1, 0)}:
+        fail(f"conv_tail: (forward, backward) launches {launches}, want (1, 1) in a train "
+             f"step and (1, 0) a forward")
     out["launches"] = launches
     print(f"conv_tail: B={b} ({c1}, {c2}) bf16: kernel {out['ms']:.4f} ms, plain (the eager "
           f"chain) {out['plain_ms']:.4f}, bound {out['bound_ms']:.4f} "
           f"({nbytes / 1e6:.1f} MB) = {100 * out['bound_ms'] / out['ms']:.1f}% of it; "
-          f"launches {launches}", flush=True)
+          f"(forward, backward) launches {launches}", flush=True)
+    print(f"conv_tail_bwd: B={b} ({c1}, {c2}) bf16, f32 weights: kernel {bwd['ms']:.4f} ms, "
+          f"plain {bwd['plain_ms']:.4f}, bound {bwd['bound_ms']:.4f} "
+          f"({bwd['bytes'] / 1e6:.1f} MB) = {100 * bwd['bound_ms'] / bwd['ms']:.1f}% of it; "
+          f"forward and back: eager chain {bwd['eager_fwd_bwd_ms']:.4f} ms, the two kernels "
+          f"{bwd['fused_fwd_bwd_ms']:.4f}", flush=True)
     return out
 
 
@@ -4327,7 +4479,9 @@ def _run_phases(phases, phase, mesh) -> int:
             "name": "conv_tail", "route": "cuda",
             "source": "cffm_tpu_torch/ops/csrc/conv_tail.cu", "replaces": None,
             "launches": tail["launches"], "max_limit_share": tail["max_limit_share"],
-            **{k: tail[k] for k in keys}, "batch": 65536})
+            **{k: tail[k] for k in keys}, "batch": 65536,
+            "bwd": {k: tail["bwd"][k] for k in keys + ("eager_fwd_bwd_ms", "fused_fwd_bwd_ms")},
+            "bwd_drawn_norm_gap": tail["bwd_drawn_norm_gap"]})
         print(json.dumps({"kernels": records}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
