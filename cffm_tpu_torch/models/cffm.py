@@ -40,14 +40,38 @@ def field_offsets(cfg: ModelConfig) -> np.ndarray:
     return np.concatenate([[0], np.cumsum(cfg.vocab_sizes)[:-1]]).astype(np.int64)
 
 
+# A table whose f32 draw passes INIT_DRAW_BYTES is drawn INIT_ROWS rows a
+# randn call: one draw holds two f32 copies beside the table, more than an
+# 80 GB card has past 24 GiB (criteo_full's 26M x 640 rows on one card).
+# Smaller tables keep the one draw, and with it their random stream.
+INIT_DRAW_BYTES = 24 << 30
+INIT_ROWS = 1 << 18
+
+
+def draw_table(rows: int, width: int, dtype: torch.dtype, generator: torch.Generator
+               ) -> torch.Tensor:
+    """(rows, width) N(0, 0.01) drawn in f32 on the generator's device and
+    cast to dtype: one draw, or INIT_ROWS rows a draw where the f32 draw
+    passes INIT_DRAW_BYTES. On the CPU's generator the chunks follow the one
+    draw's stream."""
+    dev = generator.device
+    if rows * width * 4 <= INIT_DRAW_BYTES:
+        return (0.01 * torch.randn((rows, width), generator=generator, device=dev)).to(dtype)
+    out = torch.empty((rows, width), dtype=dtype, device=dev)
+    for r in range(0, rows, INIT_ROWS):
+        n = min(INIT_ROWS, rows - r)
+        out[r:r + n] = 0.01 * torch.randn((n, width), generator=generator, device=dev)
+    return out
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 skip_tables: bool = False) -> Dict:
     """Initialize all parameters on the generator's device.
 
-    Tables: N(0, 0.01), drawn in f32 then cast to table_dtype. Conv and
-    tower: He for ReLU layers, Glorot for the final logit layer. The
-    distributions are the JAX package's; the draws are torch's own.
-    skip_tables: omit the (vocab, W) tables.
+    Tables: N(0, 0.01), drawn in f32 then cast to table_dtype
+    (`draw_table`). Conv and tower: He for ReLU layers, Glorot for the
+    final logit layer. The distributions are the JAX package's; the draws
+    are torch's own. skip_tables: omit the (vocab, W) tables.
     """
     dev = generator.device
     pdt = torch_dtype(cfg.param_dtype)
@@ -57,12 +81,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         return torch.randn(shape, generator=generator, device=dev, dtype=dtype)
 
     params: Dict = {"embed": {} if skip_tables else {
-        "table": (0.01 * normal((cfg.total_vocab, cfg.table_width))).to(tdt)}}
+        "table": draw_table(cfg.total_vocab, cfg.table_width, tdt, generator)}}
     if cfg.use_first_order:
         params["linear"] = {"bias": torch.zeros((), dtype=pdt, device=dev)}
         if not cfg.fused_linear and not skip_tables:
-            params["linear"]["table"] = (
-                0.01 * normal((cfg.total_vocab, 1))).to(tdt)
+            params["linear"]["table"] = draw_table(cfg.total_vocab, 1, tdt, generator)
 
     conv_layers = []
     in_ch = cfg.num_pairs

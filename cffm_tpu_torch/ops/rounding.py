@@ -9,8 +9,10 @@ boundaries. NaN and inf pass through undithered.
 
 The dither is an argument of `stochastic_round_bf16`, so a test can
 hand the JAX formula and this one the same bits. `round_table_delta`
-draws it from a `torch.Generator`; the streamed-update kernel draws its
-own from Philox (`ops/csrc/streamed_update.cu`).
+draws it with `random_dither`, on the rows' device: a CPU key seeds a
+generator on the card with one draw (`draw_seed`), so no dither is drawn
+on the host or copied over. The streamed-update kernel draws its own
+from Philox (`ops/csrc/streamed_update.cu`), seeded by `draw_seed` too.
 """
 
 from __future__ import annotations
@@ -36,8 +38,27 @@ def stochastic_round_bf16(x: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     return signed.to(torch.int32).view(torch.float32).to(torch.bfloat16)
 
 
+# dithers drawn, by the type of the device that drew them (plain counts,
+# as the kernel wrappers count their launches)
+DRAWS = {"cpu": 0, "cuda": 0}
+
+
+def draw_seed(generator: torch.Generator) -> int:
+    """One seed from generator: what a generator on another device, or a
+    kernel's Philox, starts from."""
+    return int(torch.randint(0, 2**31 - 1, (), generator=generator))
+
+
 def random_dither(shape, generator: torch.Generator, device) -> torch.Tensor:
-    """Uniform 16-bit dither, int32, drawn from generator on its device."""
+    """Uniform 16-bit dither, int32, on device. For a CUDA device and a
+    generator elsewhere (the step's CPU key), a generator on the device,
+    seeded with one `draw_seed` of the key, draws it there. Otherwise
+    generator draws it on its own device (a CPU tensor's bits are those of
+    the CPU generator's draw)."""
+    device = torch.device(device)
+    if device.type == "cuda" and generator.device.type != "cuda":
+        generator = torch.Generator(device=device).manual_seed(draw_seed(generator))
+    DRAWS[generator.device.type] = DRAWS.get(generator.device.type, 0) + 1
     return torch.randint(0, 1 << 16, tuple(shape), generator=generator,
                          device=generator.device, dtype=torch.int32).to(device)
 
@@ -49,7 +70,8 @@ def round_table_delta(rows: torch.Tensor, delta: torch.Tensor, dtype,
 
     rows: current row values (any float dtype, promoted to f32); delta:
     f32 update. An f32 table takes the plain add; a bf16 table rounds
-    to nearest or stochastically (with a dither from generator)."""
+    to nearest or stochastically (with a dither from generator, drawn on
+    the rows' device: `random_dither`)."""
     new = rows.float() + delta
     if dtype != torch.bfloat16:
         return new.to(dtype)

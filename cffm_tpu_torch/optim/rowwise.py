@@ -15,7 +15,11 @@ for bit.
 Two routes, with the JAX gate (`_should_stream`) choosing between them:
   streamed: per-field sort, the sorted-segment kernel, then the touched-
     row apply kernel (ops/sorted_segment.py, ops/streamed_update.py);
-  scatter: torch sort, `index_add_` segment sums and `index_put_` writes.
+  scatter: torch sort, `index_add_` segment sums and `index_put_` writes;
+    the live rows' count reaches the host without a wait when the caller
+    plans the segments ahead (`scatter_plan`; counters
+    sparse.scatter, sparse.scatter_slots, sparse.scatter_rows; a bf16
+    table's rounded write is the span cffm.table_round).
 The sharded step's update (`bucketed_rowwise_update`) takes the gradient
 return's per-peer buckets straight into the bucketed apply kernel, with
 JAX's gate and fallback.
@@ -33,7 +37,7 @@ from typing import Dict, Tuple
 import torch
 
 from cffm_tpu_torch.config import OptimizerConfig
-from cffm_tpu_torch.ops.rounding import round_table_delta
+from cffm_tpu_torch.ops.rounding import draw_seed, round_table_delta
 from cffm_tpu_torch.utils import profiling
 
 _MASK64 = (1 << 64) - 1
@@ -108,25 +112,64 @@ def rowwise_init(table: torch.Tensor, opt: OptimizerConfig) -> Dict:
     raise ValueError(opt.sparse_optimizer)
 
 
-def _dedup_sum(row_ids: torch.Tensor, grads: torch.Tensor,
-               max_unique: int | None = None):
-    """Sum duplicate-row grads: (ids, f32 sums, valid), m slots each.
+def _segments(row_ids: torch.Tensor, max_unique: int | None = None):
+    """Sort the ids into segments of equal ids: (order, seg, uids, valid).
 
-    Sort the ids, segment-sum within the batch; each distinct row's total
-    lands at its segment's slot, zeros elsewhere. max_unique bounds the
-    distinct-id count and sizes the slots."""
+    order: the sort's permutation; seg: each sorted entry's segment;
+    uids, valid: m slots, slot s holding segment s's id, valid for the
+    segments that exist. max_unique bounds the distinct-id count and
+    sizes the slots."""
     n = row_ids.shape[0]
     m = n if max_unique is None else min(n, int(max_unique))
     sid, order = torch.sort(row_ids, stable=True)
     change = torch.ones(n, dtype=torch.int64, device=row_ids.device)
     change[1:] = (sid[1:] != sid[:-1]).long()
     seg = torch.cumsum(change, 0) - 1
-    summed = torch.zeros((m, grads.shape[1]), dtype=torch.float32, device=grads.device)
-    summed.index_add_(0, seg, grads.index_select(0, order).float())
     uids = torch.zeros((m,), dtype=row_ids.dtype, device=row_ids.device)
     uids.scatter_(0, seg, sid)   # every entry of a segment carries its id
     valid = torch.arange(m, device=row_ids.device) < seg[-1] + 1
-    return uids, summed, valid
+    return order, seg, uids, valid
+
+
+def _segment_sums(grads: torch.Tensor, order: torch.Tensor, seg: torch.Tensor,
+                  m: int) -> torch.Tensor:
+    """Each segment's f32 sum of the grads at its slot, zeros elsewhere:
+    (m, W)."""
+    summed = torch.zeros((m, grads.shape[1]), dtype=torch.float32, device=grads.device)
+    summed.index_add_(0, seg, grads.index_select(0, order).float())
+    return summed
+
+
+def _to_host(t: torch.Tensor):
+    """Start t's copy to the host; returns a function that waits for the
+    copy alone (not for work queued after it) and gives t's values."""
+    if t.device.type != "cuda":
+        return t.tolist
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def wait():
+        done.synchronize()
+        return host.tolist()
+
+    return wait
+
+
+def scatter_plan(row_ids: torch.Tensor, num_rows: int, max_unique: int | None = None):
+    """The scatter route's segments of row_ids (ids >= 0, or the caller's
+    sentinel >= num_rows), which depend on the ids alone: (order, seg,
+    uids, bounds), bounds() giving the live slots' run (lo, n). The live
+    slots (0 <= id < num_rows) are one run of the sorted slots: negative
+    ids sort first, the sentinel last. Their bounds go to the host
+    without a wait (`_to_host`); made before the forward, they reach it
+    while the card runs the forward, so the update need not drain the
+    card's queue to learn them."""
+    order, seg, uids, valid = _segments(row_ids, max_unique)
+    bounds = _to_host(torch.stack([(valid & (uids < 0)).sum(),
+                                   (valid & (uids >= 0) & (uids < num_rows)).sum()]))
+    return order, seg, uids, bounds
 
 
 def _should_stream(table: torch.Tensor, opt: OptimizerConfig, n_ids: int,
@@ -178,12 +221,14 @@ def _write_touched_rows(table: torch.Tensor, rows: torch.Tensor, delta: torch.Te
                         opt: OptimizerConfig, sr_key):
     """table[rows] += delta (rows unique, in place). A bf16 table takes the
     f32 sum rounded to nearest or stochastically (ops/rounding.py): an
-    in-dtype add would drop any delta below the row's bf16 ulp."""
+    in-dtype add would drop any delta below the row's bf16 ulp. Under a
+    profiler that rounded write is the span cffm.table_round."""
     if table.dtype != torch.bfloat16:
         table.index_add_(0, rows, delta.to(table.dtype))
         return table
-    table[rows] = round_table_delta(table[rows], delta, table.dtype,
-                                    opt.table_rounding, sr_key)
+    with profiling.span("cffm.table_round"):
+        table[rows] = round_table_delta(table[rows], delta, table.dtype,
+                                        opt.table_rounding, sr_key)
     return table
 
 
@@ -215,10 +260,6 @@ def sr_keys(table_dtype: str, opt: OptimizerConfig, step, seed: int = 0):
             torch.Generator().manual_seed(_mix(base, 1)))
 
 
-def _draw_seed(gen: torch.Generator) -> int:
-    return int(torch.randint(0, 2**31 - 1, (), generator=gen))
-
-
 # ---------------------------------------------------------------------------
 # The sparse update
 # ---------------------------------------------------------------------------
@@ -237,6 +278,7 @@ def rowwise_update(
     sentinel_grads_zero: bool = False,
     sr_key: torch.Generator | None = None,
     field_major: bool = False,
+    plan=None,
 ) -> Tuple[torch.Tensor, Dict]:
     """Apply a sparse per-row update in place: row_ids (N,), grads (N, W).
 
@@ -246,7 +288,9 @@ def rowwise_update(
     (F, B) when field_major), for the per-field sort of the streamed
     route. mask_sentinels=False: the caller guarantees ids >= 0.
     sentinel_grads_zero: sentinel rows already carry zero grads. sr_key:
-    generator for stochastic rounding into a bf16 table.
+    generator for stochastic rounding into a bf16 table. plan: the scatter
+    route's `scatter_plan` of these row_ids, made ahead by the caller
+    (mask_sentinels=False); made here when None.
     Returns (table, state), the same objects, updated."""
     w = table.shape[1]
     if grads.shape[-1] != w:
@@ -294,7 +338,7 @@ def rowwise_update(
             if sr_key is None:
                 raise ValueError("bf16 streamed update with stochastic rounding "
                                  "needs sr_key")
-            seed = _draw_seed(sr_key)
+            seed = draw_seed(sr_key)
         if opt.sparse_optimizer == "adagrad":
             streamed_rowwise_apply(table, state["accum"], uids_s, g, lr, opt.eps,
                                    sr_seed=seed)
@@ -308,12 +352,20 @@ def rowwise_update(
         streamed_rowwise_apply(table, None, uids_s, g, lr, opt.eps, sr_seed=seed)
         return table, state
 
-    uids, g, valid = _dedup_sum(safe_ids, grads, max_unique)
-    g = clip_rows(g, opt)
-    # the scatters' mode="drop": invalid slots and the sentinel row go nowhere
-    live = valid & (uids >= 0) & (uids < num_rows)
-    rows = uids[live].long()
-    g = g[live]
+    if plan is None:
+        plan = scatter_plan(safe_ids, num_rows, max_unique)
+    order, seg, uids, bounds = plan
+    m = uids.shape[0]
+    profiling.count("sparse.scatter")
+    profiling.count("sparse.scatter_slots", m)
+    summed = _segment_sums(grads, order, seg, m)
+    # the scatters' mode="drop": invalid slots and the sentinel row go
+    # nowhere; the live ones are [lo, lo + n)
+    lo, n = bounds()
+    rows = uids[lo:lo + n].long()
+    # the live count is on the host already: counting it costs nothing
+    profiling.count("sparse.scatter_rows", n)
+    g = clip_rows(summed[lo:lo + n], opt)
 
     if opt.sparse_optimizer == "adagrad":
         accum = state["accum"]
@@ -387,7 +439,7 @@ def bucketed_rowwise_update(
         if table.dtype == torch.bfloat16 and opt.table_rounding == "stochastic":
             if sr_key is None:
                 raise ValueError("bf16 streamed update with stochastic rounding needs sr_key")
-            seed = _draw_seed(sr_key)
+            seed = draw_seed(sr_key)
         if opt.sparse_optimizer == "adagrad":
             bucketed_rowwise_apply(table, state["accum"], ids_bkt, grads_bkt, lr, opt.eps,
                                    clip=opt.clip_norm, sr_seed=seed)
@@ -467,11 +519,6 @@ def schedule_factor(opt: OptimizerConfig, step, total_steps: int) -> torch.Tenso
     return f * decay
 
 
-def scale_updates(updates, factor):
-    """Scale a tree of updates by the schedule factor."""
-    return tree_map(lambda u: u * factor.to(u.dtype), updates)
-
-
 class DenseOptimizer:
     """optax's chain written out: clip_by_global_norm first (when
     clip_norm > 0), then add_decayed_weights (weight_decay > 0), then
@@ -510,14 +557,20 @@ class DenseOptimizer:
             g = tree_map(lambda u, p: u + o.weight_decay * p, g, params)
         if o.dense_optimizer == "adam":
             b1, b2 = o.adam_b1, o.adam_b2
-            mu = tree_map(lambda u, m: (1 - b1) * u + b1 * m, g, state["mu"])
-            nu = tree_map(lambda u, v: (1 - b2) * (u ** 2) + b2 * v, g, state["nu"])
+            # each operation once for all the leaves (torch._foreach_*): on a
+            # card a launch per operation, not per operation and leaf
+            gs = tree_leaves(g)
+            mu = torch._foreach_add(torch._foreach_mul(gs, 1 - b1),
+                                    torch._foreach_mul(tree_leaves(state["mu"]), b1))
+            nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(gs, gs), 1 - b2),
+                                    torch._foreach_mul(tree_leaves(state["nu"]), b2))
             count = state["count"] + 1
             c = count.float()
-            bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** c
-            bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** c
-            upd = tree_map(lambda m, v: (m / bc1) / (torch.sqrt(v / bc2) + o.eps), mu, nu)
-            new_state = {"count": count, "mu": mu, "nu": nu}
+            bc1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** c)
+            bc2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** c)
+            den = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), o.eps)
+            upd = tree_unflatten(g, torch._foreach_div(torch._foreach_div(mu, bc1), den))
+            new_state = {"count": count, "mu": tree_unflatten(g, mu), "nu": tree_unflatten(g, nu)}
         elif o.dense_optimizer == "adagrad":
             ssq = tree_map(lambda u, s: u * u + s, g, state["sum"])
             upd = tree_map(lambda s, u: torch.where(
@@ -525,7 +578,7 @@ class DenseOptimizer:
             new_state = {"sum": ssq}
         else:
             upd, new_state = g, {}
-        return tree_map(lambda u: u * (-o.dense_lr), upd), new_state
+        return tree_unflatten(upd, torch._foreach_mul(tree_leaves(upd), -o.dense_lr)), new_state
 
 
 def make_dense_optimizer(opt: OptimizerConfig) -> DenseOptimizer:

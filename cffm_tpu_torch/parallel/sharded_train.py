@@ -58,14 +58,6 @@ from cffm_tpu_torch.train import (TrainState, dense_leaves, dense_update, has_de
 from cffm_tpu_torch.utils.debugging import collective_probe
 
 
-# A shard whose f32 draw passes INIT_DRAW_BYTES is drawn INIT_ROWS rows a
-# randn call: one draw holds two f32 copies beside the table, more than an
-# 80 GB card has past 24 GiB (multihost's 26M x 640 rows on 1 or 2 shards).
-# Smaller shards keep the one draw, and with it their random stream.
-INIT_DRAW_BYTES = 24 << 30
-INIT_ROWS = 1 << 18
-
-
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
@@ -214,13 +206,9 @@ def create_sharded_state(cfg: TrainConfig, generator: torch.Generator, mesh: Mes
     tdt = model_lib.torch_dtype(mcfg.table_dtype)
 
     def shard(width):
-        if vs * width * 4 <= INIT_DRAW_BYTES:
-            return (0.01 * torch.randn((vs, width), generator=rows, device=dev)).to(tdt)
-        out = torch.empty((vs, width), dtype=tdt, device=dev)
-        for r in range(0, vs, INIT_ROWS):
-            n = min(INIT_ROWS, vs - r)
-            out[r:r + n] = 0.01 * torch.randn((n, width), generator=rows, device=dev)
-        return out
+        # as a one-card table is drawn: multihost's 26M x 640 rows on 1 or 2
+        # shards in chunks (`models/cffm.draw_table`)
+        return model_lib.draw_table(vs, width, tdt, rows)
 
     params["embed"]["table"] = shard(mcfg.table_width)
     sparse = {"embed": rowwise_init(params["embed"]["table"], cfg.optim)}

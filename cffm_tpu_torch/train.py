@@ -27,6 +27,7 @@ Usage: python -m cffm_tpu_torch.train --config=<name> [--device=cuda]
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -40,11 +41,11 @@ import torch
 from cffm_tpu_torch import metrics, resolve_device
 from cffm_tpu_torch.config import TrainConfig
 from cffm_tpu_torch.models import cffm as model_lib
+from cffm_tpu_torch.optim import rowwise
 from cffm_tpu_torch.optim.rowwise import (dense_rowwise_apply, fold_in,
                                           make_dense_optimizer, rowwise_init,
-                                          rowwise_update, scale_updates,
-                                          schedule_factor, sr_keys, tree_leaves,
-                                          tree_unflatten, unique_bound)
+                                          rowwise_update, schedule_factor, sr_keys,
+                                          tree_leaves, tree_unflatten, unique_bound)
 from cffm_tpu_torch.utils import profiling
 
 
@@ -102,16 +103,23 @@ def prefix_grad(g_small: torch.Tensor, ids_fm_small: torch.Tensor, cfg) -> torch
     the transposed one-hot product onehot^T @ g in the compute dtype (f32
     sums, rounded to the compute dtype); ids outside their field's block
     add nothing."""
-    dt = g_small.dtype
-    blocks = []
-    off = 0
-    for f in range(cfg.small_field_prefix):
-        v = int(cfg.vocab_sizes[f])
-        rows = off + torch.arange(v, device=ids_fm_small.device, dtype=ids_fm_small.dtype)
-        onehot = (rows[:, None] == ids_fm_small[f][None, :]).to(dt)       # (v, B)
-        blocks.append(onehot @ g_small[f])
-        off += v
-    return torch.cat(blocks).float()
+    # every field's one-hot in one comparison: (Fs, V, B), V the widest field
+    onehot = (prefix_rows(cfg, ids_fm_small.device, ids_fm_small.dtype)[:, :, None]
+              == ids_fm_small[:, None, :]).to(g_small.dtype)
+    return torch.cat([onehot[f, :int(cfg.vocab_sizes[f])] @ g_small[f]
+                      for f in range(cfg.small_field_prefix)]).float()
+
+
+@functools.lru_cache(maxsize=16)
+def prefix_rows(cfg, device, dtype) -> torch.Tensor:
+    """(Fs, V): the global row of each small field's local id r < V, V the
+    widest small field's vocabulary (a narrower field's entries past its
+    own rows are cut off before its product), made once per (config,
+    device, dtype). Read-only."""
+    fs = cfg.small_field_prefix
+    sizes = [int(v) for v in cfg.vocab_sizes[:fs]]
+    offs = np.cumsum([0] + sizes[:-1])
+    return torch.from_numpy(offs[:, None] + np.arange(max(sizes))[None, :]).to(device, dtype)
 
 
 def dense_update(state: TrainState, dense_p: Dict, dgrads: Dict, cfg: TrainConfig):
@@ -122,8 +130,8 @@ def dense_update(state: TrainState, dense_p: Dict, dgrads: Dict, cfg: TrainConfi
     lrf = schedule_factor(cfg.optim, state.step, cfg.data.num_train_steps)
     updates, new_dense_opt = make_dense_optimizer(cfg.optim).update(
         dgrads, state.dense_opt_state, dense_p)
-    for p, u in zip(tree_leaves(dense_p), tree_leaves(scale_updates(updates, lrf))):
-        p.add_(u)
+    torch._foreach_add_(tree_leaves(dense_p),
+                        torch._foreach_mul(tree_leaves(updates), float(lrf)))
     return new_dense_opt, lrf
 
 
@@ -133,16 +141,38 @@ def prefix_update(table: torch.Tensor, state: Dict, rows: int, g: torch.Tensor, 
     per-row state (the small-field prefix, or a shard's slice of it), in
     place, from their gradient g (rows, W) f32. No big-field id touches
     those rows. sr_key is the table's stochastic-rounding key, folded with
-    1 here so that the prefix draws its own dither."""
+    1 here so that the prefix draws its own dither. Under a profiler a
+    bf16 table's rounded write (the update, its dither and rounding, the
+    write back) is the span cffm.table_round."""
     state_rows = {k: v for k, v in state.items()
                   if v.dim() >= 1 and v.shape[0] == table.shape[0]}
-    new_rows, new_state = dense_rowwise_apply(
-        table[:rows], {k: v[:rows] for k, v in state_rows.items()}, g, opt,
-        lr_scale=lr_scale, sr_key=None if sr_key is None else fold_in(sr_key, 1))
-    table[:rows] = new_rows
+    rounded = table.dtype == torch.bfloat16
+    with profiling.span("cffm.table_round") if rounded else contextlib.nullcontext():
+        new_rows, new_state = dense_rowwise_apply(
+            table[:rows], {k: v[:rows] for k, v in state_rows.items()}, g, opt,
+            lr_scale=lr_scale, sr_key=None if sr_key is None else fold_in(sr_key, 1))
+        table[:rows] = new_rows
     for k, v in new_state.items():
         if k in state_rows:
             state_rows[k][:rows] = v
+
+
+def _plan_ahead(table: torch.Tensor, ids: torch.Tensor, route, cfg: TrainConfig):
+    """The table update's `rowwise.scatter_plan`, made before the forward
+    where that update takes the scatter route: its sort depends on the ids
+    alone, and the live rows' count it sends to the host is there by the
+    time the update needs it, so the step does not wait for the card. The
+    ids are those the sparse update in `train_step` takes: the big fields'
+    (field-major) after a prefix, else all. None on the streamed route or
+    without big fields."""
+    mcfg = cfg.model
+    fs, batch = route.prefix, ids.shape[0]
+    bound = unique_bound(mcfg.vocab_sizes[fs:], batch)
+    n = batch * (mcfg.num_fields - fs)
+    if not n or rowwise._should_stream(table, cfg.optim, n, bound):
+        return None
+    flat = ids.t()[fs:] if fs else (ids.t() if route.field_major else ids)
+    return rowwise.scatter_plan(flat.reshape(-1), table.shape[0], bound)
 
 
 def train_step(state: TrainState, ids: torch.Tensor, dense: Optional[torch.Tensor],
@@ -164,6 +194,7 @@ def train_step(state: TrainState, ids: torch.Tensor, dense: Optional[torch.Tenso
         fs = route.prefix
         dense_p, leaves, full = dense_leaves(params)
         table = params["embed"]["table"]
+        plan = _plan_ahead(table, ids, route, cfg)
         with torch.enable_grad():
             with profiling.span("cffm.lookup"):
                 with torch.no_grad():
@@ -202,7 +233,8 @@ def train_step(state: TrainState, ids: torch.Tensor, dense: Optional[torch.Tenso
                                        row_grads[1].reshape(-1, mcfg.table_width), opt,
                                        max_unique=unique_bound(mcfg.vocab_sizes[fs:], batch),
                                        field_offsets=offs[fs:], mask_sentinels=False,
-                                       lr_scale=lrf, sr_key=sk_emb, field_major=True)
+                                       lr_scale=lrf, sr_key=sk_emb, field_major=True,
+                                       plan=plan)
                     prefix_update(table, sparse["embed"], mcfg.small_rows, dtab_small, opt,
                                   lrf, sk_emb)
                 else:
@@ -211,7 +243,8 @@ def train_step(state: TrainState, ids: torch.Tensor, dense: Optional[torch.Tenso
                     rowwise_update(table, sparse["embed"], flat_ids,
                                    row_grads[0].reshape(-1, mcfg.table_width), opt,
                                    max_unique=max_u, field_offsets=offs, mask_sentinels=False,
-                                   lr_scale=lrf, sr_key=sk_emb, field_major=route.field_major)
+                                   lr_scale=lrf, sr_key=sk_emb, field_major=route.field_major,
+                                   plan=plan)
                     if len(rows) > 1:
                         # the first-order weights' table of their own
                         rowwise_update(params["linear"]["table"], sparse["linear"], flat_ids,

@@ -1409,6 +1409,61 @@ def phase_train() -> dict:
     return out
 
 
+# criteo_full's run through train.run: its steps and the loss bar
+FULL_STEPS = 60
+
+
+def phase_train_full() -> dict:
+    """criteo_full at its widths on one card through train.run: a
+    26,000,832 x 640 bf16 table with stochastic rounding, B=32768, the
+    scatter sparse update (852k big-field ids are under 8% of the rows),
+    FULL_STEPS steps and 2 eval batches, launch counts and the dither's
+    draws set to 0 before and read after. Every dither is drawn on the
+    card (two a step: the touched rows and the prefix), and the last
+    logged loss and the eval logloss lie below ln 2."""
+    import torch
+
+    from cffm_tpu_torch import train
+    from cffm_tpu_torch.ops import rounding
+
+    steps, ev = FULL_STEPS, 2
+    cfg = _run_cfg({"data.num_train_steps": steps, "data.eval_batches": ev, "log_every": 10},
+                   "criteo_full")
+    m = cfg.model
+    logs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    draws = dict(rounding.DRAWS)
+    t0 = time.perf_counter()
+    result = train.run(cfg, device="cuda", log_fn=logs.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    drawn = {k: rounding.DRAWS[k] - draws.get(k, 0) for k in rounding.DRAWS}
+    recs = [json.loads(x) for x in logs if '"loss"' in x]
+    losses = [(r["step"], r["loss"], round(r["examples_per_s"])) for r in recs]
+    want = {"cross_conv1_lin_fm2": steps + ev, "cross_conv1_bwd": steps}
+    launched = {k: v for k, v in counts.items() if v}
+    print(f"train_full criteo_full: {m.total_vocab} x {m.table_width} {m.table_dtype} table "
+          f"({m.total_vocab * m.table_width * 2 / 1e9:.2f} GB), rounding "
+          f"{cfg.optim.table_rounding}, B={cfg.data.batch_size}, {steps} steps: (step, loss, "
+          f"ex/s) {losses}, eval {json.dumps(result)}, launches {launched}, dither draws "
+          f"{drawn}, wall {wall:.1f}s incl. data, peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    if not all(math.isfinite(x) for _, x, _ in losses) or not math.isfinite(result["logloss"]):
+        fail("train_full: loss not finite")
+    if any(n != want.get(k, 0) for k, n in counts.items()):
+        fail(f"train_full: want launches {want}, got {launched}")
+    if drawn.get("cpu", 0) or drawn.get("cuda", 0) != 2 * steps:
+        fail(f"train_full: want {2 * steps} dithers drawn on the card and none on the "
+             f"host, got {drawn}")
+    if not (losses and losses[-1][1] < math.log(2) and result["logloss"] < math.log(2)):
+        fail(f"train_full: the loss did not fall below ln 2 = {math.log(2)}: {losses}, "
+             f"eval logloss {result['logloss']}")
+    return {"losses": losses, "eval": result, "launches": launched, "draws": drawn}
+
+
 # the learn check's bars: eval AUC of each run, and the f32 and bf16 runs' gap
 LEARN_MIN_AUC = 0.60
 LEARN_MAX_AUC_GAP = 0.005
@@ -4280,7 +4335,7 @@ PHASES = ("parity", "parity_bwd", "parity_caps", "parity_segment", "parity_apply
           "time", "train", "learn", "checkpoint", "step_vs_cpu", "time_train",
           "parity_segment_by_seg", "parity_bucketed", "train_sharded", "sharded_multi",
           "time_sharded", "train_hier", "train_2d", "time_hier", "parity_bwd_v1",
-          "parity_dot_probe", "tools", "data", "lookup", "conv_tail")
+          "parity_dot_probe", "tools", "data", "lookup", "conv_tail", "train_full")
 # the phases that run on the NCCL group of one
 GROUP_PHASES = ("train_sharded", "time_sharded", "train_hier", "train_2d", "time_hier")
 
@@ -4378,6 +4433,7 @@ def _run_phases(phases, phase, mesh) -> int:
     phase("data", phase_data)
     lookup = phase("lookup", phase_lookup)
     tail = phase("conv_tail", phase_conv_tail)
+    phase("train_full", phase_train_full)
 
     if set(phases) == set(PHASES):
         t = times[4096]

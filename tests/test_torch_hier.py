@@ -365,17 +365,19 @@ def test_hier_router_reports_each_stage_overflow(steps):
 @pytest.mark.parametrize("vocabs", ["mixed", "separate_linear"])
 def test_a_shard_drawn_in_chunks_is_the_one_draw(monkeypatch, vocabs):
     """A shard whose f32 draw passes INIT_DRAW_BYTES (multihost's on one
-    card) is drawn INIT_ROWS rows a randn call; on the CPU's generator the
-    chunks follow the one draw's stream, so every row is drawn once, scaled
-    and cast as before: the state is the one draw's, bit for bit."""
+    card) is drawn INIT_ROWS rows a randn call (`models/cffm.draw_table`);
+    on the CPU's generator the chunks follow the one draw's stream, so every
+    row is drawn once, scaled and cast as before: the state is the one
+    draw's, bit for bit."""
+    from cffm_tpu_torch.models import cffm as model_lib
     from cffm_tpu_torch.parallel import sharded_train as st
     from cffm_tpu_torch.parallel.mesh import Mesh
 
     _, cfg = _cfgs(**({"vocabs": EIGHT} if vocabs == "separate_linear" else {}))
     mesh = Mesh(None, 1, 3, torch.device("cpu"), False)
     one = st.create_sharded_state(cfg, torch.Generator().manual_seed(4), mesh)
-    monkeypatch.setattr(st, "INIT_DRAW_BYTES", 0)
-    monkeypatch.setattr(st, "INIT_ROWS", 32)
+    monkeypatch.setattr(model_lib, "INIT_DRAW_BYTES", 0)
+    monkeypatch.setattr(model_lib, "INIT_ROWS", 32)
     chunked = st.create_sharded_state(cfg, torch.Generator().manual_seed(4), mesh)
     assert one.params["embed"]["table"].shape[0] % 32  # a partial last chunk
     for a, b in zip(train.tree_leaves(one.params) + train.tree_leaves(one.sparse_opt_state),

@@ -155,12 +155,16 @@ def test_streamed_update_counts_slots_and_distinct_rows(field_major):
 
 
 def test_the_scatter_route_counts_nothing():
+    """Nothing of the streamed route's counters: the scatter route counts
+    itself, the slots its segment sums were sized to and the rows it wrote."""
     table = torch.randn(4000, 128) * 0.01
     opt = config.OptimizerConfig(sparse_optimizer="adagrad", streamed_update="off")
+    ids = torch.randint(0, 4000, (256,))
     with _profiled():
-        rowwise.rowwise_update(table, rowwise.rowwise_init(table, opt),
-                               torch.randint(0, 4000, (256,)), torch.randn(256, 128), opt)
-    assert profiling.counts() == {}
+        rowwise.rowwise_update(table, rowwise.rowwise_init(table, opt), ids,
+                               torch.randn(256, 128), opt)
+    assert profiling.counts() == {"sparse.scatter": 1, "sparse.scatter_slots": 256,
+                                  "sparse.scatter_rows": int(torch.unique(ids).numel())}
 
 
 def _state(cfg, seed=0):
