@@ -1,6 +1,6 @@
 // Sorted-segment sums: a sorted, segmented gradient stream -> per-segment sums.
 //
-// Two entries share one segmented reduction.
+// Three entries share one segmented reduction.
 //
 // Kernel 3, `cffm_sorted_segment_sum`, replaces the Pallas TPU kernel
 // `_kernel` of cffm_tpu/ops/sorted_segment.py (launched by
@@ -17,6 +17,15 @@
 // sharded gradient return). Contract: seg (n,) int32 non-decreasing from 0
 // in steps of at most 1 (the routing's segment index, read directly);
 // grads (n, W) bf16, W % 128 == 0; gsum as above, with no uids.
+//
+// The scatter route's sums, `cffm_scatter_segment_sum` (launched by
+// `scatter_segment_sum`, for `optim/rowwise.rowwise_update` when the touched
+// rows are under the 8% gate), have no TPU kernel: the JAX package leaves
+// them to XLA's scatter-add. Contract: order (N,) int64, the sort's
+// permutation of the unsorted bf16 grads (N, W), W % 128 == 0; seg (N,)
+// int32 as for kernel 3, over the sorted entries; the live segments are the
+// run [lo, lo + n). out[s - lo] = the f32 sum of live segment s's rows, not
+// rounded; the other segments (sentinel ids, negative ids) are dropped.
 //
 // Bound on the H100: memory. The reduction reads n * W bf16 grads once and
 // writes m_pad * W bf16 sums; it does one add per element read. Kernel 6
@@ -52,6 +61,12 @@
 // Each segment is stored once, from the pass that holds all of it; the
 // sums are taken in a fixed order, so the result is the same from run to
 // run. Segments that fit a chunk are summed in stream order.
+// The scatter entry runs the same tree with two changes: level 0 reads
+// entry e's row through order[e] (no sorted copy of the grads is made),
+// and a complete segment's f32 sum goes to row s - lo of its output, which
+// holds the live segments only, so there is no fill. At criteo_full,
+// B = 32768 (851,968 entries, ~52.5k live rows) it reads 1.09 GB of grads
+// and 10 MB of order and seg, and writes 134 MB: 0.37 ms at 3.35 TB/s.
 // kChunk0 and kU were chosen on the card at the T = 1 and stage-2 shapes.
 // What keeps it above the bound is level 0's reads, not the fill's stores
 // (`python -m cffm_tpu_torch.scripts.ablate_bwd --kernel=6`).
@@ -75,8 +90,6 @@ struct Level {
   long long chunks;
   int len;                    // entries per chunk
   int w8;                     // W / 8: 16-byte column groups per row
-  uint4* gsum;                // (m_pad, W) bf16
-  long long m_pad;
   float4* head;               // (chunks, W) f32, when chunks > 1
   float4* tail;
 };
@@ -101,6 +114,18 @@ struct Rows {
       acc[2 * k + 1] += f.y;
     }
   }
+};
+
+// Level 0 of the scatter entry: entry i is the bf16 row order[i] of the
+// unsorted grads.
+struct Gathered {
+  const uint4* g;
+  const long long* order;
+  using Raw = uint4;
+  __device__ __forceinline__ Raw load(const Level& a, long long i, int c) const {
+    return __ldg(g + __ldg(order + i) * a.w8 + c);
+  }
+  __device__ __forceinline__ static void add(float (&acc)[8], const Raw& v) { Rows::add(acc, v); }
 };
 
 // The levels above: entry i is tail[i] + head[i + 1] of the level below.
@@ -134,16 +159,36 @@ struct Partials {
   }
 };
 
-// A complete segment's sum, rounded once to bf16, into its slot.
-__device__ __forceinline__ void store_sum(const Level& a, int s, int c, const float (&v)[8]) {
-  if (s < a.m_pad) {
-    uint4 o;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&o);
+// Where a complete segment's sum goes. Kernels 3 and 6: slot s of gsum,
+// rounded once to bf16; segments at or past m_pad are dropped.
+struct Slots {
+  uint4* gsum;                // (m_pad, W) bf16
+  long long m_pad;
+  __device__ __forceinline__ void store(const Level& a, int s, int c, const float (&v)[8]) const {
+    if (s < m_pad) {
+      uint4 o;
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&o);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
-    a.gsum[static_cast<long long>(s) * a.w8 + c] = o;
+      for (int k = 0; k < 4; ++k) h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+      gsum[static_cast<long long>(s) * a.w8 + c] = o;
+    }
   }
-}
+};
+
+// The scatter entry: row s - lo of out, in f32; segments outside the live
+// run [lo, lo + n) are dropped.
+struct LiveRows {
+  float4* out;                // (n, W) f32
+  long long lo, n;
+  __device__ __forceinline__ void store(const Level& a, int s, int c, const float (&v)[8]) const {
+    const long long r = s - lo;
+    if (r >= 0 && r < n) {
+      float4* q = out + r * 2 * a.w8 + 2 * c;
+      q[0] = make_float4(v[0], v[1], v[2], v[3]);
+      q[1] = make_float4(v[4], v[5], v[6], v[7]);
+    }
+  }
+};
 
 // A chunk's partial (head or tail) in f32.
 __device__ __forceinline__ void store_part(const Level& a, float4* p, long long chunk, int c,
@@ -153,8 +198,9 @@ __device__ __forceinline__ void store_part(const Level& a, float4* p, long long 
   q[1] = make_float4(v[4], v[5], v[6], v[7]);
 }
 
-template <class Src>
-__global__ void __launch_bounds__(kThreads) reduce_kernel(const Src src, const Level a) {
+template <class Src, class Out>
+__global__ void __launch_bounds__(kThreads) reduce_kernel(const Src src, const Out out,
+                                                          const Level a) {
   const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (t >= a.chunks * a.w8) return;
   const long long chunk = t / a.w8;
@@ -183,7 +229,7 @@ __global__ void __launch_bounds__(kThreads) reduce_kernel(const Src src, const L
       if (e + u < e1) {
         if (s[u] != cur) {
           if (here) {
-            store_sum(a, cur, c, acc);
+            out.store(a, cur, c, acc);
           } else {
             store_part(a, a.head, chunk, c, acc);
           }
@@ -197,7 +243,7 @@ __global__ void __launch_bounds__(kThreads) reduce_kernel(const Src src, const L
     }
   }
   if (top) {
-    store_sum(a, cur, c, acc);
+    out.store(a, cur, c, acc);
   } else if (here) {
     store_part(a, a.tail, chunk, c, acc);
   } else {
@@ -252,10 +298,12 @@ long long scratch_rows(long long n) {
   return rows;
 }
 
-int launch(const int* sid, const int* seg, const void* grads, long long n, int w, int* uids,
-           void* gsum, long long m_pad, float* scratch, long long rows, cudaStream_t st) {
-  if (w % 128 != 0 || n < 0 || m_pad < 0 || rows < scratch_rows(n))
-    return cudaErrorInvalidValue;
+// The tree's passes over n entries, level 0 read from src0, each complete
+// segment's sum handed to out.
+template <class Src0, class Out>
+int launch_tree(const Src0 src0, const Out out, const int* seg, long long n, int w,
+                float* scratch, long long rows, cudaStream_t st) {
+  if (w % 128 != 0 || n < 0 || rows < scratch_rows(n)) return cudaErrorInvalidValue;
   Level lv;
   lv.seg = seg;
   lv.n = n;
@@ -263,8 +311,6 @@ int launch(const int* sid, const int* seg, const void* grads, long long n, int w
   lv.count = n;
   lv.len = kChunk0;
   lv.w8 = w / 8;
-  lv.gsum = static_cast<uint4*>(gsum);
-  lv.m_pad = m_pad;
   float4* next = reinterpret_cast<float4*>(scratch);  // the next level's head rows
   Partials below{nullptr, nullptr};  // the level below's partials, from level 1 on
   for (int level = 0; lv.count > 0; ++level) {
@@ -277,10 +323,9 @@ int launch(const int* sid, const int* seg, const void* grads, long long n, int w
     }
     const long long blocks = (lv.chunks * lv.w8 + kThreads - 1) / kThreads;
     if (level == 0) {
-      reduce_kernel<Rows><<<blocks, kThreads, 0, st>>>(Rows{static_cast<const uint4*>(grads)},
-                                                       lv);
+      reduce_kernel<Src0, Out><<<blocks, kThreads, 0, st>>>(src0, out, lv);
     } else {
-      reduce_kernel<Partials><<<blocks, kThreads, 0, st>>>(below, lv);
+      reduce_kernel<Partials, Out><<<blocks, kThreads, 0, st>>>(below, out, lv);
     }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -290,6 +335,17 @@ int launch(const int* sid, const int* seg, const void* grads, long long n, int w
     lv.count = lv.chunks;
     lv.len = kChunkN;
   }
+  return cudaSuccess;
+}
+
+// Kernels 3 and 6: the tree into the bf16 slots, then the fill.
+int launch(const int* sid, const int* seg, const void* grads, long long n, int w, int* uids,
+           void* gsum, long long m_pad, float* scratch, long long rows, cudaStream_t st) {
+  if (m_pad < 0) return cudaErrorInvalidValue;
+  const int err = launch_tree(Rows{static_cast<const uint4*>(grads)},
+                              Slots{static_cast<uint4*>(gsum), m_pad}, seg, n, w, scratch,
+                              rows, st);
+  if (err != cudaSuccess) return err;
   if (m_pad > 0) {
     const Fill f{sid, seg, uids, static_cast<uint4*>(gsum), n, m_pad, w / 8};
     fill_kernel<<<1056, 256, 0, st>>>(f);  // 8 blocks per SM
@@ -321,6 +377,18 @@ int cffm_sorted_segment_sum_by_seg(const int* seg, const void* grads, long long 
                                    long long rows, void* stream) {
   return launch(nullptr, seg, grads, n, w, nullptr, gsum, m_pad, scratch, rows,
                 static_cast<cudaStream_t>(stream));
+}
+
+// The scatter route's sums: the tree over the grads read through order,
+// the live segments [lo, lo + n_live) stored in f32 at rows 0 .. n_live - 1
+// of out. Returns a cudaError_t; 0 means the kernels were launched.
+int cffm_scatter_segment_sum(const long long* order, const int* seg, const void* grads,
+                             long long n, int w, long long lo, long long n_live, float* out,
+                             float* scratch, long long rows, void* stream) {
+  if (lo < 0 || n_live < 0 || (n > 0 && order == nullptr)) return cudaErrorInvalidValue;
+  return launch_tree(Gathered{static_cast<const uint4*>(grads), order},
+                     LiveRows{reinterpret_cast<float4*>(out), lo, n_live}, seg, n, w, scratch,
+                     rows, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

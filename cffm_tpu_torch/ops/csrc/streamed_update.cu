@@ -8,6 +8,13 @@
 // modes: sgd, adagrad and rowwise_adam. Contract:
 //   uids (M,) int32: the unique ascending valid prefix, then the sentinel V;
 //   gsum (M, W) bf16: the duplicate-summed gradient S of each slot.
+// `cffm_streamed_apply_f32` is the same update with S read in f32 (launched
+// by `scatter_rowwise_apply`, the scatter route of optim/rowwise.py, from
+// the f32 sums of `cffm_scatter_segment_sum`, and for the small-field
+// prefix's rows): the gradient's storage is a template parameter of the
+// kernels' bodies beside the table's, so the bf16 entries compile as they
+// did; the f32 ones run as scatter_apply_kernel and
+// scatter_apply_chunked_kernel.
 //
 // Kernel 7, `cffm_bucketed_apply`, replaces the same `_kernel` with nb > 1
 // and its in-kernel clip (launched by `bucketed_rowwise_apply` and
@@ -80,6 +87,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -91,7 +100,7 @@ struct Args {
   float* m;               // (V, W) rowwise_adam first moment, or null
   float* v;               // (V,) rowwise_adam second moment, or null
   const int* ids;         // uids (M,), or the buckets' ids (NB, C)
-  const __nv_bfloat162* g;  // (M, W/2), or (NB, C, W/2)
+  const void* g;           // (M, W/2) pairs of bf16 or f32, or (NB, C, W/2) of bf16
   const float* hyper;     // lr, eps[, b1, b2, c1, c2]
   long long rows, slots;  // V; M, or C for the buckets
   int nb, w2, mode, stochastic;
@@ -248,21 +257,21 @@ struct RowRegs {
 };
 
 // Issues every load of row uid's pairs c0 + lane + 32 i (c < w2) at once:
-// its gradient from g (the slot's row), its table pairs, m (rowwise_adam,
-// kM) and, with st, its scalar state.
-template <typename T, typename S, int NPL, bool kM>
-__device__ __forceinline__ void load_row(const Args& a, int uid, const __nv_bfloat162* g, int c0,
-                                         int lane, bool st, RowRegs<T, S, NPL, kM>& r) {
+// its gradient from g (the slot's row, pairs of G), its table pairs, m
+// (rowwise_adam, kM) and, with st, its scalar state.
+template <typename T, typename S, typename G, int NPL, bool kM>
+__device__ __forceinline__ void load_row(const Args& a, int uid, const G* g, int c0, int lane,
+                                         bool st, RowRegs<T, S, NPL, kM>& r) {
   const long long row = static_cast<long long>(uid) * a.w2;
   const float2* mrow = reinterpret_cast<const float2*>(a.m) + row;
 #pragma unroll
   for (int i = 0; i < NPL; ++i) {
     const int c = c0 + lane + 32 * i;
     if (c < a.w2) {
-      if constexpr (sizeof(S) == 8) {
-        r.s[i] = __bfloat1622float2(g[c]);
-      } else {
+      if constexpr (std::is_same<S, G>::value) {
         r.s[i] = g[c];
+      } else {
+        r.s[i] = as_f32(g[c]);
       }
       r.tv[i] = reinterpret_cast<const Pair<T>*>(a.table)[row + c];
       if constexpr (kM) r.mv[i] = a.mode == kRowwiseAdam ? mrow[c] : make_float2(0.f, 0.f);
@@ -374,9 +383,9 @@ __device__ __forceinline__ void live_range(const Args& a, long long* range_s) {
 // the next row's loads issued before this row's update. The warp reads
 // its rows' ids 32 at a time, one a lane, so that a row's loads wait on
 // no id load of their own. Two blocks an SM where two rows fit 128
-// registers (without m, NPL <= 10).
-template <typename T, int NPL, bool kM>
-__global__ void __launch_bounds__(kThreads, kM || NPL > 10 ? 1 : 2) apply_kernel(Args a) {
+// registers (without m, NPL <= 10). S is held as read: pairs of G.
+template <typename T, typename G, int NPL, bool kM>
+__device__ __forceinline__ void apply_rows(const Args& a) {
   __shared__ long long range_s[2];
   live_range(a, range_s);
   const long long hi = range_s[1], step = static_cast<long long>(gridDim.x) * kWarps;
@@ -389,12 +398,13 @@ __global__ void __launch_bounds__(kThreads, kM || NPL > 10 ? 1 : 2) apply_kernel
     k = (k + 1) % 32;
     return u;
   };
-  using Row = RowRegs<T, __nv_bfloat162, NPL, kM>;
+  const G* g = static_cast<const G*>(a.g);
+  using Row = RowRegs<T, G, NPL, kM>;
   Row r0, r1;
   int u0 = 0, u1 = 0;
   if (slot < hi) {
     u0 = id_of(slot);
-    load_row(a, u0, a.g + slot * a.w2, 0, lane, true, r0);
+    load_row(a, u0, g + slot * a.w2, 0, lane, true, r0);
   }
   // updates the row in cur after issuing the loads of the warp's next row
   // into nxt; no clip (a.clip is 0), so S is not scaled
@@ -402,7 +412,7 @@ __global__ void __launch_bounds__(kThreads, kM || NPL > 10 ? 1 : 2) apply_kernel
     const long long next = slot + step;
     if (next < hi) {
       un = id_of(next);
-      load_row(a, un, a.g + next * a.w2, 0, lane, true, nxt);
+      load_row(a, un, g + next * a.w2, 0, lane, true, nxt);
     }
     float scale;
     const float mean = row_mean(a, lane, cur, scale);
@@ -420,8 +430,8 @@ __global__ void __launch_bounds__(kThreads, kM || NPL > 10 ? 1 : 2) apply_kernel
 // chunks of 32 * NPL column pairs (NPL a multiple of 4). S^2 over the
 // chunks in the register route's order, then each chunk's update, reading
 // its g again.
-template <typename T, int NPL>
-__global__ void __launch_bounds__(kThreads) apply_chunked_kernel(Args a) {
+template <typename T, typename G, int NPL>
+__device__ __forceinline__ void apply_chunked_rows(const Args& a) {
   __shared__ long long range_s[2];
   live_range(a, range_s);
   const long long hi = range_s[1], step = static_cast<long long>(gridDim.x) * kWarps;
@@ -429,7 +439,7 @@ __global__ void __launch_bounds__(kThreads) apply_chunked_kernel(Args a) {
   const long long first = range_s[0] + static_cast<long long>(blockIdx.x) * kWarps;
   for (long long slot = first + threadIdx.x / 32; slot < hi; slot += step) {
     const int uid = a.ids[slot];
-    const __nv_bfloat162* g = a.g + slot * a.w2;
+    const G* g = static_cast<const G*>(a.g) + slot * a.w2;
     const float st = row_state(a, uid);
     float mean = 0.f;
     if (a.mode != kSgd) {
@@ -438,7 +448,7 @@ __global__ void __launch_bounds__(kThreads) apply_chunked_kernel(Args a) {
         float2 s[NPL];
 #pragma unroll
         for (int i = 0; i < NPL; ++i)
-          if (c0 + lane + 32 * i < a.w2) s[i] = __bfloat1622float2(g[c0 + lane + 32 * i]);
+          if (c0 + lane + 32 * i < a.w2) s[i] = as_f32(g[c0 + lane + 32 * i]);
 #pragma unroll
         for (int i = 0; i < NPL; ++i)
           if (c0 + lane + 32 * i < a.w2) ss = fmaf(s[i].x, s[i].x, fmaf(s[i].y, s[i].y, ss));
@@ -448,11 +458,34 @@ __global__ void __launch_bounds__(kThreads) apply_chunked_kernel(Args a) {
     }
     const RowStep rs = row_step(a, uid, lane, mean, st);
     for (int c0 = 0; c0 < a.w2; c0 += 32 * NPL) {
-      RowRegs<T, __nv_bfloat162, NPL, true> r;
+      RowRegs<T, G, NPL, true> r;
       load_row(a, uid, g, c0, lane, false, r);
       store_row<4>(a, uid, c0, lane, rs, 1.f, r);
     }
   }
+}
+
+// The routes as kernels: bf16 S under kernel 4's names; f32 S (the
+// scatter route's apply) under names of their own, so that a trace tells
+// the two apart.
+template <typename T, typename G, int NPL, bool kM>
+__global__ void __launch_bounds__(kThreads, kM || NPL > 10 ? 1 : 2) apply_kernel(Args a) {
+  apply_rows<T, G, NPL, kM>(a);
+}
+
+template <typename T, typename G, int NPL>
+__global__ void __launch_bounds__(kThreads) apply_chunked_kernel(Args a) {
+  apply_chunked_rows<T, G, NPL>(a);
+}
+
+template <typename T, int NPL, bool kM>
+__global__ void __launch_bounds__(kThreads, kM || NPL > 10 ? 1 : 2) scatter_apply_kernel(Args a) {
+  apply_rows<T, float2, NPL, kM>(a);
+}
+
+template <typename T, int NPL>
+__global__ void __launch_bounds__(kThreads) scatter_apply_chunked_kernel(Args a) {
+  apply_chunked_rows<T, float2, NPL>(a);
 }
 
 // Column pairs a lane holds on kernel 4's register route for rows of w
@@ -650,9 +683,10 @@ __global__ void __launch_bounds__(kThreads, 2) bucketed_kernel(Args a) {
       const int r0 = head_s[h], r1 = h + 1 < nheads ? head_s[h + 1] : n;
       const int uid = mid_s[r0];
       RowRegs<T, float2, NPL, true> row;
-      load_row(a, uid, a.g + src_s[r0] * a.w2, 0, lane, true, row);
+      const __nv_bfloat162* g = static_cast<const __nv_bfloat162*>(a.g);
+      load_row(a, uid, g + src_s[r0] * a.w2, 0, lane, true, row);
       for (int r = r0 + 1; r < r1; ++r) {
-        const __nv_bfloat162* gr = a.g + src_s[r] * a.w2;
+        const __nv_bfloat162* gr = g + src_s[r] * a.w2;
 #pragma unroll
         for (int i = 0; i < NPL; ++i)
           if (lane + 32 * i < a.w2) {
@@ -694,21 +728,30 @@ cudaError_t launch_wave(void (*kernel)(Args), const Args& a, size_t smem, cudaSt
   return cudaGetLastError();
 }
 
-template <typename T, int NPL>
+template <typename T, typename G, int NPL>
 cudaError_t launch_rows(const Args& a, cudaStream_t s) {
-  void (*kernel)(Args) = apply_kernel<T, NPL, false>;
-  if (a.mode == kRowwiseAdam) kernel = apply_kernel<T, NPL, true>;
+  const bool adam = a.mode == kRowwiseAdam;
+  void (*kernel)(Args);
+  if constexpr (std::is_same<G, float2>::value)
+    kernel = adam ? scatter_apply_kernel<T, NPL, true> : scatter_apply_kernel<T, NPL, false>;
+  else
+    kernel = adam ? apply_kernel<T, G, NPL, true> : apply_kernel<T, G, NPL, false>;
   return launch_wave(kernel, a, 0, s);
 }
 
-template <typename T>
+// Kernels 4-5 on a table of T from S stored as pairs of G.
+template <typename T, typename G>
 cudaError_t launch_apply(const Args& a, cudaStream_t s) {
   switch (streamed_route(2 * a.w2)) {
-    case 4: return launch_rows<T, 4>(a, s);
-    case 8: return launch_rows<T, 8>(a, s);
-    case 10: return launch_rows<T, 10>(a, s);
-    case 16: return launch_rows<T, 16>(a, s);
-    default: return launch_wave(apply_chunked_kernel<T, kChunkPairs>, a, 0, s);
+    case 4: return launch_rows<T, G, 4>(a, s);
+    case 8: return launch_rows<T, G, 8>(a, s);
+    case 10: return launch_rows<T, G, 10>(a, s);
+    case 16: return launch_rows<T, G, 16>(a, s);
+    default:
+      if constexpr (std::is_same<G, float2>::value)
+        return launch_wave(scatter_apply_chunked_kernel<T, kChunkPairs>, a, 0, s);
+      else
+        return launch_wave(apply_chunked_kernel<T, G, kChunkPairs>, a, 0, s);
   }
 }
 
@@ -740,7 +783,7 @@ Args make_args(void* table, float* accum, float* m, float* v, const int* ids, co
   a.m = m;
   a.v = v;
   a.ids = ids;
-  a.g = static_cast<const __nv_bfloat162*>(g);
+  a.g = g;
   a.hyper = hyper;
   a.rows = rows;
   a.slots = slots;
@@ -752,6 +795,20 @@ Args make_args(void* table, float* accum, float* m, float* v, const int* ids, co
   a.key0 = static_cast<uint32_t>(seed);
   a.key1 = static_cast<uint32_t>(seed >> 32);
   return a;
+}
+
+// Kernels 4-5 from S stored as pairs of G.
+template <typename G>
+int streamed_apply(int is_bf16, void* table, float* accum, float* m, float* v, const int* uids,
+                   const void* gsum, const float* hyper, long long rows, long long slots, int w,
+                   int mode, int stochastic, unsigned long long seed, void* stream) {
+  if (w <= 0 || w % 64 != 0 || rows > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  if (const int err = check_state(mode, accum, m, v)) return err;
+  const Args a = make_args(table, accum, m, v, uids, gsum, hyper, rows, slots, 1, w, mode,
+                           stochastic, 0.f, seed);
+  if (slots == 0) return cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_apply<__nv_bfloat16, G>(a, s) : launch_apply<float, G>(a, s);
 }
 
 }  // namespace
@@ -770,13 +827,18 @@ int cffm_streamed_apply(int is_bf16, void* table, float* accum, float* m, float*
                         const int* uids, const void* gsum, const float* hyper,
                         long long rows, long long slots, int w, int mode,
                         int stochastic, unsigned long long seed, void* stream) {
-  if (cffm_streamed_route(w) < 0 || rows > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
-  if (const int err = check_state(mode, accum, m, v)) return err;
-  const Args a = make_args(table, accum, m, v, uids, gsum, hyper, rows, slots, 1, w, mode,
-                           stochastic, 0.f, seed);
-  if (slots == 0) return cudaSuccess;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_apply<__nv_bfloat16>(a, s) : launch_apply<float>(a, s);
+  return streamed_apply<__nv_bfloat162>(is_bf16, table, accum, m, v, uids, gsum, hyper, rows,
+                                        slots, w, mode, stochastic, seed, stream);
+}
+
+// The same update with gsum (M, W) f32: the scatter route's apply. Same
+// modes, return value and in-place update.
+int cffm_streamed_apply_f32(int is_bf16, void* table, float* accum, float* m, float* v,
+                            const int* uids, const void* gsum, const float* hyper,
+                            long long rows, long long slots, int w, int mode,
+                            int stochastic, unsigned long long seed, void* stream) {
+  return streamed_apply<float2>(is_bf16, table, accum, m, v, uids, gsum, hyper, rows, slots, w,
+                                mode, stochastic, seed, stream);
 }
 
 // Kernel 7: ids (nb, c), g (nb, c, w) bf16 with w <= cffm_bucketed_max_width();

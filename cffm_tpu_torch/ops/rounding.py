@@ -11,8 +11,9 @@ The dither is an argument of `stochastic_round_bf16`, so a test can
 hand the JAX formula and this one the same bits. `round_table_delta`
 draws it with `random_dither`, on the rows' device: a CPU key seeds a
 generator on the card with one draw (`draw_seed`), so no dither is drawn
-on the host or copied over. The streamed-update kernel draws its own
-from Philox (`ops/csrc/streamed_update.cu`), seeded by `draw_seed` too.
+on the host or copied over. The streamed-update kernels draw their own
+from Philox (`ops/csrc/streamed_update.cu`), seeded by `draw_seed` too,
+and count each launch that dithers as one draw on the card.
 """
 
 from __future__ import annotations

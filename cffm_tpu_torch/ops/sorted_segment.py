@@ -3,17 +3,20 @@
 The port's counterpart of `cffm_tpu/ops/sorted_segment.py`: kernel 3
 (`sorted_segment_sum_compact`, the single-device dedup) and kernel 6
 (`sorted_segment_sum_by_seg`, the dedup of the sharded gradient return,
-which starts from the routing's segment index and returns no ids). Both
-are entries of `csrc/sorted_segment.cu`, a tree of chunked passes whose
-depth follows n, not the segment lengths; its design note says how.
+which starts from the routing's segment index and returns no ids). A
+third entry, `scatter_segment_sum`, takes the scatter route's sums of
+`optim/rowwise.py`: it reads the unsorted grads through the sort's order
+and keeps f32 sums of the live segments only. All three are entries of
+`csrc/sorted_segment.cu`, a tree of chunked passes whose depth follows
+n, not the segment lengths; its design note says how.
 Segment starts come from the id-change flags and `torch.cumsum`, outside
 the kernel, as the JAX package computes them. `scratch_rows` sizes the
 tree's f32 scratch, as the kernel's own rule does.
 
 A wrapper launches the CUDA kernel for a CUDA tensor and takes the plain
 PyTorch version (`sorted_segment_sum_reference`,
-`sorted_segment_by_seg_reference`) for a CPU tensor. Its `launches`
-attribute counts kernel launches.
+`sorted_segment_by_seg_reference`, `scatter_segment_sum_reference`) for
+a CPU tensor. Its `launches` attribute counts kernel launches.
 """
 
 from __future__ import annotations
@@ -78,6 +81,18 @@ def sorted_segment_by_seg_reference(seg: torch.Tensor, grads: torch.Tensor,
     return gsum.to(torch.bfloat16)
 
 
+def scatter_segment_sum_reference(order: torch.Tensor, seg: torch.Tensor,
+                                  grads: torch.Tensor, lo: int, n: int) -> torch.Tensor:
+    """Plain version of the scatter route's sums: (n, W) f32, live segment
+    s's sum at row s - lo, taken by `index_add_` in entry order (the rows
+    [lo, lo + n) of the scatter route's sums into one slot per entry, bit
+    for bit)."""
+    keep = (seg >= lo) & (seg < lo + n)
+    out = torch.zeros((n, grads.shape[1]), dtype=torch.float32, device=grads.device)
+    out.index_add_(0, seg[keep] - lo, grads.index_select(0, order[keep]).float())
+    return out
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
     fn = lib.cffm_sorted_segment_sum
@@ -91,6 +106,8 @@ def _library() -> ctypes.CDLL:
                                f"{(CHUNK0, CHUNK_N)}: scratch_rows would size it wrong")
         lib.cffm_sorted_segment_sum_by_seg.argtypes = [p, p, ll, i, p, ll, p, ll, p]
         lib.cffm_sorted_segment_sum_by_seg.restype = i
+        lib.cffm_scatter_segment_sum.argtypes = [p, p, p, ll, i, ll, ll, p, p, ll, p]
+        lib.cffm_scatter_segment_sum.restype = i
         fn.argtypes = [p, p, p, ll, i, p, p, ll, p, ll, p]
         fn.restype = i
     return lib
@@ -176,5 +193,53 @@ def sorted_segment_sum_by_seg(seg: torch.Tensor, sorted_grads: torch.Tensor,
     return gsum
 
 
+def scatter_segment_sum(order: torch.Tensor, seg: torch.Tensor, grads: torch.Tensor,
+                        lo: int, n: int) -> torch.Tensor:
+    """The scatter route's segment sums. grads (N, W) bf16 in the ids'
+    order, W a multiple of 128; order (N,) the sort's permutation of them;
+    seg (N,) each sorted entry's segment, non-decreasing from 0 in steps of
+    at most 1; the live segments are the run [lo, lo + n). Returns (n, W)
+    f32: live segment s's sum at row s - lo, summed in f32 and not
+    rounded; the other segments are dropped. On a card the sums are taken
+    in the tree's fixed order, with no atomics, so two calls give the same
+    bits."""
+    big, w = grads.shape
+    if w % 128 != 0:
+        raise ValueError(f"scatter_segment_sum needs W % 128 == 0, got {w}")
+    if grads.dtype != torch.bfloat16:
+        raise TypeError(f"scatter_segment_sum takes bf16 grads, got {grads.dtype}")
+    if order.shape != (big,) or seg.shape != (big,):
+        raise ValueError(f"order and seg must be ({big},)")
+    if not (order.device == seg.device == grads.device):
+        raise ValueError("order, seg and grads must share a device")
+    lo, n = int(lo), int(n)
+    if grads.device.type == "cpu":
+        return scatter_segment_sum_reference(order, seg, grads, lo, n)
+    if grads.device.type != "cuda":
+        raise ValueError(f"scatter_segment_sum takes CPU or CUDA tensors, got {grads.device}")
+    dev = grads.device
+    out = torch.empty((n, w), dtype=torch.float32, device=dev)
+    if n == 0 or big == 0:
+        return out
+    g = grads.contiguous()
+    if g.data_ptr() % 16:  # the kernel reads rows in 16-byte words
+        g = g.clone()
+    order = order.to(torch.int64).contiguous()
+    seg = seg.to(torch.int32).contiguous()
+    lib = _library()
+    rows = scratch_rows(big)
+    scratch = torch.empty((rows, w), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.cffm_scatter_segment_sum(order.data_ptr(), seg.data_ptr(), g.data_ptr(), big,
+                                           w, lo, n, out.data_ptr(), scratch.data_ptr(), rows,
+                                           stream)
+    if err != 0:
+        raise RuntimeError(f"scatter_segment_sum kernel launch failed: CUDA error {err}")
+    scatter_segment_sum.launches += 1
+    return out
+
+
 sorted_segment_sum_compact.launches = 0
 sorted_segment_sum_by_seg.launches = 0
+scatter_segment_sum.launches = 0

@@ -10,6 +10,12 @@ only the rows they are given, in place. Two contracts:
   4-5): uids (M,) int32 ascending: the unique valid prefix in [0, V), the
   sentinel V in the tail. gsum (M, W) duplicate-summed gradients, taken
   in bf16.
+  scatter (`scatter_rowwise_apply`; kernel 4's apply from f32 sums, the
+  scatter route of `optim.rowwise` after `sorted_segment.
+  scatter_segment_sum`): uids (M,) int32 ascending and unique, every one
+  a row of the table; s (M, W) f32 sums. Its plain version is the eager
+  update `eager_rowwise_apply`, which the route also takes where the
+  kernel does not.
   bucketed (`bucketed_rowwise_apply`, `bucketed_rowwise_adam_apply`;
   kernel 7, the sharded step's update): ids (NB, C) int32, each bucket
   ascending and unique with the sentinel (>= V) in its empty tail; g
@@ -22,11 +28,13 @@ UPDATES table and state IN PLACE (the JAX step donates its state) and
 returns them. `pick_tile`, `padded_entries` and `bucketed_tile` stay as
 the gates and sizes `optim.rowwise` uses, so the port routes as JAX does.
 Stochastic rounding into a bf16 table uses Philox in the kernel, keyed
-by sr_seed; the plain version draws its dither from a torch.Generator
-seeded the same way, so the two agree in distribution, not in bits.
+by sr_seed, and counted as one draw on the card in `rounding.DRAWS`; the
+plain version draws its dither from a torch.Generator seeded the same
+way, so the two agree in distribution, not in bits.
 
 A wrapper launches the CUDA kernel for a CUDA tensor and takes the plain
-PyTorch version (`streamed_apply_reference`) for a CPU tensor. Each
+PyTorch version (`streamed_apply_reference`, `bucketed_apply_reference`,
+`eager_rowwise_apply`) for a CPU tensor. Each
 entry counts its kernel launches in its `launches` attribute. Kernels
 4-5 hold a row in registers up to 1024 lanes and take wider rows in
 chunks (`streamed_route`); kernel 7 takes rows up to 2048 lanes
@@ -35,13 +43,16 @@ chunks (`streamed_route`); kernel 7 takes rows up to 2048 lanes
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import numpy as np
 import torch
 
 from cffm_tpu_torch.ops import _build
-from cffm_tpu_torch.ops.rounding import random_dither, stochastic_round_bf16
+from cffm_tpu_torch.ops.rounding import (DRAWS, draw_seed, random_dither, round_table_delta,
+                                         stochastic_round_bf16)
+from cffm_tpu_torch.utils import profiling
 
 _SOURCE = "streamed_update"
 EB = 128  # entry block of the JAX kernel's windows; sizes padded_entries
@@ -262,15 +273,17 @@ def _library() -> ctypes.CDLL:
         lib.cffm_bucketed_apply.restype = ctypes.c_int
         lib.cffm_bucketed_max_width.argtypes = []
         lib.cffm_bucketed_max_width.restype = ctypes.c_int
+        lib.cffm_streamed_apply_f32.argtypes = fn.argtypes
+        lib.cffm_streamed_apply_f32.restype = ctypes.c_int
         lib.cffm_streamed_route.argtypes = [i]
         lib.cffm_streamed_route.restype = ctypes.c_int
     return lib
 
 
-def _apply(table, state: dict, ids, g, hyper, mode: str, sr_seed, clip=None):
-    """Kernels 4-5 (ids (M,), clip None) or kernel 7 (ids (NB, C)), or the
-    plain version on the CPU."""
-    v, w = table.shape
+def _check(table, ids, g, clip) -> None:
+    """What every apply takes: a 128-multiple-wide f32 or bf16 table, ids
+    (M,) int32 with g (M, W) (clip None) or (NB, C) with g (NB, C, W)."""
+    w = table.shape[1]
     if w % 128 != 0:
         raise ValueError(f"streamed update needs a 128-multiple width, got {w}")
     if table.dtype not in (torch.float32, torch.bfloat16):
@@ -279,6 +292,14 @@ def _apply(table, state: dict, ids, g, hyper, mode: str, sr_seed, clip=None):
             1 if clip is None else 2):
         raise ValueError("ids must be (M,) int32 with gsum (M, W), or (NB, C) int32 "
                          "with g (NB, C, W) for the bucketed apply")
+
+
+def _apply(table, state: dict, ids, g, hyper, mode: str, sr_seed, clip=None,
+           f32_sums: bool = False):
+    """Kernels 4-5 (ids (M,), clip None; g taken in bf16, or in f32 where
+    f32_sums) or kernel 7 (ids (NB, C)), or the plain version on the CPU."""
+    v, w = table.shape
+    _check(table, ids, g, clip)
     if table.device.type == "cpu":
         if clip is None:
             return streamed_apply_reference(table, state, ids, g, hyper, mode, sr_seed)
@@ -299,9 +320,10 @@ def _apply(table, state: dict, ids, g, hyper, mode: str, sr_seed, clip=None):
     if not table.is_contiguous():
         raise ValueError("the table must be contiguous (updated in place)")
     ids = ids.to(dev).contiguous()
-    g = g.to(device=dev, dtype=torch.bfloat16).contiguous()
+    g = g.to(device=dev, dtype=torch.float32 if f32_sums else torch.bfloat16).contiguous()
     hyp = hyper.to(dev, non_blocking=True)  # a fresh CPU tensor: no host wait
     stochastic = int(table.dtype == torch.bfloat16 and sr_seed is not None)
+    DRAWS["cuda"] += stochastic  # the kernel draws its dither on the card
     seed = int(sr_seed or 0) & (2**64 - 1)
     ptrs = {name: t.data_ptr() for name, t in state.items()}
     common = (int(table.dtype == torch.bfloat16), table.data_ptr(), ptrs.get("accum"),
@@ -309,8 +331,8 @@ def _apply(table, state: dict, ids, g, hyper, mode: str, sr_seed, clip=None):
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if clip is None:
-            err = lib.cffm_streamed_apply(*common, ids.shape[0], w, _MODES[mode],
-                                          stochastic, seed, stream)
+            entry = lib.cffm_streamed_apply_f32 if f32_sums else lib.cffm_streamed_apply
+            err = entry(*common, ids.shape[0], w, _MODES[mode], stochastic, seed, stream)
         else:
             err = lib.cffm_bucketed_apply(*common, ids.shape[0], ids.shape[1], w,
                                           _MODES[mode], float(clip), stochastic, seed, stream)
@@ -347,6 +369,94 @@ def streamed_rowwise_adam_apply(table: torch.Tensor, m: torch.Tensor, v: torch.T
     return table, m, v
 
 
+def kernel_seed(table: torch.Tensor, opt, sr_key, route: str):
+    """The Philox seed of a kernel's stochastic rounding into a bf16 table
+    (one `draw_seed` of sr_key), or None: an f32 table, or rounding to
+    nearest. opt: an `OptimizerConfig`."""
+    if table.dtype != torch.bfloat16 or opt.table_rounding != "stochastic":
+        return None
+    if sr_key is None:
+        raise ValueError(f"bf16 {route} update with stochastic rounding needs sr_key")
+    return draw_seed(sr_key)
+
+
+def scatter_rowwise_apply(table: torch.Tensor, state: dict, uids: torch.Tensor,
+                          s: torch.Tensor, opt, lr, sr_key=None):
+    """The update of the rows uids (M,) int32, ascending and unique, every
+    one a row of the table, by their f32 sums s (M, W), in place: the
+    scatter route's apply. opt: an `OptimizerConfig` whose sparse optimizer
+    is adagrad, sgd or rowwise_adam, with state its `rowwise_init` state
+    (rowwise_adam's step "t" is incremented here); lr: its f32 rate;
+    sr_key: a bf16 table's stochastic-rounding key. On a card kernel 4's
+    apply from f32 sums, rounding with Philox keyed by `draw_seed(sr_key)`
+    (a bf16 table's launch is the span cffm.table_round); on the CPU its
+    plain version, `eager_rowwise_apply`. Returns table."""
+    _check(table, uids, s, None)
+    mode = opt.sparse_optimizer
+    if mode not in _MODES:
+        raise ValueError(f"the scatter apply takes sgd, adagrad or rowwise_adam, got {mode!r}")
+    if table.device.type == "cpu":
+        return eager_rowwise_apply(table, state, uids.long(), s, opt, lr, sr_key)
+    extra = ()
+    if mode == "rowwise_adam":
+        state["t"] = state["t"] + 1
+        extra = _adam_extra(opt.adam_b1, opt.adam_b2, state["t"])
+    seed = kernel_seed(table, opt, sr_key, "scatter")
+    rounded = table.dtype == torch.bfloat16
+    with profiling.span("cffm.table_round") if rounded else contextlib.nullcontext():
+        _apply(table, {k: state[k] for k in ("accum", "m", "v") if k in state}, uids, s,
+               _hyper(lr, opt.eps, extra), mode, seed, f32_sums=True)
+    scatter_rowwise_apply.launches += 1
+    return table
+
+
+def eager_rowwise_apply(table: torch.Tensor, state: dict, rows: torch.Tensor,
+                        g: torch.Tensor, opt, lr, sr_key=None):
+    """The update of the unique rows `rows` (int64) by their f32 gradients
+    g in eager passes, in place: `scatter_rowwise_apply`'s plain version,
+    and the scatter route's update where that apply does not take the
+    call (full Adam, the first-order table, f32 grads). Arguments as for
+    `scatter_rowwise_apply`, with "adam" too."""
+    mode = opt.sparse_optimizer
+    if mode == "adagrad":
+        accum = state["accum"]
+        accum.index_add_(0, rows, torch.mean(g * g, dim=-1, keepdim=True))
+        delta = -lr * g / (torch.sqrt(accum[rows]) + opt.eps)
+    elif mode in ("adam", "rowwise_adam"):
+        b1, b2 = opt.adam_b1, opt.adam_b2
+        state["t"] = state["t"] + 1
+        t = state["t"].float()
+        m, v = state["m"], state["v"]
+        m[rows] = m[rows] * b1 + (1 - b1) * g
+        if mode == "adam":
+            v[rows] = v[rows] * b2 + (1 - b2) * g * g
+        else:
+            v[rows] = v[rows] * b2 + (1 - b2) * torch.mean(g * g, dim=-1, keepdim=True)
+        mhat = m[rows] / (1 - torch.tensor(b1, dtype=torch.float32) ** t)
+        vhat = v[rows] / (1 - torch.tensor(b2, dtype=torch.float32) ** t)
+        delta = -lr * mhat / (torch.sqrt(vhat) + opt.eps)
+    elif mode == "sgd":
+        delta = -lr * g
+    else:
+        raise ValueError(mode)
+    return _write_touched_rows(table, rows, delta, opt, sr_key)
+
+
+def _write_touched_rows(table: torch.Tensor, rows: torch.Tensor, delta: torch.Tensor,
+                        opt, sr_key):
+    """table[rows] += delta (rows unique, in place). A bf16 table takes the
+    f32 sum rounded to nearest or stochastically (ops/rounding.py): an
+    in-dtype add would drop any delta below the row's bf16 ulp. Under a
+    profiler that rounded write is the span cffm.table_round."""
+    if table.dtype != torch.bfloat16:
+        table.index_add_(0, rows, delta.to(table.dtype))
+        return table
+    with profiling.span("cffm.table_round"):
+        table[rows] = round_table_delta(table[rows], delta, table.dtype,
+                                        opt.table_rounding, sr_key)
+    return table
+
+
 def bucketed_rowwise_apply(table: torch.Tensor, accum: torch.Tensor | None,
                            ids_bkt: torch.Tensor, g_bkt: torch.Tensor, lr, eps,
                            clip: float = 0.0, sr_seed: int | None = None):
@@ -380,5 +490,6 @@ def bucketed_rowwise_adam_apply(table: torch.Tensor, m: torch.Tensor, v: torch.T
 
 streamed_rowwise_apply.launches = 0
 streamed_rowwise_adam_apply.launches = 0
+scatter_rowwise_apply.launches = 0
 bucketed_rowwise_apply.launches = 0
 bucketed_rowwise_adam_apply.launches = 0

@@ -15,11 +15,18 @@ for bit.
 Two routes, with the JAX gate (`_should_stream`) choosing between them:
   streamed: per-field sort, the sorted-segment kernel, then the touched-
     row apply kernel (ops/sorted_segment.py, ops/streamed_update.py);
-  scatter: torch sort, `index_add_` segment sums and `index_put_` writes;
-    the live rows' count reaches the host without a wait when the caller
-    plans the segments ahead (`scatter_plan`; counters
-    sparse.scatter, sparse.scatter_slots, sparse.scatter_rows; a bf16
-    table's rounded write is the span cffm.table_round).
+  scatter: torch sort (`scatter_plan`), whose live rows' count reaches the
+    host without a wait when the caller plans the segments ahead; then,
+    where `_scatter_kernels_take`, the f32 segment sums of the live rows
+    read through the sort's order (`sorted_segment.scatter_segment_sum`)
+    and kernel 4's apply from them (`streamed_update.
+    scatter_rowwise_apply`), whose plain versions on the CPU are the
+    eager code; elsewhere that eager code: `index_add_` segment sums into
+    a slot per id, then `streamed_update.eager_rowwise_apply`'s passes and
+    `index_put_` writes. Counters
+    sparse.scatter, sparse.scatter_kernels, sparse.scatter_slots (the rows
+    the sums are sized to), sparse.scatter_rows; a bf16 table's rounded
+    write is the span cffm.table_round.
 The sharded step's update (`bucketed_rowwise_update`) takes the gradient
 return's per-peer buckets straight into the bucketed apply kernel, with
 JAX's gate and fallback.
@@ -37,7 +44,7 @@ from typing import Dict, Tuple
 import torch
 
 from cffm_tpu_torch.config import OptimizerConfig
-from cffm_tpu_torch.ops.rounding import draw_seed, round_table_delta
+from cffm_tpu_torch.ops.rounding import round_table_delta
 from cffm_tpu_torch.utils import profiling
 
 _MASK64 = (1 << 64) - 1
@@ -196,6 +203,27 @@ def _should_stream(table: torch.Tensor, opt: OptimizerConfig, n_ids: int,
     return v * w >= (1 << 24) and touched >= 0.08 * v
 
 
+def apply_kernel_takes(table: torch.Tensor, opt: OptimizerConfig) -> bool:
+    """Whether kernel 4's apply from f32 sums (`streamed_update.
+    scatter_rowwise_apply`) takes updates of the table: adagrad, sgd or
+    rowwise_adam on an f32 or bf16 table whose width kernel 4 takes."""
+    from cffm_tpu_torch.ops.streamed_update import streamed_route
+
+    w = table.shape[1]
+    return (opt.sparse_optimizer in ("adagrad", "sgd", "rowwise_adam")
+            and table.dtype in (torch.float32, torch.bfloat16)
+            and w % 128 == 0 and streamed_route(w, table.device) >= 0)
+
+
+def _scatter_kernels_take(table: torch.Tensor, opt: OptimizerConfig,
+                          grads: torch.Tensor) -> bool:
+    """Whether the scatter route takes its kernels (the live rows' f32 sums,
+    then kernel 4's apply): where `apply_kernel_takes`, from bf16 grads.
+    Full Adam, the first-order table of width 1 and f32 grads (never cast
+    down) take the eager code."""
+    return grads.dtype == torch.bfloat16 and apply_kernel_takes(table, opt)
+
+
 def _per_field_sorted(row_ids: torch.Tensor, field_offsets, mask_sentinels: bool,
                       field_major: bool = False):
     """Sorted ids and the global order via F independent column sorts.
@@ -215,21 +243,6 @@ def _per_field_sorted(row_ids: torch.Tensor, field_offsets, mask_sentinels: bool
     rows = torch.arange(f, device=row_ids.device)[:, None]
     order = sv + rows * b if field_major else sv * f + rows
     return sk.reshape(-1).to(torch.int32), order.reshape(-1)
-
-
-def _write_touched_rows(table: torch.Tensor, rows: torch.Tensor, delta: torch.Tensor,
-                        opt: OptimizerConfig, sr_key):
-    """table[rows] += delta (rows unique, in place). A bf16 table takes the
-    f32 sum rounded to nearest or stochastically (ops/rounding.py): an
-    in-dtype add would drop any delta below the row's bf16 ulp. Under a
-    profiler that rounded write is the span cffm.table_round."""
-    if table.dtype != torch.bfloat16:
-        table.index_add_(0, rows, delta.to(table.dtype))
-        return table
-    with profiling.span("cffm.table_round"):
-        table[rows] = round_table_delta(table[rows], delta, table.dtype,
-                                        opt.table_rounding, sr_key)
-    return table
 
 
 def _mix(*words: int) -> int:
@@ -312,8 +325,8 @@ def rowwise_update(
     lr = opt.sparse_lr * torch.as_tensor(lr_scale, dtype=torch.float32)
     if _should_stream(table, opt, row_ids.shape[0], max_unique):
         from cffm_tpu_torch.ops.sorted_segment import sorted_segment_sum_compact
-        from cffm_tpu_torch.ops.streamed_update import (padded_entries, pick_tile,
-                                                        streamed_rowwise_adam_apply,
+        from cffm_tpu_torch.ops.streamed_update import (kernel_seed, padded_entries,
+                                                        pick_tile, streamed_rowwise_adam_apply,
                                                         streamed_rowwise_apply)
 
         n = row_ids.shape[0]
@@ -333,12 +346,7 @@ def rowwise_update(
         g = clip_rows(g, opt)
         slots = torch.arange(m_pad, device=uids.device)
         uids_s = torch.where(slots < count, uids, num_rows).to(torch.int32)
-        seed = None
-        if table.dtype == torch.bfloat16 and opt.table_rounding == "stochastic":
-            if sr_key is None:
-                raise ValueError("bf16 streamed update with stochastic rounding "
-                                 "needs sr_key")
-            seed = draw_seed(sr_key)
+        seed = kernel_seed(table, opt, sr_key, "streamed")
         if opt.sparse_optimizer == "adagrad":
             streamed_rowwise_apply(table, state["accum"], uids_s, g, lr, opt.eps,
                                    sr_seed=seed)
@@ -355,46 +363,32 @@ def rowwise_update(
     if plan is None:
         plan = scatter_plan(safe_ids, num_rows, max_unique)
     order, seg, uids, bounds = plan
-    m = uids.shape[0]
     profiling.count("sparse.scatter")
+    from cffm_tpu_torch.ops.streamed_update import eager_rowwise_apply, scatter_rowwise_apply
+
+    if _scatter_kernels_take(table, opt, grads):
+        from cffm_tpu_torch.ops.sorted_segment import scatter_segment_sum
+
+        # the live slots [lo, lo + n): the sentinel run and invalid slots
+        # are dropped; the count is on the host already
+        lo, n = bounds()
+        profiling.count("sparse.scatter_kernels")
+        profiling.count("sparse.scatter_slots", n)
+        profiling.count("sparse.scatter_rows", n)
+        g = clip_rows(scatter_segment_sum(order, seg, grads, lo, n), opt)
+        scatter_rowwise_apply(table, state, uids[lo:lo + n].to(torch.int32), g, opt, lr, sr_key)
+        return table, state
+    m = uids.shape[0]
     profiling.count("sparse.scatter_slots", m)
     summed = _segment_sums(grads, order, seg, m)
     # the scatters' mode="drop": invalid slots and the sentinel row go
     # nowhere; the live ones are [lo, lo + n)
     lo, n = bounds()
-    rows = uids[lo:lo + n].long()
     # the live count is on the host already: counting it costs nothing
     profiling.count("sparse.scatter_rows", n)
-    g = clip_rows(summed[lo:lo + n], opt)
-
-    if opt.sparse_optimizer == "adagrad":
-        accum = state["accum"]
-        accum.index_add_(0, rows, torch.mean(g * g, dim=-1, keepdim=True))
-        delta = -lr * g / (torch.sqrt(accum[rows]) + opt.eps)
-        _write_touched_rows(table, rows, delta, opt, sr_key)
-        return table, state
-
-    if opt.sparse_optimizer in ("adam", "rowwise_adam"):
-        b1, b2 = opt.adam_b1, opt.adam_b2
-        state["t"] = state["t"] + 1
-        t = state["t"].float()
-        m, v = state["m"], state["v"]
-        m[rows] = m[rows] * b1 + (1 - b1) * g
-        if opt.sparse_optimizer == "adam":
-            v[rows] = v[rows] * b2 + (1 - b2) * g * g
-        else:
-            v[rows] = v[rows] * b2 + (1 - b2) * torch.mean(g * g, dim=-1, keepdim=True)
-        mhat = m[rows] / (1 - torch.tensor(b1, dtype=torch.float32) ** t)
-        vhat = v[rows] / (1 - torch.tensor(b2, dtype=torch.float32) ** t)
-        delta = -lr * mhat / (torch.sqrt(vhat) + opt.eps)
-        _write_touched_rows(table, rows, delta, opt, sr_key)
-        return table, state
-
-    if opt.sparse_optimizer == "sgd":
-        _write_touched_rows(table, rows, -lr * g, opt, sr_key)
-        return table, state
-
-    raise ValueError(opt.sparse_optimizer)
+    eager_rowwise_apply(table, state, uids[lo:lo + n].long(), clip_rows(summed[lo:lo + n], opt),
+                        opt, lr, sr_key)
+    return table, state
 
 
 def bucketed_rowwise_update(
@@ -422,7 +416,8 @@ def bucketed_rowwise_update(
     Returns (table, state), the same objects, updated."""
     from cffm_tpu_torch.ops.streamed_update import (bucketed_kernel_takes,
                                                     bucketed_rowwise_adam_apply,
-                                                    bucketed_rowwise_apply, bucketed_tile)
+                                                    bucketed_rowwise_apply, bucketed_tile,
+                                                    kernel_seed)
 
     v, w = table.shape
     nb, c = ids_bkt.shape[0], ids_bkt.shape[1]
@@ -435,11 +430,7 @@ def bucketed_rowwise_update(
     touched = min(nb * c, v)
     if r and (opt.streamed_update == "on" or (v * w >= (1 << 24) and touched >= 0.08 * v)):
         lr = opt.sparse_lr * torch.as_tensor(lr_scale, dtype=torch.float32)
-        seed = None
-        if table.dtype == torch.bfloat16 and opt.table_rounding == "stochastic":
-            if sr_key is None:
-                raise ValueError("bf16 streamed update with stochastic rounding needs sr_key")
-            seed = draw_seed(sr_key)
+        seed = kernel_seed(table, opt, sr_key, "streamed")
         if opt.sparse_optimizer == "adagrad":
             bucketed_rowwise_apply(table, state["accum"], ids_bkt, grads_bkt, lr, opt.eps,
                                    clip=opt.clip_norm, sr_seed=seed)

@@ -123,7 +123,7 @@ VARIANTS_V1 = {
 
 _K4_LOADS = """    if (next < hi) {
       un = id_of(next);
-      load_row(a, un, a.g + next * a.w2, 0, lane, true, nxt);
+      load_row(a, un, g + next * a.w2, 0, lane, true, nxt);
     }
 """
 _K4_STORES = """    store_row<4>(a, uc, 0, lane, row_step(a, uc, lane, mean, cur.st), 1.f, cur);
@@ -139,7 +139,7 @@ VARIANTS_APPLY = {
     "per_pair_dither": [(_K4_STORES, _K4_STORES.replace("store_row<4>", "store_row<1>"))],
     "no_prefetch": [(_K4_LOADS, ""), (_K4_STORES, _K4_STORES + _K4_LOADS)],
     "id_per_row": [("      un = id_of(next);", "      un = a.ids[next];")],
-    "rows_in_f32": [("  using Row = RowRegs<T, __nv_bfloat162, NPL, kM>;",
+    "rows_in_f32": [("  using Row = RowRegs<T, G, NPL, kM>;",
                      "  using Row = RowRegs<T, float2, NPL, kM>;")],
     "no_division": [("return make_float2((-r.lr) * s.x / r.denom, (-r.lr) * s.y / r.denom);",
                      "return make_float2((-r.lr) * s.x * r.denom, (-r.lr) * s.y * r.denom);")],
@@ -152,9 +152,9 @@ VARIANTS_SEG = {
                  "  if (m_pad < 0) {\n    const Fill f{")],
     "no_carry": [("    if (lv.chunks == 1) break;\n", "    break;\n")],
     "no_pass1_stores": [
-        ("  if (s < a.m_pad) {\n    uint4 o;", "  if (s < a.m_pad && a.m_pad < 0) {\n    uint4 o;"),
+        ("    if (s < m_pad) {\n      uint4 o;", "    if (s < m_pad && m_pad < 0) {\n      uint4 o;"),
         ("  float4* q = p + chunk * 2 * a.w8 + 2 * c;\n",
-         "  if (a.m_pad >= 0) return;\n  float4* q = p + chunk * 2 * a.w8 + 2 * c;\n"),
+         "  if (a.n >= 0) return;\n  float4* q = p + chunk * 2 * a.w8 + 2 * c;\n"),
     ],
 }
 

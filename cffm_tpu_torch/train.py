@@ -102,24 +102,40 @@ def prefix_grad(g_small: torch.Tensor, ids_fm_small: torch.Tensor, cfg) -> torch
     prefix lookup's output gradient (Fs, B, W), as JAX takes it: per field
     the transposed one-hot product onehot^T @ g in the compute dtype (f32
     sums, rounded to the compute dtype); ids outside their field's block
-    add nothing."""
-    # every field's one-hot in one comparison: (Fs, V, B), V the widest field
+    add nothing. Every field's one-hot is one comparison and their
+    products one batched product (Fs, V, B) @ (Fs, B, W), V the widest
+    small field's vocabulary; a narrower field's rows past its own are cut
+    off after it."""
     onehot = (prefix_rows(cfg, ids_fm_small.device, ids_fm_small.dtype)[:, :, None]
               == ids_fm_small[:, None, :]).to(g_small.dtype)
-    return torch.cat([onehot[f, :int(cfg.vocab_sizes[f])] @ g_small[f]
-                      for f in range(cfg.small_field_prefix)]).float()
+    out = torch.bmm(onehot, g_small).reshape(-1, g_small.shape[-1])
+    keep = prefix_kept(cfg, out.device)
+    return (out if keep is None else out.index_select(0, keep)).float()
 
 
 @functools.lru_cache(maxsize=16)
 def prefix_rows(cfg, device, dtype) -> torch.Tensor:
     """(Fs, V): the global row of each small field's local id r < V, V the
     widest small field's vocabulary (a narrower field's entries past its
-    own rows are cut off before its product), made once per (config,
+    own rows are cut off after its product), made once per (config,
     device, dtype). Read-only."""
     fs = cfg.small_field_prefix
     sizes = [int(v) for v in cfg.vocab_sizes[:fs]]
     offs = np.cumsum([0] + sizes[:-1])
     return torch.from_numpy(offs[:, None] + np.arange(max(sizes))[None, :]).to(device, dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def prefix_kept(cfg, device):
+    """The rows of the batched product (Fs * V, W) that are prefix rows, in
+    order (field f's first vocab_f of its V), or None when every small
+    field has V rows. Read-only."""
+    sizes = [int(v) for v in cfg.vocab_sizes[:cfg.small_field_prefix]]
+    v = max(sizes)
+    if all(n == v for n in sizes):
+        return None
+    return torch.from_numpy(np.concatenate([f * v + np.arange(n)
+                                            for f, n in enumerate(sizes)])).to(device)
 
 
 def dense_update(state: TrainState, dense_p: Dict, dgrads: Dict, cfg: TrainConfig):
@@ -141,20 +157,39 @@ def prefix_update(table: torch.Tensor, state: Dict, rows: int, g: torch.Tensor, 
     per-row state (the small-field prefix, or a shard's slice of it), in
     place, from their gradient g (rows, W) f32. No big-field id touches
     those rows. sr_key is the table's stochastic-rounding key, folded with
-    1 here so that the prefix draws its own dither. Under a profiler a
-    bf16 table's rounded write (the update, its dither and rounding, the
-    write back) is the span cffm.table_round."""
+    1 here so that the prefix draws its own dither. Where kernel 4's apply
+    takes the table (`rowwise.apply_kernel_takes`) the rows go through
+    `streamed_update.scatter_rowwise_apply` as the rows [0, rows) with f32
+    sums g: one launch on a card, and on the CPU the eager update, whose
+    bits are `dense_rowwise_apply`'s (a row of zero gradient keeps its
+    value and state). Under a profiler a bf16 table's rounded write (the
+    update, its dither and rounding, the write back) is the span
+    cffm.table_round."""
+    key = None if sr_key is None else fold_in(sr_key, 1)
+    if rowwise.apply_kernel_takes(table, opt):
+        from cffm_tpu_torch.ops.streamed_update import scatter_rowwise_apply
+
+        lr = opt.sparse_lr * torch.as_tensor(lr_scale, dtype=torch.float32)
+        scatter_rowwise_apply(table, state, _first_rows(rows, table.device),
+                              rowwise.clip_rows(g.float(), opt), opt, lr, key)
+        return
     state_rows = {k: v for k, v in state.items()
                   if v.dim() >= 1 and v.shape[0] == table.shape[0]}
     rounded = table.dtype == torch.bfloat16
     with profiling.span("cffm.table_round") if rounded else contextlib.nullcontext():
         new_rows, new_state = dense_rowwise_apply(
             table[:rows], {k: v[:rows] for k, v in state_rows.items()}, g, opt,
-            lr_scale=lr_scale, sr_key=None if sr_key is None else fold_in(sr_key, 1))
+            lr_scale=lr_scale, sr_key=key)
         table[:rows] = new_rows
     for k, v in new_state.items():
         if k in state_rows:
             state_rows[k][:rows] = v
+
+
+@functools.lru_cache(maxsize=16)
+def _first_rows(rows: int, device) -> torch.Tensor:
+    """arange(rows) as int32 on device, made once. Read-only."""
+    return torch.arange(rows, dtype=torch.int32, device=device)
 
 
 def _plan_ahead(table: torch.Tensor, ids: torch.Tensor, route, cfg: TrainConfig):

@@ -257,6 +257,13 @@ nonzero without them, or when any phase fails. Phases, in order:
      step at the cells' B=65536 launches the forward and the backward once
      each, a forward without a gradient the forward once and the backward
      never.
+ 23. train_full: criteo_full through train.run on one card (its launches,
+     the dither's draws, the loss);
+ 24. scatter: the scatter route's kernels (ops/sorted_segment.
+     scatter_segment_sum, ops/streamed_update.scatter_rowwise_apply)
+     through check_onchip_parity's check_scatter_update at full-train-zipf's
+     shapes, then each timed beside the eager chain they replaced and its
+     bound.
 
 Prints one JSON line of kernel records, then the card line, and ends
 with {"ok": true, "device": {...}}.
@@ -1347,9 +1354,10 @@ def _counted_tools():
 
 
 def _counted(ss, su):
-    """The launch-counted wrappers of kernels 3-7."""
+    """The launch-counted wrappers of kernels 3-7 and the scatter route's."""
     return (ss.sorted_segment_sum_compact, ss.sorted_segment_sum_by_seg,
-            su.streamed_rowwise_apply, su.streamed_rowwise_adam_apply,
+            ss.scatter_segment_sum, su.streamed_rowwise_apply,
+            su.streamed_rowwise_adam_apply, su.scatter_rowwise_apply,
             su.bucketed_rowwise_apply, su.bucketed_rowwise_adam_apply)
 
 
@@ -1370,13 +1378,14 @@ def phase_train() -> dict:
     from cffm_tpu_torch import train
 
     runs = {
+        # the small-field prefix's update: one scatter_rowwise_apply a step
         "adagrad_f32": (3, {}, {"cross_conv1_lin_fm2": 3 + 2, "cross_conv1_bwd": 3,
                                 "sorted_segment_sum_compact": 3,
-                                "streamed_rowwise_apply": 3}),
+                                "streamed_rowwise_apply": 3, "scatter_rowwise_apply": 3}),
         "adagrad_bf16_table": (2, {"model.table_dtype": "bfloat16"},
                                {"cross_conv1_lin_fm2": 2 + 2, "cross_conv1_bwd": 2,
                                 "sorted_segment_sum_compact": 2,
-                                "streamed_rowwise_apply": 2}),
+                                "streamed_rowwise_apply": 2, "scatter_rowwise_apply": 2}),
         # no hybrid for rowwise_adam: the fm route trains, eval takes fm2
         "rowwise_adam": (2, {"optim.sparse_optimizer": "rowwise_adam"},
                          {"cross_conv1_lin_fm": 2, "cross_conv1_lin_fm2": 2,
@@ -1416,7 +1425,8 @@ FULL_STEPS = 60
 def phase_train_full() -> dict:
     """criteo_full at its widths on one card through train.run: a
     26,000,832 x 640 bf16 table with stochastic rounding, B=32768, the
-    scatter sparse update (852k big-field ids are under 8% of the rows),
+    scatter sparse update (852k big-field ids are under 8% of the rows)
+    through its kernels (the live rows' sums, kernel 4's apply),
     FULL_STEPS steps and 2 eval batches, launch counts and the dither's
     draws set to 0 before and read after. Every dither is drawn on the
     card (two a step: the touched rows and the prefix), and the last
@@ -1443,7 +1453,10 @@ def phase_train_full() -> dict:
     drawn = {k: rounding.DRAWS[k] - draws.get(k, 0) for k in rounding.DRAWS}
     recs = [json.loads(x) for x in logs if '"loss"' in x]
     losses = [(r["step"], r["loss"], round(r["examples_per_s"])) for r in recs]
-    want = {"cross_conv1_lin_fm2": steps + ev, "cross_conv1_bwd": steps}
+    # scatter_rowwise_apply twice a step: the big fields' live rows and the
+    # small-field prefix
+    want = {"cross_conv1_lin_fm2": steps + ev, "cross_conv1_bwd": steps,
+            "scatter_segment_sum": steps, "scatter_rowwise_apply": 2 * steps}
     launched = {k: v for k, v in counts.items() if v}
     print(f"train_full criteo_full: {m.total_vocab} x {m.table_width} {m.table_dtype} table "
           f"({m.total_vocab * m.table_width * 2 / 1e9:.2f} GB), rounding "
@@ -1461,7 +1474,82 @@ def phase_train_full() -> dict:
     if not (losses and losses[-1][1] < math.log(2) and result["logloss"] < math.log(2)):
         fail(f"train_full: the loss did not fall below ln 2 = {math.log(2)}: {losses}, "
              f"eval logloss {result['logloss']}")
-    return {"losses": losses, "eval": result, "launches": launched, "draws": drawn}
+    return {"losses": losses, "eval": result, "launches": launched, "draws": drawn,
+            "steps": steps}
+
+
+def phase_scatter() -> dict:
+    """The scatter route's kernels (`ops/sorted_segment.scatter_segment_sum`,
+    `ops/streamed_update.scatter_rowwise_apply`): check_onchip_parity's
+    check_scatter_update (its largest gaps kept), then each timed at
+    full-train-zipf's shapes
+    (851,968 bf16 grads of 640 lanes, 26 fields of zipf ids into a
+    26,000,832-row bf16 table rounded stochastically, adagrad) beside the
+    eager chain they replaced (`rowwise._segment_sums`, the slice and
+    `streamed_update.eager_rowwise_apply`), its sums and its apply apart,
+    and their
+    bounds."""
+    import numpy as np
+    import torch
+
+    from cffm_tpu_torch.config import OptimizerConfig
+    from cffm_tpu_torch.ops import sorted_segment as ss
+    from cffm_tpu_torch.ops import streamed_update as su
+    from cffm_tpu_torch.optim import rowwise
+    from cffm_tpu_torch.scripts import check_onchip_parity as cop
+
+    errs = {}
+    if not cop.check_scatter_update("cuda", errs):
+        fail("scatter: the scatter route's kernels disagree with the eager route")
+    b, buckets, w = *cop.SCATTER_CASES["cuda"], cop.SCATTER_W
+    v = cop.SCATTER_PREFIX + cop.SCATTER_FIELDS * buckets
+    ids = torch.from_numpy(cop._scatter_ids(b, buckets, np.random.default_rng(13))).cuda()
+    big = ids.numel()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    grads = (1e-3 * torch.randn((big, w), generator=gen, device="cuda")).to(torch.bfloat16)
+    table = torch.empty((v, w), dtype=torch.bfloat16, device="cuda")
+    for r in range(0, v, 1 << 22):
+        table[r:r + (1 << 22)] = (0.01 * torch.randn((min(1 << 22, v - r), w), generator=gen,
+                                                    device="cuda")).to(torch.bfloat16)
+    opt = OptimizerConfig(sparse_optimizer="adagrad", sparse_lr=0.05,
+                          table_rounding="stochastic")
+    accum = rowwise.rowwise_init(table, opt)["accum"]
+    order, seg, uids, bounds = rowwise.scatter_plan(ids, v, big + 1)
+    lo, n = bounds()
+    live = uids[lo:lo + n]
+    s = ss.scatter_segment_sum(order, seg, grads, lo, n)
+    key = torch.Generator().manual_seed(1)
+    lr = torch.tensor(0.05)
+
+    def sums():
+        ss.scatter_segment_sum(order, seg, grads, lo, n)
+
+    def apply():
+        su.scatter_rowwise_apply(table, {"accum": accum}, live, s, opt, lr, key)
+
+    def eager_sums():
+        return rowwise._segment_sums(grads, order, seg, uids.shape[0])[lo:lo + n]
+
+    def eager_apply():
+        su.eager_rowwise_apply(table, {"accum": accum}, live.long(), s, opt, lr, key)
+
+    def eager():
+        su.eager_rowwise_apply(table, {"accum": accum}, live.long(), eager_sums(), opt, lr, key)
+
+    reps = 20
+    out = {"live_rows": n, "ids": big, **errs,
+           "sums": {"ms": cuda_ms(sums, reps), "plain_ms": cuda_ms(eager_sums, reps),
+                    **_bound(big * w * 2 + big * 12 + n * w * 4, big * w, "float32")},
+           "apply": {"ms": cuda_ms(apply, reps), "plain_ms": cuda_ms(eager_apply, reps),
+                     **_bound(n * (4 + w * 4 + w * 2 * 2 + 8), n * w * 6, "float32")},
+           "eager_chain_ms": cuda_ms(eager, reps)}
+    for part in ("sums", "apply"):
+        out[part]["library_ms"] = out[part]["plain_ms"]
+        out[part]["share_of_bound"] = out[part]["bound_ms"] / out[part]["ms"]
+    out["kernels_ms"] = out["sums"]["ms"] + out["apply"]["ms"]
+    print(f"scatter at full-train-zipf's shapes ({big} ids, {n} live rows, W={w}, "
+          f"{v} x {w} bf16 table, stochastic, adagrad): {json.dumps(out)}", flush=True)
+    return out
 
 
 # the learn check's bars: eval AUC of each run, and the f32 and bf16 runs' gap
@@ -1646,7 +1734,8 @@ def phase_checkpoint() -> dict:
 
         def counted_run(name, c, steps, guard, log=lambda s: None):
             want = {"cross_conv1_lin_fm2": steps + 2, "cross_conv1_bwd": steps,
-                    "sorted_segment_sum_compact": steps, "streamed_rowwise_apply": steps}
+                    "sorted_segment_sum_compact": steps, "streamed_rowwise_apply": steps,
+                    "scatter_rowwise_apply": steps}
             torch.cuda.synchronize()
             _reset_counts()
             t0 = time.perf_counter()
@@ -2760,14 +2849,16 @@ def phase_train_sharded(mesh) -> dict:
 
     k = {"fm2": "cross_conv1_lin_fm2", "fm": "cross_conv1_lin_fm", "flat": "cross_conv1_lin",
          "bwd": "cross_conv1_bwd", "k6": "sorted_segment_sum_by_seg",
-         "k7": "bucketed_rowwise_apply", "k7adam": "bucketed_rowwise_adam_apply"}
+         "k7": "bucketed_rowwise_apply", "k7adam": "bucketed_rowwise_adam_apply",
+         "prefix": "scatter_rowwise_apply"}
     ev = 2
     runs = {
+        # the small-field prefix's update: one scatter_rowwise_apply a step
         "adagrad_f32": (3, {}, {k["fm2"]: 3, k["bwd"]: 3, k["k6"]: 3, k["k7"]: 3,
-                                k["flat"]: ev}),
+                                k["prefix"]: 3, k["flat"]: ev}),
         "adagrad_bf16_table": (2, {"model.table_dtype": "bfloat16"},
                                {k["fm2"]: 2, k["bwd"]: 2, k["k6"]: 2, k["k7"]: 2,
-                                k["flat"]: ev}),
+                                k["prefix"]: 2, k["flat"]: ev}),
         # no hybrid for rowwise_adam: the fm route trains, eval takes the flat entry
         "rowwise_adam": (2, {"optim.sparse_optimizer": "rowwise_adam"},
                          {k["fm"]: 2, k["bwd"]: 2, k["k6"]: 2, k["k7adam"]: 2, k["flat"]: ev}),
@@ -3166,10 +3257,15 @@ def phase_train_hier(mesh) -> dict:
     from cffm_tpu_torch import train
 
     steps, ev = 2, 2
+    # the small-field prefix's update: one scatter_rowwise_apply a step
     base = {"cross_conv1_lin_fm2": steps, "cross_conv1_bwd": steps,
-            "sorted_segment_sum_by_seg": 2 * steps, "cross_conv1_lin": ev}
+            "sorted_segment_sum_by_seg": 2 * steps, "cross_conv1_lin": ev,
+            "scatter_rowwise_apply": steps}
     out = {}
-    for name, extra, want in (("auto", MULTIHOST, base),
+    # as configured kernel 7's gate refuses: the flattened update takes the
+    # scatter route's kernels
+    scatter = {"scatter_segment_sum": steps, "scatter_rowwise_apply": 2 * steps}
+    for name, extra, want in (("auto", MULTIHOST, {**base, **scatter}),
                               ("k7_on", MULTIHOST_K7, {**base, "bucketed_rowwise_apply": steps})):
         cfg = _run_cfg(extra, "multihost")
         torch.cuda.reset_peak_memory_stats()
@@ -3862,7 +3958,8 @@ def phase_data() -> dict:
                   f"{len(val_rows)} batches, launches {launched}, native-mt chunks parsed "
                   f"{chunks[0]}, wall {wall:.1f}s", flush=True)
             want = {"cross_conv1_lin_fm2": 3 + len(val_rows), "cross_conv1_bwd": 3,
-                    "sorted_segment_sum_compact": 3, "streamed_rowwise_apply": 3}
+                    "sorted_segment_sum_compact": 3, "streamed_rowwise_apply": 3,
+                    "scatter_rowwise_apply": 3}
             if launched != want:
                 fail(f"data train.run {name}: want launches {want}, got {launched}")
             if not chunks[0]:
@@ -4335,7 +4432,8 @@ PHASES = ("parity", "parity_bwd", "parity_caps", "parity_segment", "parity_apply
           "time", "train", "learn", "checkpoint", "step_vs_cpu", "time_train",
           "parity_segment_by_seg", "parity_bucketed", "train_sharded", "sharded_multi",
           "time_sharded", "train_hier", "train_2d", "time_hier", "parity_bwd_v1",
-          "parity_dot_probe", "tools", "data", "lookup", "conv_tail", "train_full")
+          "parity_dot_probe", "tools", "data", "lookup", "conv_tail", "train_full",
+          "scatter")
 # the phases that run on the NCCL group of one
 GROUP_PHASES = ("train_sharded", "time_sharded", "train_hier", "train_2d", "time_hier")
 
@@ -4433,7 +4531,8 @@ def _run_phases(phases, phase, mesh) -> int:
     phase("data", phase_data)
     lookup = phase("lookup", phase_lookup)
     tail = phase("conv_tail", phase_conv_tail)
-    phase("train_full", phase_train_full)
+    full = phase("train_full", phase_train_full)
+    scatter = phase("scatter", phase_scatter)
 
     if set(phases) == set(PHASES):
         t = times[4096]
@@ -4538,6 +4637,18 @@ def _run_phases(phases, phase, mesh) -> int:
             **{k: tail[k] for k in keys}, "batch": 65536,
             "bwd": {k: tail["bwd"][k] for k in keys + ("eager_fwd_bwd_ms", "fused_fwd_bwd_ms")},
             "bwd_drawn_norm_gap": tail["bwd_drawn_norm_gap"]})
+        # launches from train_full's counted run of criteo_full
+        for name, fn, part, src in (
+                ("scatter_segment_sum", "scatter_segment_sum", "sums", "sorted_segment"),
+                ("scatter_apply", "scatter_rowwise_apply", "apply", "streamed_update")):
+            launches = full["launches"].get(fn, 0)
+            records.append({
+                "name": name, "route": "cuda", "source": f"cffm_tpu_torch/ops/csrc/{src}.cu",
+                "replaces": None, "launches": launches,
+                "launches_per_step": launches / full["steps"],
+                "max_abs_err": scatter[f"{part}_max_abs_err"],
+                **{k: scatter[part][k] for k in keys}, "batch": 32768,
+                "live_rows": scatter["live_rows"]})
         print(json.dumps({"kernels": records}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -135,7 +135,9 @@ def test_untouched_rows_stay_bit_equal():
 def test_the_rounded_writes_run_in_their_span_and_the_scatter_route_counts():
     """One step: the touched rows' and the prefix's rounded writes are two
     cffm.table_round spans inside cffm.sparse_update; the scatter route
-    counts itself once, its slots (the big fields' ids) and its rows."""
+    counts itself once, that it took its kernels (bf16 grads, a 256-lane
+    bf16 table), the slots its sums were sized to (the live rows) and its
+    rows."""
     cfg, state, host, pool = _state_and_batches()
     profiling.reset()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -150,8 +152,8 @@ def test_the_rounded_writes_run_in_their_span_and_the_scatter_route_counts():
                and s.time_range.end <= upd[0].time_range.end for s in spans)
     big = host[0][:, 5:]
     distinct = sum(len(set(big[:, f].tolist())) for f in range(big.shape[1]))
-    assert counts == {"sparse.scatter": 1, "sparse.scatter_slots": big.size,
-                      "sparse.scatter_rows": distinct}
+    assert counts == {"sparse.scatter": 1, "sparse.scatter_kernels": 1,
+                      "sparse.scatter_slots": distinct, "sparse.scatter_rows": distinct}
 
 
 @pytest.mark.parametrize("with_sentinels", [False, True])

@@ -264,23 +264,25 @@ def test_scratch_rows_counts_each_level(n, rows):
     assert ss.scratch_rows(n) == rows
 
 
-def _tree_sums(seg, grads, m_pad, chunk0, chunk_n):
+def _tree_sums(seg, grads, m_pad, chunk0, chunk_n, order=None, lo=0):
     """The kernel's tree, pass by pass, in f32 (csrc/sorted_segment.cu):
     level 0 walks chunks of chunk0 entries; each level above takes entry j
     = tail[j] + head[j + 1] of the level below, labelled by chunk j's last
     entry, in chunks of chunk_n; the level with one chunk stores the rest.
-    Returns (sums (m_pad, W), times each slot was stored)."""
+    With order (the scatter entry), level 0 reads entry e's row order[e]
+    and segment s goes to row s - lo, m_pad rows from lo. Returns (sums
+    (m_pad, W), times each row was stored)."""
     n, w = grads.shape
     out = np.zeros((m_pad, w), np.float32)
     stored = np.zeros(m_pad, np.int64)
 
     def store(s, acc):
-        if s < m_pad:
-            out[s] = acc
-            stored[s] += 1
+        if 0 <= s - lo < m_pad:
+            out[s - lo] = acc
+            stored[s - lo] += 1
 
     def value(e):
-        return grads[e].astype(np.float32)
+        return grads[e if order is None else order[e]].astype(np.float32)
 
     count, length, stride = n, chunk0, 1
     while count > 0:
@@ -346,3 +348,41 @@ def test_tree_of_passes_stores_each_segment_once(chunk0, chunk_n, n, kind):
     kept = min(count, m_pad)
     assert (stored[:kept] == 1).all() and (stored[kept:] == 0).all()
     np.testing.assert_array_equal(sums, _exact_sums(seg, grads, m_pad))
+
+
+SCATTER_TREES = [(ss.CHUNK0, ss.CHUNK_N, 6000, 4500), (4, 3, 100, 40), (2, 2, 33, 20)]
+
+
+@pytest.mark.parametrize("chunk0,chunk_n,n,hot", SCATTER_TREES,
+                         ids=[f"{a}-{b}-{n}" for a, b, n, _ in SCATTER_TREES])
+def test_the_scatter_entry_stores_each_live_segment_once_at_its_row(chunk0, chunk_n, n, hot):
+    """The scatter entry's compaction, modelled on its tree: grads read in
+    their own order through the sort's permutation, negative ids first and
+    the sentinel run last; every live segment s stored once, at row s - lo,
+    with its exact sum, and nothing of the other segments. At the kernel's
+    chunks one live segment of `hot` > 128 x 32 entries runs through two
+    levels above the first; the plain version agrees bit for bit."""
+    rng = np.random.default_rng(n)
+    rows = 50
+    ids = rng.integers(-3, rows + 1, size=n)
+    ids[rng.permutation(n)[:hot]] = 7  # one long live segment
+    ids[rng.permutation(n)[:n // 20]] = rows  # the sentinel run
+    order = np.argsort(ids, kind="stable")
+    sid = ids[order]
+    seg = np.cumsum(np.r_[0, (sid[1:] != sid[:-1]).astype(np.int64)]).astype(np.int32)
+    lo = len(np.unique(sid[sid < 0]))
+    live = len(np.unique(sid[(sid >= 0) & (sid < rows)]))
+    grads = rng.integers(-4, 5, size=(n, 8)).astype(np.float32)
+    sums, stored = _tree_sums(seg, grads, live, chunk0, chunk_n, order=order, lo=lo)
+    assert (stored == 1).all()
+    want = np.zeros((live, 8), np.float32)
+    np.add.at(want, seg[(seg >= lo) & (seg < lo + live)] - lo,
+              grads[order][(seg >= lo) & (seg < lo + live)])
+    np.testing.assert_array_equal(sums, want)
+    if chunk0 == ss.CHUNK0:
+        assert (seg == seg[np.searchsorted(sid, 7)]).sum() > ss.CHUNK0 * ss.CHUNK_N
+        assert ss.scratch_rows(n) > 2 * -(-n // ss.CHUNK0)  # a second level above the first
+    plain = ss.scatter_segment_sum_reference(
+        torch.from_numpy(order), torch.from_numpy(seg.astype(np.int64)),
+        torch.from_numpy(grads), lo, live)
+    np.testing.assert_array_equal(plain.numpy(), want)

@@ -154,17 +154,33 @@ def test_streamed_update_counts_slots_and_distinct_rows(field_major):
                       "sparse.distinct_rows": distinct}
 
 
-def test_the_scatter_route_counts_nothing():
-    """Nothing of the streamed route's counters: the scatter route counts
-    itself, the slots its segment sums were sized to and the rows it wrote."""
+def _scatter_counts(grads_dtype):
+    """The counters of one scatter-route update of 256 ids into a 4000 x
+    128 table, and the ids' distinct rows."""
     table = torch.randn(4000, 128) * 0.01
     opt = config.OptimizerConfig(sparse_optimizer="adagrad", streamed_update="off")
     ids = torch.randint(0, 4000, (256,))
     with _profiled():
         rowwise.rowwise_update(table, rowwise.rowwise_init(table, opt), ids,
-                               torch.randn(256, 128), opt)
-    assert profiling.counts() == {"sparse.scatter": 1, "sparse.scatter_slots": 256,
-                                  "sparse.scatter_rows": int(torch.unique(ids).numel())}
+                               torch.randn(256, 128).to(grads_dtype), opt)
+    return profiling.counts(), int(torch.unique(ids).numel())
+
+
+def test_the_scatter_route_counts_nothing():
+    """Nothing of the streamed route's counters: the scatter route counts
+    itself, that it took its kernels (bf16 grads), the slots its segment
+    sums were sized to (the live rows) and the rows it wrote."""
+    counts, rows = _scatter_counts(torch.bfloat16)
+    assert counts == {"sparse.scatter": 1, "sparse.scatter_kernels": 1,
+                      "sparse.scatter_slots": rows, "sparse.scatter_rows": rows}
+
+
+def test_the_scatter_route_s_eager_sums_count_a_slot_per_id():
+    """f32 grads keep the eager code, whose sums take a slot per id; no
+    sparse.scatter_kernels."""
+    counts, rows = _scatter_counts(torch.float32)
+    assert counts == {"sparse.scatter": 1, "sparse.scatter_slots": 256,
+                      "sparse.scatter_rows": rows}
 
 
 def _state(cfg, seed=0):

@@ -277,3 +277,63 @@ def test_cli_distributed_needs_torchrun(monkeypatch):
     monkeypatch.setattr(train, "run", lambda cfg, device=None: calls.append(device) or {"auc": 0.5})
     assert cli_main(["--config=movielens", "--distributed", "--device=cpu"]) == 0
     assert calls == ["cpu"]
+
+
+@pytest.mark.parametrize("sizes", [MIXED, (64,) * 13 + (1000,) * 2],
+                         ids=["unequal_small_fields", "equal_small_fields"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_prefix_gradient_is_each_field_s_one_hot_product(sizes, dtype):
+    """`train.prefix_grad`'s one batched product, bit for bit each small
+    field's transposed one-hot product in the compute dtype, with ids
+    outside their field's block adding nothing."""
+    mcfg = config.ModelConfig(num_fields=len(sizes), vocab_sizes=sizes)
+    fs, b, w = mcfg.small_field_prefix, 300, 128
+    gen = torch.Generator().manual_seed(0)
+    offs = np.cumsum((0,) + sizes[:fs - 1])
+    ids = torch.stack([torch.randint(-3, n + 3, (b,), generator=gen) + int(o)
+                       for n, o in zip(sizes[:fs], offs)]).to(torch.int32)
+    g = torch.randn((fs, b, w), generator=gen).to(dtype)
+    want = []
+    for f, (n, o) in enumerate(zip(sizes[:fs], offs)):
+        onehot = (torch.arange(n)[:, None] + int(o) == ids[f][None, :]).to(dtype)
+        want.append(onehot @ g[f])
+    got = train.prefix_grad(g, ids, mcfg)
+    assert got.dtype == torch.float32 and got.shape == (mcfg.small_rows, w)
+    assert torch.equal(got, torch.cat(want).float())
+
+
+@pytest.mark.parametrize("sparse", ["adagrad", "sgd"])
+@pytest.mark.parametrize("table_dtype,rounding", [(torch.float32, "nearest"),
+                                                 (torch.bfloat16, "nearest"),
+                                                 (torch.bfloat16, "stochastic")])
+@pytest.mark.parametrize("clip", [0.0, 0.05])
+def test_the_prefix_update_through_the_apply_kernel_keeps_the_dense_form_s_bits(
+        sparse, table_dtype, rounding, clip):
+    """`train.prefix_update` takes kernel 4's apply from f32 sums (on the CPU
+    its eager plain version): table and state bit for bit what
+    `rowwise.dense_rowwise_apply` gives the first rows, with the same
+    folded key; rows past them and rows of zero gradient keep their bits."""
+    from cffm_tpu_torch.optim import rowwise
+
+    opt = config.OptimizerConfig(sparse_optimizer=sparse, sparse_lr=0.05, clip_norm=clip,
+                                 table_rounding=rounding)
+    gen = torch.Generator().manual_seed(1)
+    start = (0.01 * torch.randn((900, 256), generator=gen)).to(table_dtype)
+    rows = 832
+    g = 0.1 * torch.randn((rows, 256), generator=gen)
+    g[5:40] = 0.0
+    assert rowwise.apply_kernel_takes(start, opt)
+    key = torch.Generator().manual_seed(2)
+    table, state = start.clone(), rowwise.rowwise_init(start, opt)
+    train.prefix_update(table, state, rows, g, opt, torch.tensor(0.5), key)
+    want_state = rowwise.rowwise_init(start, opt)
+    want, new = rowwise.dense_rowwise_apply(
+        start[:rows].clone(), {k: v[:rows] for k, v in want_state.items()}, g, opt,
+        lr_scale=torch.tensor(0.5), sr_key=rowwise.fold_in(key, 1))
+    bits = torch.int16 if table_dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(table[:rows].view(bits), want.view(bits))
+    assert torch.equal(table[rows:].view(bits), start[rows:].view(bits))
+    assert torch.equal(table[5:40].view(bits), start[5:40].view(bits))
+    for k, v in new.items():
+        assert torch.equal(state[k][:rows], v), k
+        assert torch.equal(state[k][rows:], want_state[k][rows:]), k
